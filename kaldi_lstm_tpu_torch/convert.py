@@ -8,6 +8,9 @@ layers are dicts read by key, the rest are empty. It needs no import of
 the JAX package. ``params_to_numpy`` is its inverse: it returns this
 package's structure (``LstmParams`` of numpy arrays, dicts of numpy
 arrays), which the JAX side rebuilds with ``LstmParams(**p._asdict())``.
+``momentum_from_numpy`` / ``momentum_to_numpy`` do the same for the
+optimizer's momentum buffer (``MomentumState.corr``, a tree shaped like
+the params), so both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from kaldi_lstm_tpu_torch.models.components import _LstmBase
 from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams
+from kaldi_lstm_tpu_torch.train.optim import MomentumState
 
 
 def _t(a, device) -> torch.Tensor:
@@ -45,3 +49,13 @@ def params_to_numpy(params) -> tuple:
         else:
             out.append({k: v.detach().cpu().numpy() for k, v in p.items()})
     return tuple(out)
+
+
+def momentum_from_numpy(nnet, corr_np, device=None) -> MomentumState:
+    """The JAX package's ``MomentumState.corr`` as numpy arrays (same
+    structure as its params) -> this package's MomentumState."""
+    return MomentumState(corr=params_from_numpy(nnet, corr_np, device))
+
+
+def momentum_to_numpy(opt_state: MomentumState) -> tuple:
+    return params_to_numpy(opt_state.corr)

@@ -9,7 +9,9 @@ interoperate with the JAX package and with upstream Kaldi:
 * basic types are written as a size byte then little-endian payload;
 * float matrices are ``FM `` + int32 rows + int32 cols + row-major f32;
   compressed feature matrices (``CM``/``CM2``/``CM3``) are read;
-* float vectors are ``FV `` + int32 dim + f32 data.
+* float vectors are ``FV `` + int32 dim + f32 data;
+* posteriors are int32 frames, then per frame int32 n and n (int32
+  pdf-id, f32 weight) pairs (text: ``[ id w id w ] [ ... ]``).
 
 rspecifiers understood: ``ark:file``, ``scp:file``, ``ark:-`` (stdin),
 and trailing-``|`` command pipes (``ark:gunzip -c f.gz |``).
@@ -23,11 +25,14 @@ import struct
 import subprocess
 import sys
 import warnings
-from typing import Iterator
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
 BINARY_HEADER = b"\0B"
+
+# per frame a list of (pdf-id, weight) pairs
+Posterior = List[List[Tuple[int, float]]]
 
 
 def _probe_binary_header(stream) -> tuple[bool, object]:
@@ -376,6 +381,81 @@ def read_int_vector(inp: KaldiInput) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# posteriors
+# ---------------------------------------------------------------------------
+
+def write_posterior(out: KaldiOutput, post: Posterior) -> None:
+    if out.binary:
+        write_int32(out, len(post))
+        for frame in post:
+            write_int32(out, len(frame))
+            for pdf, weight in frame:
+                write_int32(out, int(pdf))
+                write_float(out, float(weight))
+    else:
+        for frame in post:
+            out.stream.write(b"[ ")
+            for pdf, weight in frame:
+                out.stream.write(f"{int(pdf)} {weight:.7g} ".encode())
+            out.stream.write(b"] ")
+        out.stream.write(b"\n")
+
+
+def read_posterior(inp: KaldiInput) -> Posterior:
+    if inp.binary:
+        nframes = read_int32(inp)
+        post: Posterior = []
+        for _ in range(nframes):
+            n = read_int32(inp)
+            frame = []
+            for _ in range(n):
+                pdf = read_int32(inp)
+                weight = read_float(inp)
+                frame.append((pdf, weight))
+            post.append(frame)
+        return post
+    # text: "[ id w id w ] [ ... ] \n"
+    post = []
+    while True:
+        tok = read_token(inp)
+        if tok != "[":
+            raise ValueError(f"read_posterior(text): expected '[', got {tok!r}")
+        frame = []
+        while True:
+            tok = read_token(inp)
+            if tok == "]":
+                break
+            frame.append((int(tok), float(read_token(inp))))
+        post.append(frame)
+        # peek for the record's newline or the next frame; never wrap the
+        # shared table stream in a new BufferedReader (its read-ahead
+        # would swallow the next records)
+        peek = getattr(inp.stream, "peek", None)
+        if peek is None:  # unbuffered source: push the byte back
+            c = inp.read(1)
+            while c and c in b" \t":
+                c = inp.read(1)
+            if not c or c == b"\n":
+                return post
+            if c != b"[":
+                raise ValueError("read_posterior(text): malformed")
+            inp.stream = _ChainedStream(b"[", inp.stream)
+            continue
+        while True:
+            c = peek(1)[:1]
+            if c in (b" ", b"\t"):
+                inp.read(1)
+                continue
+            break
+        if not c or c == b"\n":
+            if c:
+                inp.read(1)  # consume the record's newline
+            return post
+        if c != b"[":
+            raise ValueError("read_posterior(text): malformed")
+
+
+# ---------------------------------------------------------------------------
 # rspecifiers / wspecifiers and table readers/writers
 # ---------------------------------------------------------------------------
 
@@ -549,3 +629,103 @@ class TableWriter:
 
 def MatrixWriter(wspecifier: str) -> TableWriter:
     return TableWriter(wspecifier, write_matrix)
+
+
+def PosteriorWriter(wspecifier: str) -> TableWriter:
+    return TableWriter(wspecifier, write_posterior)
+
+
+def _buffered(stream) -> io.BufferedReader:
+    return stream if isinstance(stream, io.BufferedReader) \
+        else io.BufferedReader(stream)
+
+
+class SequentialPosteriorReader:
+    """Sequential (key, Posterior) iteration over `ark:` posterior tables
+    (files, `-`, trailing-`|` pipes)."""
+
+    def __init__(self, rspecifier: str):
+        kind, stream = _open_rspecifier(rspecifier)
+        if kind != "ark":
+            raise ValueError("sequential posterior reading expects ark:, "
+                             f"got {rspecifier!r}")
+        self._stream = _buffered(stream)
+
+    def __iter__(self) -> Iterator[tuple[str, Posterior]]:
+        while True:
+            key = _read_key(self._stream)
+            if key is None:
+                return
+            yield key, read_posterior(_read_value_header(self._stream))
+
+
+class RandomAccessPosteriorReader:
+    """Random-access posterior reader: an `ark:` table is read whole into
+    memory (an epoch's targets fit on the host); `scp:` values are read
+    lazily by offset. `max_entries` is the sparse-target width Kmax that
+    `value_dense` defaults to."""
+
+    def __init__(self, rspecifier: str, max_entries: int = 1):
+        self.kind, stream = _open_rspecifier(rspecifier)
+        self.max_entries = max_entries
+        self._table: dict[str, Posterior] = {}
+        self._scp: dict[str, str] = {}
+        if self.kind == "ark":
+            buffered = _buffered(stream)
+            while True:
+                key = _read_key(buffered)
+                if key is None:
+                    break
+                self._table[key] = read_posterior(_read_value_header(buffered))
+            if buffered is not sys.stdin.buffer:
+                buffered.close()
+        else:
+            with io.TextIOWrapper(stream) as lines:
+                for line in lines:
+                    line = line.strip()
+                    if line:
+                        key, path = line.split(None, 1)
+                        self._scp[key] = path
+
+    def has_key(self, key: str) -> bool:
+        return key in self._table or key in self._scp
+
+    def value(self, key: str) -> Posterior:
+        if key in self._table:
+            return self._table[key]
+        path, offset = _split_offset(self._scp[key])
+        with open(path, "rb") as f:
+            if offset is not None:
+                f.seek(offset)
+            return read_posterior(KaldiInput(io.BufferedReader(
+                io.FileIO(f.fileno(), closefd=False))))
+
+    def value_dense(self, key: str, max_entries: int | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Targets as ([T, Kmax] int32 ids, [T, Kmax] float32 weights);
+        entries past Kmax are dropped, missing ones have weight 0."""
+        k = self.max_entries if max_entries is None else max_entries
+        post = self.value(key)
+        ids = np.zeros((len(post), k), np.int32)
+        w = np.zeros((len(post), k), np.float32)
+        for t, frame in enumerate(post):
+            for j, (pdf, weight) in enumerate(frame[:k]):
+                ids[t, j] = pdf
+                w[t, j] = weight
+        return ids, w
+
+
+def read_float_vectors(rspecifier: str) -> dict[str, np.ndarray]:
+    """Read a whole float-vector table (`ark:`) into a dict, e.g. the
+    per-frame weights of `--frame-weights`."""
+    kind, stream = _open_rspecifier(rspecifier)
+    if kind != "ark":
+        raise ValueError("float-vector tables: only ark: supported")
+    buffered = _buffered(stream)
+    out = {}
+    while True:
+        key = _read_key(buffered)
+        if key is None:
+            break
+        out[key] = read_vector(_read_value_header(buffered))
+    return out

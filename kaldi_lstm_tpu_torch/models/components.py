@@ -26,7 +26,8 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import (
     lstm_scan,
     zero_state,
 )
-from kaldi_lstm_tpu_torch.ops.lstm_infer import lstm_infer
+from kaldi_lstm_tpu_torch.ops.lstm_infer import lstm_infer, needs_grad
+from kaldi_lstm_tpu_torch.ops.lstm_train import lstm_train
 
 Params = Any   # component parameters ({} when parameter-free)
 State = Any    # recurrent state (None when stateless)
@@ -59,6 +60,8 @@ class Component:
     updatable: bool = False
     stateful: bool = False
     uses_rng: bool = False
+    # apply() is elementwise along [S, T], so [T, S] input works as well
+    axis_invariant: bool = True
 
     def __init__(self, input_dim: int, output_dim: int):
         self.input_dim = int(input_dim)
@@ -148,6 +151,7 @@ class TimeShift(Component):
     with edge clamping."""
 
     token = "<TimeShift>"
+    axis_invariant = False
 
     def __init__(self, input_dim, output_dim, shift: int = 0):
         super().__init__(input_dim, output_dim)
@@ -228,6 +232,7 @@ class Splice(Component):
     out[t] = concat(in[clamp(t + off)] for off in offsets)."""
 
     token = "<Splice>"
+    axis_invariant = False
 
     def __init__(self, input_dim, output_dim, offsets=None):
         super().__init__(input_dim, output_dim)
@@ -435,6 +440,13 @@ class AffineTransform(Component):
 class _LstmBase(Component):
     updatable = True
     uses_rng = True
+    axis_invariant = False
+    # apply() accepts input_grad=False: the backward skips dx when the
+    # layer's input needs no gradient (first layer over the features)
+    accepts_input_grad_flag = True
+    # apply() accepts time_major=True ([T, S, .] in and out), the
+    # kernels' own layout, so the fused train step needs no transposes
+    supports_time_major = True
 
     def __init__(self, input_dim, output_dim, cell_dim: int = 0,
                  param_scale: float = 0.02):
@@ -449,8 +461,9 @@ class _LstmBase(Component):
         self.dropout_rate = 0.0
 
     def _dropout_mask(self, rng, x):
-        """Bool KEEP mask [*, *, 4C] (layout-shaped); None when dropout
-        is off."""
+        """Bool KEEP mask [*, *, 4C] (layout-shaped) drawn from the
+        component's generator ``rng`` on its own device; None when
+        dropout is off."""
         if self.dropout_rate <= 0.0 or rng is None:
             return None
         keep = 1.0 - self.dropout_rate
@@ -460,30 +473,32 @@ class _LstmBase(Component):
         return (u < keep).to(x.device)
 
     def _run_scan(self, params, x, state, dropout_mask=None,
-                  time_major=False, advance_mask=None):
-        """Dispatch: a CUDA tensor goes to the hand-written inference
-        kernel, a CPU tensor to the eager scan."""
-        if x.device.type == "cuda":
-            if advance_mask is not None:
+                  time_major=False, input_grad=True, advance_mask=None):
+        """Dispatch on the call, the same for both devices: a training
+        call (a gradient is needed, or a dropout mask is given) goes to
+        ``lstm_train`` (K1/K2 on CUDA), an inference call to
+        ``lstm_infer`` (K5 on CUDA); each takes its plain version for a
+        CPU tensor. ``advance_mask`` runs the eager scan on the CPU only.
+        """
+        keep = 1.0 - self.dropout_rate
+        if advance_mask is not None:
+            if x.device.type == "cuda":
                 raise NotImplementedError(
                     "advance_mask on CUDA: per-frame state gating in the "
                     "kernel is ROADMAP queue A item 3 (streaming scoring)")
-            if dropout_mask is not None:
-                raise NotImplementedError(
-                    "gate dropout on CUDA: the training kernels are "
-                    "ROADMAP queue A item 2 (training step)")
-            return lstm_infer(params, x, state, self.cell_clip,
-                              time_major=time_major)
-        if dropout_mask is None and advance_mask is None:
-            return lstm_infer(params, x, state, self.cell_clip,
-                              time_major=time_major)
-        keep = 1.0 - self.dropout_rate
-        gate_mult = None if dropout_mask is None else \
-            dropout_mask.to(x.dtype) / keep
-        return lstm_scan(params, x, state, self.cell_clip,
-                         gate_dropout_mask=gate_mult,
-                         time_major=time_major,
-                         advance_mask=advance_mask)
+            gate_mult = None if dropout_mask is None else \
+                dropout_mask.to(x.dtype) / keep
+            return lstm_scan(params, x, state, self.cell_clip,
+                             gate_dropout_mask=gate_mult,
+                             time_major=time_major,
+                             advance_mask=advance_mask)
+        if dropout_mask is not None or needs_grad(params, x, state):
+            return lstm_train(params, x, state, self.cell_clip,
+                              time_major=time_major,
+                              gate_keep_mask=dropout_mask, keep_prob=keep,
+                              need_input_grad=input_grad)
+        return lstm_infer(params, x, state, self.cell_clip,
+                          time_major=time_major)
 
     def init_params(self, generator, device=None) -> LstmParams:
         return init_lstm_params(generator, self.input_dim, self.cell_dim,
@@ -548,11 +563,12 @@ class LstmProjected(_LstmBase):
     token = "<LstmProjected>"
 
     def apply(self, params: LstmParams, x, state=None, rng=None,
-              train=False, time_major=False):
+              train=False, time_major=False, input_grad=True):
         S = x.shape[1] if time_major else x.shape[0]
         st = zero_state(S, self.cell_dim, self.recur_dim, x.dtype, x.device)
         mask = self._dropout_mask(rng, x) if train else None
-        out, _ = self._run_scan(params, x, st, mask, time_major=time_major)
+        out, _ = self._run_scan(params, x, st, mask, time_major=time_major,
+                                input_grad=input_grad)
         return out, None
 
     def read_data(self, inp, device=None):
@@ -593,13 +609,15 @@ class LstmProjectedStreams(_LstmBase):
                           device=device)
 
     def apply(self, params: LstmParams, x, state: Optional[LstmState] = None,
-              rng=None, train=False, time_major=False, advance_mask=None):
+              rng=None, train=False, time_major=False, input_grad=True,
+              advance_mask=None):
         if state is None:
             nstream = x.shape[1] if time_major else x.shape[0]
             state = zero_state(nstream, self.cell_dim, self.recur_dim,
                                x.dtype, x.device)
         mask = self._dropout_mask(rng, x) if train else None
         return self._run_scan(params, x, state, mask, time_major=time_major,
+                              input_grad=input_grad,
                               advance_mask=advance_mask)
 
     def read_data(self, inp, device=None):

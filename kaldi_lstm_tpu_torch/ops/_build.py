@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``). The library's
-file name carries a hash of its source and the compiler flags, so an
-edit rebuilds it and an unchanged source is reused. Output goes to
+file name carries a hash of its source, of every header in ``csrc/``
+(``*.cuh``, ``*.h``) and of the compiler flags, so an edit to any of
+them rebuilds it and an unchanged source is reused. Output goes to
 ``kaldi_lstm_tpu_torch/_build/`` (listed in ``.gitignore``). A build is
 written to a temporary name and renamed into place, so concurrent
 processes never load a half-written library.
@@ -45,10 +46,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}.{h}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR)
+                     if f.endswith((".cuh", ".h")))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

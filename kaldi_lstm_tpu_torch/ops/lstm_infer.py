@@ -6,7 +6,9 @@ an inference call (no dropout, no advance mask, float32). On a CUDA
 tensor it launches ``csrc/lstmp_infer.cu`` (two kernels per timestep on
 the current stream; see the source for the design) or raises; on a CPU
 tensor it runs the plain version, ``lstm_cell.lstm_scan``. It never
-falls back from the card to the plain version.
+falls back from the card to the plain version. A call that autograd
+would record (a gradient is needed) goes to ``lstm_train.lstm_train``,
+whose kernels keep the residuals the backward reads.
 
 ``LAUNCHES`` counts the CUDA kernel launches made (two per timestep);
 ``PLAIN_CALLS`` counts the calls that took the plain version. A caller
@@ -44,15 +46,42 @@ def _entry():
     return fn
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           op: str = "lstm_infer", dtype=torch.float32) -> None:
     if t.device != device:
-        raise ValueError(f"lstm_infer: {name} is on {t.device}, "
-                         f"x is on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"lstm_infer: {name} must be float32, got {t.dtype}")
+        raise ValueError(f"{op}: {name} is on {t.device}, x is on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"lstm_infer: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
+
+
+def check_lstm_operands(params: LstmParams, T: int, S: int, I: int,
+                        state: LstmState, device, op: str) -> None:
+    """Device, dtype and shape checks shared by the LSTMP kernels'
+    wrappers (the kernels take float32 [T, S, .] operands only)."""
+    C, R = params.cell_dim, params.recur_dim
+    _check("w_gifo_x", params.w_gifo_x, (4 * C, I), device, op)
+    _check("w_gifo_r", params.w_gifo_r, (4 * C, R), device, op)
+    _check("bias", params.bias, (4 * C,), device, op)
+    for name in ("peephole_i_c", "peephole_f_c", "peephole_o_c"):
+        _check(name, getattr(params, name), (C,), device, op)
+    _check("w_r_m", params.w_r_m, (R, C), device, op)
+    _check("state.c", state.c, (S, C), device, op)
+    _check("state.r", state.r, (S, R), device, op)
+    if min(S, I, C, R) <= 0:
+        raise ValueError(f"{op}: empty dimension S={S} I={I} C={C} R={R}")
+    if S > _MAX_STREAMS:
+        raise ValueError(f"{op}: S={S} exceeds {_MAX_STREAMS}")
+
+
+def needs_grad(params: LstmParams, x: torch.Tensor,
+               state: LstmState) -> bool:
+    """Whether autograd would record a call on these operands."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params)
+        or state.c.requires_grad or state.r.requires_grad)
 
 
 def _kernel_operands(params: LstmParams) -> tuple[torch.Tensor, ...]:
@@ -74,6 +103,11 @@ def lstm_infer(params: LstmParams, x: torch.Tensor, state: LstmState,
     ([T, S, I] with ``time_major``) from the carried ``state``.
     Returns (r_out with x's layout, final state)."""
     global LAUNCHES, PLAIN_CALLS
+    if needs_grad(params, x, state):
+        # the inference kernel keeps no residuals: a gradient needs the
+        # training kernels (K1 forward, K2 backward)
+        from kaldi_lstm_tpu_torch.ops.lstm_train import lstm_train
+        return lstm_train(params, x, state, cell_clip, time_major=time_major)
     if x.device.type == "cpu":
         PLAIN_CALLS += 1
         return lstm_scan(params, x, state, cell_clip, time_major=time_major)
@@ -81,29 +115,11 @@ def lstm_infer(params: LstmParams, x: torch.Tensor, state: LstmState,
         raise ValueError(f"lstm_infer: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"lstm_infer: x must be 3-D, got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in params)
-            or state.c.requires_grad or state.r.requires_grad):
-        raise NotImplementedError(
-            "lstm_infer: the CUDA kernel is forward-only; the training "
-            "kernels (K1/K2) are ROADMAP queue A item 2")
     T, S, I = x.shape if time_major else (x.shape[1], x.shape[0], x.shape[2])
     C, R = params.cell_dim, params.recur_dim
     dev = x.device
     _check("x", x, (T, S, I) if time_major else (S, T, I), dev)
-    _check("w_gifo_x", params.w_gifo_x, (4 * C, I), dev)
-    _check("w_gifo_r", params.w_gifo_r, (4 * C, R), dev)
-    _check("bias", params.bias, (4 * C,), dev)
-    for name in ("peephole_i_c", "peephole_f_c", "peephole_o_c"):
-        _check(name, getattr(params, name), (C,), dev)
-    _check("w_r_m", params.w_r_m, (R, C), dev)
-    _check("state.c", state.c, (S, C), dev)
-    _check("state.r", state.r, (S, R), dev)
-    if min(S, I, C, R) <= 0:
-        raise ValueError(f"lstm_infer: empty dimension S={S} I={I} C={C} "
-                         f"R={R}")
-    if S > _MAX_STREAMS:
-        raise ValueError(f"lstm_infer: S={S} exceeds {_MAX_STREAMS}")
+    check_lstm_operands(params, T, S, I, state, dev, "lstm_infer")
     if T == 0:
         out = x.new_empty((T, S, R) if time_major else (S, T, R))
         return out, state

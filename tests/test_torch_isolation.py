@@ -1,7 +1,8 @@
 """The port stands alone and never moves to the CPU on its own:
 
-* importing every module of `kaldi_lstm_tpu_torch` loads neither `jax`
-  nor the JAX package (checked in a fresh interpreter);
+* importing every module of `kaldi_lstm_tpu_torch` (the training slice
+  among them) loads neither `jax` nor the JAX package (checked in a
+  fresh interpreter), and `chip_smoke.py` imports neither;
 * `lstm_infer` on a CPU tensor takes the plain version and counts no
   kernel launch;
 * `--device cuda` without CUDA exits 1 and writes nothing;
@@ -37,7 +38,20 @@ bad = sorted(m for m in sys.modules
              or m == "kaldi_lstm_tpu" or m.startswith("kaldi_lstm_tpu."))
 print(len(names), bad)
 assert not bad, bad
+print(" ".join(names))
 """
+
+_TRAIN_MODULES = {
+    "kaldi_lstm_tpu_torch.ops.lstm_train",
+    "kaldi_lstm_tpu_torch.ops.xent_affine",
+    "kaldi_lstm_tpu_torch.train.loss",
+    "kaldi_lstm_tpu_torch.train.optim",
+    "kaldi_lstm_tpu_torch.train.streams",
+    "kaldi_lstm_tpu_torch.train.trainer",
+    "kaldi_lstm_tpu_torch.train.checkpoint",
+    "kaldi_lstm_tpu_torch.tools.train_lstm_streams",
+    "kaldi_lstm_tpu_torch.utils.tree",
+}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -47,7 +61,24 @@ def test_port_imports_no_jax_and_no_jax_package():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 24
+    assert _TRAIN_MODULES <= set(res.stdout.splitlines()[1].split())
+
+
+def test_chip_smoke_imports_no_jax():
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names if n == "jax" or n.startswith("jax.")
+                 or n == "kaldi_lstm_tpu" or n.startswith("kaldi_lstm_tpu."))
+    assert not bad, bad
+    assert "kaldi_lstm_tpu_torch.train.trainer" in names
 
 
 def _case(S=3, T=5, I=7, C=9, R=6, device="cpu", scale=0.3):
@@ -93,6 +124,7 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
         nnet_copy,
         nnet_forward,
         nnet_initialize,
+        train_lstm_streams,
     )
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "out.ark"
@@ -100,7 +132,9 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
                               "--device", "cuda"]) == 1
     assert nnet_initialize.main(["p.proto", str(tmp_path / "n")]) == 1
     assert nnet_copy.main(["m.nnet", str(tmp_path / "c")]) == 1
-    assert not out.exists()
+    assert train_lstm_streams.main(["ark:f.ark", "ark:p.ark", "m.nnet",
+                                    str(tmp_path / "t.nnet")]) == 1
+    assert not out.exists() and not (tmp_path / "t.nnet").exists()
 
 
 @pytest.fixture
