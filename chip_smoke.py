@@ -10,12 +10,22 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
 2. build every kernel from kaldi_lstm_tpu_torch/csrc/ (one nvcc each,
    started together) and print nvcc's register/shared-memory report;
 3. hold the inference kernel (K5) against its plain PyTorch version on
-   the card at the serving path's widths, and time both with CUDA events;
+   the card at the serving path's widths and at the deep config's layer-2
+   width (I=512), and time both with CUDA events;
 3b. hold the training kernels K1-K4 (LSTMP forward with residuals, BPTT,
    fused senone affine + xent forward and backward) against their plain
    versions at the flagship training width (S=256, T=20, I=40, C=800,
-   R=512, K=8000) and on ragged, clipped, dropout, no-dx, final-state-
-   cotangent and argmax-tie cases; time kernel and plain; print bounds;
+   R=512, K=8000), at the deep config's new shapes (K1/K2 with dx at
+   I=512, K3/K4 at K=16624) and on ragged, clipped, dropout, no-dx,
+   final-state-cotangent and argmax-tie cases; time kernel and plain;
+   print bounds;
+3c. hold the wavefront two-layer kernels K6/K7 against their plain
+   versions at the deep config's width (S=512, T=20, tb 5/4/2/1, nonzero
+   states), on a ragged clipped case and K7 at the serving shape (S=8,
+   T=1000); K6's residuals through K2 against K1's; time kernel, plain
+   and the serial two-kernel schedule; then drive the port's
+   `tools/bench_wavefront` (A/B, ablation, profile) with the K6/K7
+   counts zeroed before its A/B and read after;
 4. drive the serving path: `nnet_forward` scoring of the full-width
    standard decode net (TimeShift(5) -> LstmProjected 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax, random weights from a seed) over
@@ -31,7 +41,18 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    cross-validation AvgLoss after the epoch than before, and two steps
    on the card against the same two steps on the port's CPU path; print
    train throughput and a profile of one step;
-6. print one JSON line with every kernel, then the device line last.
+6. drive the deep path (2 x LSTMP 800c/512r -> 16624 senones) through
+   the layer-stacking recipe at full width: `run_recipe` trains the
+   one-layer net, `nnet_edit` stacks a fresh LSTMP-2 and senone affine
+   on the frozen trunk, `run_recipe` trains that (the trunk stays
+   bit-identical), `nnet_edit` unfreezes, `run_recipe` fine-tunes
+   (cross-validation AvgLoss falls), `nnet_info` prints the net,
+   `nnet_copy --to-standard` converts it and `nnet_forward` scores with
+   class counts; K1-K5 counts against the prediction for every step and
+   batch, no plain call; one deep step and three utterances' scores on
+   the card against the port's CPU path; print the warm deep step, the
+   deep scoring rate and a profile of one deep step;
+7. print one JSON line with every kernel, then the device line last.
 """
 
 from __future__ import annotations
@@ -99,6 +120,26 @@ TRAIN_LR = 2e-5
 # affine and an 8000-wide log-softmax, and the CPU and cuBLAS GEMMs sum
 # in different orders; 1e-3 abs is ~1e-4 relative at that magnitude.
 SCORE_ATOL = 1e-3
+# The deep config (bench.py:91-100, BASELINE config 4: the reference's
+# own decode-example model), trained through the layer-stacking recipe
+# of examples/flagship_experiment.sh:127-200: the one-layer net, then a
+# fresh LSTMP-2 + senone affine on the frozen trunk, then the whole
+# stack.
+DEEP_K = 16624
+DEEP_PRE_PROTO = """<NnetProto>
+<Transmit> <InputDim> 40 <OutputDim> 40
+<LstmProjectedStreams> <InputDim> 40 <OutputDim> 512 <CellDim> 800 <ParamScale> 0.01 <NumStream> 4
+<AffineTransform> <InputDim> 512 <OutputDim> 16624 <ParamStddev> 0.04
+<Softmax> <InputDim> 16624 <OutputDim> 16624
+</NnetProto>
+"""
+DEEP_STACK_LINES = (
+    "<LstmProjectedStreams> <InputDim> 512 <OutputDim> 512 <CellDim> 800 "
+    "<ParamScale> 0.01 <NumStream> 4\n"
+    "<AffineTransform> <InputDim> 512 <OutputDim> 16624 <ParamStddev> 0.04")
+# one deep step, card vs the port's CPU path, on 64 streams (bounds the
+# CPU's time); tolerances as phase 5's
+DEEP_CHECK_S = 64
 
 
 def log(msg: str) -> None:
@@ -189,6 +230,7 @@ def phase_kernels():
         ("full T=128 clip active", (8, 128, 40, 800, 512), 1.0,
          {"x_scale": 20.0, "param_scale": 0.2}),
         ("ragged S=3 I=37 C=200 R=130", (3, 128, 37, 200, 130), 50.0, {}),
+        ("deep layer 2, I=512 T=128", (8, 128, 512, 800, 512), 50.0, {}),
     ]
     worst = 0.0
     record = None
@@ -456,13 +498,16 @@ def phase_train_kernels():
          False),
         ("ragged S=3 I=37 C=200 R=130, clip active", (3, T, 37, 200, 130),
          1.0, 0.8, True, {"x_scale": 20.0, "param_scale": 0.2}, False),
+        ("deep layer 2, I=512, dx", (S, T, 512, C, R), 50.0, None, True, {},
+         "deep"),
     ]
+    # timed: True = the main path's record; "deep" = printed only
     for i, (name, dims, clip, keep, dx, extra, timed) in \
             enumerate(lstm_cases):
         w, rec = lstm_train_case(name, *dims, clip, keep, dx, 40 + i,
-                                 timed=timed, **extra)
+                                 timed=bool(timed), **extra)
         worst["K1"] = worst["K2"] = max(worst["K1"], w)
-        if rec:
+        if rec and timed is True:
             recs.update(rec)
     w = lstm_function_case()
     worst["K1"] = worst["K2"] = max(worst["K1"], w)
@@ -473,21 +518,215 @@ def phase_train_kernels():
          {"bias_scale": 200.0, "mask_p": 0.5}, False),
         ("argmax tie at classes 63/64", (40, 16, 200, 1), {"tie_at": 63},
          False),
+        ("deep config K=16624", (S * T, R, DEEP_K, 1), {}, "deep"),
     ]
     for i, (name, dims, extra, timed) in enumerate(xent_cases):
-        w, rec = xent_case(name, *dims, 60 + i, timed=timed, **extra)
+        w, rec = xent_case(name, *dims, 60 + i, timed=bool(timed), **extra)
         worst["K3"] = worst["K4"] = max(worst["K3"], w)
-        if rec:
+        if rec and timed is True:
             recs.update(rec)
     for k in recs:
         recs[k]["max_abs_err"] = worst[k]
     return recs
 
 
-def write_train_corpus(work: str):
+def stack_case(S, T, I, C, R, seed, param_scale=0.04, x_scale=1.0,
+               device="cuda"):
+    """Two stack-compatible layers, x [T, S, I] and nonzero initial
+    states of both, from one seed."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import (
+        LstmState,
+        init_lstm_params,
+    )
+    g = torch.Generator().manual_seed(seed)
+    p1 = init_lstm_params(g, I, C, R, param_scale, device=device)
+    p2 = init_lstm_params(g, R, C, R, param_scale, device=device)
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(T, S, I).astype(np.float32) * x_scale,
+                     device=device)
+    st = [torch.tensor(rng.randn(S, d).astype(np.float32) * 0.5,
+                       device=device) for d in (C, R, C, R)]
+    return p1, p2, x, LstmState(st[0], st[1]), LstmState(st[2], st[3])
+
+
+def stack_bound(T, S, I, C, R, train: bool):
+    """Least time of K6 (train) or K7: both layers' f32 operations, and
+    each input read once and each output written once (K6: both layers'
+    residuals; K7: r2 and the final c1, r1, c2)."""
+    ops = 2.0 * T * S * ((4 * C * (I + R) + C * R) + (4 * C * 2 * R + C * R))
+    n_in = (T * S * I + (I + R) * 4 * C + 2 * R * 4 * C
+            + 2 * (7 * C + C * R) + 2 * S * (C + R))
+    n_out = 2 * T * S * (4 * C + C + R) if train \
+        else T * S * R + S * (2 * C + R)
+    return bound_ms(ops, 4.0 * (n_in + n_out))
+
+
+def phase_stack_kernels():
+    """K6/K7 vs plain on the card, K6's residuals through K2, timings,
+    then the bench with the K6/K7 counts. Returns {"K6": record,
+    "K7": record, "launches": {...}}."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    from kaldi_lstm_tpu_torch.tools import bench_wavefront as bw
+
+    worst = {"K6": 0.0, "K7": 0.0}
+    recs = {}
+    cases = [
+        # name, (S, T, I, C, R), time blocks, clip, extra, kernels
+        ("deep, full width", (512, 20, 40, 800, 512), (5, 4, 2, 1), 50.0,
+         {}, "K6 K7"),
+        ("ragged S=3 I=37 C=200 R=130 T=23, clip active",
+         (3, 23, 37, 200, 130), (1,), 1.0,
+         {"x_scale": 20.0, "param_scale": 0.2}, "K6 K7"),
+        ("serving S=8 T=1000", (8, 1000, 40, 800, 512), (5,), 50.0, {},
+         "K7"),
+    ]
+    for i, (name, dims, tbs, clip, extra, which) in enumerate(cases):
+        args = stack_case(*dims, seed=70 + i, **extra)
+        log(f"  [{name}] S={dims[0]} T={dims[1]} I={dims[2]} C={dims[3]} "
+            f"R={dims[4]} clip {clip:g} tb {tbs}")
+        want_f = ls.lstm_stack_fwd2_plain(*args, clip) if "K6" in which \
+            else None
+        want_i = ls.lstm_stack_infer2_plain(*args, clip)
+        if clip < 10 and not bool((want_f[1].abs() == clip).any()):
+            fail(f"{name}: the clip never engaged")
+        for tb in tbs:
+            if want_f is not None:
+                got = ls.lstm_stack_fwd2_cuda(*args, clip, tb=tb)
+                torch.cuda.synchronize()
+                for what, a, b in zip(("gifo1", "c1", "r1", "gifo2", "c2",
+                                       "r2"), got, want_f):
+                    worst["K6"] = compare(f"K6 tb{tb} {what}", a, b,
+                                          worst["K6"])
+            r2, f1, f2 = ls.lstm_stack_infer2_cuda(*args, clip, tb=tb)
+            torch.cuda.synchronize()
+            for what, a, b in (("r2", r2, want_i[0]),
+                               ("c1T", f1.c, want_i[1].c),
+                               ("r1T", f1.r, want_i[1].r),
+                               ("c2T", f2.c, want_i[2].c),
+                               ("r2T", f2.r, want_i[2].r)):
+                worst["K7"] = compare(f"K7 tb{tb} {what}", a, b,
+                                      worst["K7"])
+        if i == 0:
+            worst["K6"] = stack_residuals_through_k2(args, clip,
+                                                     worst["K6"])
+        T, S = dims[1], dims[0]
+        p1, p2, x, s1, s2 = args
+        tb = ls.time_block(T)
+        timings = []
+        if "K6" in which:
+            timings.append((
+                "K6", lambda: ls.lstm_stack_fwd2_cuda(*args, clip, tb=tb),
+                lambda: ls.lstm_stack_fwd2_plain(*args, clip),
+                lambda: lt.lstm_fwd_residuals_cuda(
+                    p2, lt.lstm_fwd_residuals_cuda(
+                        p1, x, s1.c, s1.r, cell_clip=clip)[2],
+                    s2.c, s2.r, cell_clip=clip),
+                "K1 x 2", stack_bound(T, S, *dims[2:], True)))
+        timings.append((
+            "K7", lambda: ls.lstm_stack_infer2_cuda(*args, clip, tb=tb),
+            lambda: ls.lstm_stack_infer2_plain(*args, clip),
+            lambda: li.lstm_infer(p2, li.lstm_infer(
+                p1, x, s1, clip, time_major=True)[0], s2, clip,
+                time_major=True),
+            "K5 x 2", stack_bound(T, S, *dims[2:], False)))
+        if i == 1:
+            continue
+        for key, kfn, pfn, sfn, serial, bnd in timings:
+            with torch.inference_mode():
+                k_ms = cuda_ms(kfn)
+                p_ms = cuda_ms(pfn, reps=3)
+                s_ms = cuda_ms(sfn)
+            log(f"  [{name}] {key} tb{tb}: kernel {k_ms:.3f} ms, plain "
+                f"{p_ms:.3f} ms, serial two-kernel schedule ({serial}) "
+                f"{s_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                f"library: n/a (no single PyTorch call computes a stacked "
+                f"LSTMP with peepholes and the clip)")
+            if i == 0:
+                recs[key] = {"ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": bnd[0], "bound_by": bnd[1],
+                             "serial_ms": s_ms}
+    for k in recs:
+        recs[k]["max_abs_err"] = worst[k]
+
+    G, reps = 8, 3
+    calls = bw.calls_per_bench(G, reps)
+    predicted = {
+        "lstmp_stack_fwd2": calls * sum(ls.wavefront_launches(bw.T, tb)
+                                        for tb in bw.FWD_TBS),
+        "lstmp_stack_infer2": calls * sum(ls.wavefront_launches(bw.T, tb)
+                                          for tb in bw.INFER_TBS),
+        "lstmp_train_fwd": calls * 2 * 2 * bw.T,
+        "lstmp_infer": calls * 2 * 2 * bw.T}
+    for m in (ls, lt, li):
+        m.reset_counts()
+    torch.cuda.synchronize()
+    rc = bw.main(["512", str(G), str(reps), "ab"])
+    torch.cuda.synchronize()
+    launches = {"lstmp_stack_fwd2": ls.FWD2_LAUNCHES,
+                "lstmp_stack_infer2": ls.INFER2_LAUNCHES,
+                "lstmp_train_fwd": lt.FWD_LAUNCHES,
+                "lstmp_infer": li.LAUNCHES}
+    plain = (ls.PLAIN_CALLS, lt.PLAIN_CALLS, li.PLAIN_CALLS)
+    if rc != 0:
+        fail(f"bench_wavefront exited {rc}")
+    for k in predicted:
+        log(f"    bench {k}: launches {launches[k]} (predicted "
+            f"{predicted[k]})")
+    log(f"    plain-version calls (lstm_stack, lstm_train, lstm_infer): "
+        f"{plain}")
+    if launches != predicted:
+        fail("the bench did not launch K6/K7 (and K1/K5) as predicted")
+    if plain != (0, 0, 0):
+        fail("the bench took a plain version on the card")
+    recs["launches"] = launches
+    for mode in ("ablate", "profile"):
+        if bw.main(["512", str(G), str(reps), mode]) != 0:
+            fail(f"bench_wavefront {mode} failed")
+    return recs
+
+
+def stack_residuals_through_k2(args, clip, worst):
+    """K6's residuals of each layer through K2 against K1's residuals of
+    the same layer through K2 (layer 2 with dx, its x being r1)."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    p1, p2, x, s1, s2 = args
+    T, S = x.shape[:2]
+    rng = np.random.RandomState(80)
+    g_r = torch.tensor(rng.randn(T, S, p1.recur_dim).astype(np.float32),
+                       device="cuda")
+    gcT = torch.tensor(rng.randn(S, p1.cell_dim).astype(np.float32),
+                       device="cuda")
+    wave = ls.lstm_stack_fwd2_cuda(*args, clip, tb=5)
+    k1a = lt.lstm_fwd_residuals_cuda(p1, x, s1.c, s1.r, cell_clip=clip)
+    k1b = lt.lstm_fwd_residuals_cuda(p2, k1a[2], s2.c, s2.r, cell_clip=clip)
+    log("    K6 residuals through K2 vs K1 residuals through K2:")
+    for n, p, xw, xk, s, res_w, res_k, dx in (
+            (1, p1, x, x, s1, wave[:3], k1a, False),
+            (2, p2, wave[2], k1a[2], s2, wave[3:], k1b, True)):
+        a = lt.lstm_bwd_cuda(p, xw, s.c, s.r, *res_w, None, 1.0, g_r, gcT,
+                             dx)
+        b = lt.lstm_bwd_cuda(p, xk, s.c, s.r, *res_k, None, 1.0, g_r, gcT,
+                             dx)
+        torch.cuda.synchronize()
+        for f, u, v in zip(type(p)._fields, a[0], b[0]):
+            worst = compare(f"layer {n} d{f}", u, v, worst)
+        for f, u, v in zip(("dx", "dc0", "dr0"), a[1:], b[1:]):
+            if v is not None:
+                worst = compare(f"layer {n} {f}", u, v, worst)
+    return worst
+
+
+def write_train_corpus(work: str, label_stride: int = 200):
     """256 utterances of 100-300 frames x 40 dims (numpy seed 7) and
-    1-best posteriors over 8000 classes that depend on the frame (the
-    index of its largest feature, times 200), so one epoch can learn."""
+    1-best posteriors that depend on the frame (the index of its largest
+    feature, times `label_stride`: classes below 8000 at 200, below 16624
+    at 415), so one epoch can learn."""
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
     rng = np.random.RandomState(7)
     feats = f"ark:{work}/train_feats.ark"
@@ -497,16 +736,13 @@ def write_train_corpus(work: str):
             x = rng.randn(int(rng.randint(100, 301)), 40).astype(np.float32)
             fw.write(f"utt{i:03d}", x)
             pw.write(f"utt{i:03d}",
-                     [[(int(k) * 200, 1.0)] for k in x.argmax(1)])
+                     [[(int(k) * label_stride, 1.0)] for k in x.argmax(1)])
     return feats, post
 
 
 def phase_train(work: str):
     """The training main path; returns the K1-K4 launch counts."""
     import torch
-    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
-    import kaldi_lstm_tpu_torch.ops.lstm_train as lt
-    import kaldi_lstm_tpu_torch.ops.xent_affine as xa
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
     from kaldi_lstm_tpu_torch.models import Nnet
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
@@ -543,32 +779,18 @@ def phase_train(work: str):
                  "lstmp_train_bwd": (2 * T + 4) * steps,
                  "xent_affine_fwd": steps, "xent_affine_bwd": 2 * steps}
 
-    for m in (li, lt, xa):
-        m.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rc, stats = train_lstm_streams.run_main(
-        [feats, post, model_in, model_out, f"--learn-rate={TRAIN_LR}",
-         "--momentum=0.9"] + common)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"lstmp_train_fwd": lt.FWD_LAUNCHES,
-                "lstmp_train_bwd": lt.BWD_LAUNCHES,
-                "xent_affine_fwd": xa.FWD_LAUNCHES,
-                "xent_affine_bwd": xa.BWD_LAUNCHES}
-    plain = (lt.PLAIN_CALLS, xa.PLAIN_CALLS, li.PLAIN_CALLS)
-    if rc != 0:
-        fail(f"train_lstm_streams exited {rc}")
-    log(f"  train_lstm_streams: rc 0 in {wall:.3f} s (incl. model read, "
-        f"ark I/O, CUDA warm-up); {steps} steps of {TRAIN_S}x{T}")
-    for k in predicted:
-        log(f"    {k}: launches {launches[k]} (predicted {predicted[k]})")
-    log(f"    plain-version calls (lstm_train, xent_affine, lstm_infer): "
-        f"{plain}")
-    if launches != predicted:
-        fail("the training path did not launch K1-K4 as predicted")
-    if plain != (0, 0, 0):
-        fail("the training path took a plain version on the card")
+    res = {}
+
+    def train():
+        rc, res["stats"] = train_lstm_streams.run_main(
+            [feats, post, model_in, model_out, f"--learn-rate={TRAIN_LR}",
+             "--momentum=0.9"] + common)
+        return rc
+
+    launches, wall = counted(
+        f"train_lstm_streams, {steps} steps of {TRAIN_S}x{T} (incl. model "
+        f"read, ark I/O, CUDA warm-up)", predicted, train)
+    stats = res["stats"]
     if not os.path.getsize(model_out) > 0:
         fail("no trained model was written")
     frames = stats.frames
@@ -647,9 +869,286 @@ def phase_train(work: str):
     return launches
 
 
+def counts_now() -> dict:
+    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
+    import kaldi_lstm_tpu_torch.ops.lstm_train as lt
+    import kaldi_lstm_tpu_torch.ops.xent_affine as xa
+    return {"lstmp_train_fwd": lt.FWD_LAUNCHES,
+            "lstmp_train_bwd": lt.BWD_LAUNCHES,
+            "xent_affine_fwd": xa.FWD_LAUNCHES,
+            "xent_affine_bwd": xa.BWD_LAUNCHES,
+            "lstmp_infer": li.LAUNCHES}
+
+
+def reset_all_counts() -> tuple:
+    """Zero every kernel count; returns the plain-call counters' reader."""
+    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
+    import kaldi_lstm_tpu_torch.ops.lstm_stack as ls
+    import kaldi_lstm_tpu_torch.ops.lstm_train as lt
+    import kaldi_lstm_tpu_torch.ops.xent_affine as xa
+    for m in (li, ls, lt, xa):
+        m.reset_counts()
+    return lambda: (lt.PLAIN_CALLS, xa.PLAIN_CALLS, li.PLAIN_CALLS,
+                    ls.PLAIN_CALLS)
+
+
+def recipe_prediction(layers: int, steps: int) -> dict:
+    """Launches of one newbob iteration from a fresh directory: a CV
+    epoch, a training epoch and a CV epoch of `steps` steps each.
+    Training step: K1 2T per layer, K2 2T+4 per layer (+1 for dx on
+    every layer above the first), K3 1, K4 2; CV step: K5 2T per layer,
+    K3 1."""
+    T = TRAIN_T
+    return {"lstmp_train_fwd": 2 * T * layers * steps,
+            "lstmp_train_bwd": ((2 * T + 4) * layers + layers - 1) * steps,
+            "xent_affine_fwd": 3 * steps,
+            "xent_affine_bwd": 2 * steps,
+            "lstmp_infer": 2 * 2 * T * layers * steps}
+
+
+def counted(what: str, predicted: dict, fn) -> tuple[dict, float]:
+    """Run fn() (it returns an exit code) with every kernel count zeroed
+    just before and read just after; fail unless each predicted count
+    is positive and met and no plain version ran. Returns (the counts,
+    the wall seconds)."""
+    import torch
+    plain = reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts_now()
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    log(f"  {what}: rc 0 in {wall:.3f} s")
+    for k in predicted:
+        log(f"    {k}: launches {got[k]} (predicted {predicted[k]})")
+    log(f"    plain-version calls (lstm_train, xent_affine, lstm_infer, "
+        f"lstm_stack): {plain()}")
+    if any(got[k] != predicted[k] or got[k] <= 0 for k in predicted):
+        fail(f"{what} did not launch the kernels as predicted")
+    if plain() != (0, 0, 0, 0):
+        fail(f"{what} took a plain version on the card")
+    return got, wall
+
+
+def phase_deep(work: str):
+    """The deep path through the layer-stacking recipe, at full width."""
+    import contextlib
+    import io
+    import json as _json
+    import torch
+    from kaldi_lstm_tpu_torch.decode.scoring import (
+        AmScorer,
+        log_priors_from_counts,
+    )
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools import (
+        nnet_copy,
+        nnet_edit,
+        nnet_forward,
+        nnet_info,
+        run_recipe,
+        train_lstm_streams,
+    )
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum
+    from kaldi_lstm_tpu_torch.train.streams import StreamScheduler
+    from kaldi_lstm_tpu_torch.train.trainer import (
+        TrainOptions,
+        make_train_step,
+        place_batch,
+    )
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+
+    feats, post = write_train_corpus(work, label_stride=415)
+    proto = os.path.join(work, "pre.proto")
+    with open(proto, "w") as f:
+        f.write(DEEP_PRE_PROTO)
+    pre, stack, exp = (os.path.join(work, d) for d in ("pre", "stack", "exp"))
+    common = ["--tr-feats", feats, "--tr-targets", post, "--cv-feats", feats,
+              "--cv-targets", post, "--scheduler", "newbob",
+              f"--learn-rate={TRAIN_LR}", "--momentum=0.9", "--max-iters=1",
+              f"--num-stream={TRAIN_S}", f"--batch-size={TRAIN_T}",
+              "--targets-delay=0", "--verbose=0", "--device=cuda"]
+
+    def batches(S):
+        return list(StreamScheduler(kio.SequentialMatrixReader(feats),
+                                    kio.RandomAccessPosteriorReader(post),
+                                    40, S, TRAIN_T, 0))
+    steps = len(batches(TRAIN_S))
+    log(f"  corpus: 256 utterances, {steps} steps of {TRAIN_S}x{TRAIN_T} "
+        f"per epoch, targets in [0, {DEEP_K})")
+
+    # 1. the one-layer net
+    counted("run_recipe (one-layer net, 1 newbob iteration)",
+            recipe_prediction(1, steps),
+            lambda: run_recipe.main(common + ["--dir", pre, "--proto", proto,
+                                              "--min-iters=1"]))
+    # 2. stack a fresh LSTMP-2 and senone affine on the frozen trunk
+    os.makedirs(stack)
+    if nnet_edit.main([f"{pre}/final.nnet", f"{stack}/nnet.init",
+                       "--remove-at", "2", "--insert-at", "2",
+                       "--proto-line", DEEP_STACK_LINES,
+                       "--set-learn-rate-coef", "1=0"]) != 0:
+        fail("nnet_edit (stack) failed")
+    counted("run_recipe (stacked net, frozen trunk)",
+            recipe_prediction(2, steps),
+            lambda: run_recipe.main(common + ["--dir", stack,
+                                              "--min-iters=1"]))
+    _, p0 = Nnet.read(f"{stack}/nnet.init")
+    _, p1 = Nnet.read(f"{stack}/nnet/nnet.iter1")
+    frozen = all(torch.equal(a, b) for a, b in zip(p0[1], p1[1]))
+    moved = sum(not torch.equal(a, b) for a, b in zip(p0[2], p1[2]))
+    log(f"  frozen trunk (LearnRateCoef 0) bit-identical after the "
+        f"iteration: {frozen}; new LSTMP-2 tensors changed: {moved} of 7")
+    if not frozen or moved == 0:
+        fail("the frozen trunk changed, or the new layer did not train")
+    # 3. unfreeze and fine-tune the whole stack
+    os.makedirs(exp)
+    if nnet_edit.main([f"{stack}/final.nnet", f"{exp}/nnet.init",
+                       "--set-learn-rate-coef", "1=1"]) != 0:
+        fail("nnet_edit (unfreeze) failed")
+    rc, cv0 = train_lstm_streams.run_main(
+        [feats, post, f"{exp}/nnet.init", "--cross-validate=true",
+         f"--num-stream={TRAIN_S}", f"--batch-size={TRAIN_T}",
+         "--targets-delay=0", "--device=cuda"])
+    if rc != 0:
+        fail("cross-validation before the fine-tune failed")
+    counted("run_recipe (fine-tune of the whole stack)",
+            recipe_prediction(2, steps),
+            lambda: run_recipe.main(common + ["--dir", exp]))
+    with open(f"{exp}/nnet/newbob.state") as f:
+        st = _json.load(f)
+    log(f"  fine-tune CV AvgLoss: before {cv0.avg_loss():.6f}, after "
+        f"{st['loss']:.6f} ({os.path.basename(st['final'])} accepted)")
+    if not (st["final"].endswith("nnet.iter1")
+            and st["loss"] < cv0.avg_loss()):
+        fail("cross-validation AvgLoss did not fall in the fine-tune")
+    # 4. nnet_info
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = nnet_info.main([f"{exp}/final.nnet"])
+    info = buf.getvalue()
+    if rc != 0 or info.count("LstmProjectedStreams") != 2:
+        fail("nnet_info did not print the deep net")
+    for line in info.splitlines():
+        if not line.startswith("  "):
+            log(f"    {line}")
+    # 5. convert and score with class counts
+    std = os.path.join(work, "deep_std.nnet")
+    if nnet_copy.main([f"{exp}/final.nnet", std, "--to-standard",
+                       "--time-shift=5", "--device", "cuda"]) != 0:
+        fail("nnet_copy --to-standard failed")
+    rng = np.random.RandomState(9)
+    utts = {f"utt{i:03d}": rng.randn(int(rng.randint(200, 1001)), 40)
+            .astype(np.float32) for i in range(8)}
+    feats_ark = os.path.join(work, "deep_feats.ark")
+    with kio.MatrixWriter(f"ark:{feats_ark}") as w:
+        for k, m in utts.items():
+            w.write(k, m)
+    counts = rng.randint(1, 1000, size=DEEP_K).astype(np.float32)
+    counts_path = os.path.join(work, "deep_counts.vec")
+    with open(counts_path, "wb") as f:
+        kio.write_vector(kio.KaldiOutput(f), counts)
+    out_ark = os.path.join(work, "deep_loglik.ark")
+    t_pad = -(-max(m.shape[0] for m in utts.values()) // 128) * 128
+    counted("nnet_forward (deep standard net, 1 batch of 8)",
+            {"lstmp_infer": 4 * t_pad},
+            lambda: nnet_forward.main(
+                [std, f"ark:{feats_ark}", f"ark:{out_ark}",
+                 "--apply-log=true", "--class-frame-counts", counts_path,
+                 "--device", "cuda"]))
+    got = dict(kio.SequentialMatrixReader(f"ark:{out_ark}"))
+    if list(got) != list(utts):
+        fail("deep scoring: output keys differ")
+    for k, y in got.items():
+        if y.shape != (utts[k].shape[0], DEEP_K) or not np.isfinite(y).all():
+            fail(f"deep scoring: {k} has shape {y.shape} or non-finite "
+                 f"values")
+    lp = log_priors_from_counts(counts)
+    nnet_c, params_c = Nnet.read(std, "cpu")
+    cpu = AmScorer(nnet_c, params_c, log_prior=lp, apply_log=True,
+                   device="cpu")
+    keys = list(utts)[:3]
+    worst = max(float(np.abs(got[k] - y).max())
+                for k, y in cpu.score_stream((k, utts[k]) for k in keys))
+    log(f"  deep scores, card vs CPU path on 3 utterances: max_abs_err "
+        f"{worst:.3e} (tol {SCORE_ATOL:g})")
+    if worst > SCORE_ATOL:
+        fail("deep card scores disagree with the CPU path")
+    nnet_g, params_g = Nnet.read(std, "cuda")
+    scorer = AmScorer(nnet_g, params_g, log_prior=lp, apply_log=True,
+                      device="cuda")
+    frames = sum(m.shape[0] for m in utts.values())
+    for _ in scorer.score_stream(utts.items()):
+        pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in scorer.score_stream(utts.items()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"  steady deep scoring: {n} utterances, {frames} frames in "
+        f"{dt:.3f} s -> {frames / dt:.1f} frames/s, "
+        f"{frames / FRAMES_PER_AUDIO_SECOND / dt:.2f} audio-s/s")
+
+    # 6. one deep step on the card against the same step on the CPU path
+    opts = TrainOptions(learn_rate=TRAIN_LR, momentum=0.9)
+    b0 = batches(DEEP_CHECK_S)[0]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        nnet_d, params_d = Nnet.read(f"{exp}/nnet.init", dev)
+        step = make_train_step(nnet_d, opts, device=dev)
+        params_d, _, _, aux = step(
+            params_d, init_momentum(params_d),
+            nnet_d.init_states(DEEP_CHECK_S, dev), (),
+            *place_batch(b0, dev), torch.tensor(TRAIN_LR, device=dev))
+        res[dev] = (tree_leaves(params_d), [float(a) for a in aux])
+    worst = 0.0
+    for a, b in zip(res["cuda"][0], res["cpu"][0]):
+        d = (a.cpu() - b).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= STEP_ATOL + STEP_RTOL * b.abs()).all()):
+            fail("the deep step on the card disagrees with the CPU path")
+    (xk, ek, ck, fk), (xc, ec, cc, fc) = res["cuda"][1], res["cpu"][1]
+    if not (abs(xk - xc) <= 1e-5 * abs(xc) and abs(ek - ec) <= 1e-5 * abs(ec)
+            and fk == fc and abs(ck - cc) <= 2):
+        fail(f"deep LossAux on the card {res['cuda'][1]} vs CPU "
+             f"{res['cpu'][1]}")
+    log(f"  one deep step ({DEEP_CHECK_S} streams) card vs CPU path: "
+        f"params max_abs_err {worst:.3e} (tol {STEP_ATOL:g} + "
+        f"{STEP_RTOL:g} x |p|); LossAux card {res['cuda'][1]} vs CPU "
+        f"{res['cpu'][1]}")
+
+    # 7. the warm deep step at S=256, and its profile
+    nnet_g, params_g = Nnet.read(f"{exp}/nnet.init", "cuda")
+    step = make_train_step(nnet_g, opts, device="cuda")
+    opt, states = init_momentum(params_g), nnet_g.init_states(TRAIN_S, "cuda")
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    placed = [place_batch(b, "cuda") for b in batches(TRAIN_S)[:6]]
+
+    def run_steps(group):
+        nonlocal params_g, opt, states
+        for p in group:
+            params_g, opt, states, _ = step(params_g, opt, states, (), *p,
+                                            lr)
+
+    run_steps(placed[:1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(placed[1:])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (len(placed) - 1)
+    log(f"  steady deep training step: {1e3 * dt:.3f} ms per step of "
+        f"{TRAIN_S}x{TRAIN_T} -> {TRAIN_S * TRAIN_T / dt:.1f} frames/s "
+        f"({TRAIN_S * TRAIN_T / FRAMES_PER_AUDIO_SECOND / dt:.2f} "
+        f"audio-s/s) with every slot counted")
+    profile(lambda: run_steps(placed[:1]), "one deep training step")
+
+
 def phase_main_path(work: str):
     import torch
-    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
     from kaldi_lstm_tpu_torch.decode.scoring import (
         AmScorer,
         log_priors_from_counts,
@@ -678,25 +1177,14 @@ def phase_main_path(work: str):
 
     argv = [model, f"ark:{feats_ark}", f"ark:{out_ark}", "--apply-log=true",
             "--class-frame-counts", counts_path, "--device", "cuda"]
-    li.reset_counts()
-    t0 = time.perf_counter()
-    rc = nnet_forward.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = li.LAUNCHES, li.PLAIN_CALLS
-    if rc != 0:
-        fail(f"nnet_forward exited {rc}")
     keys = list(utts)
     expected = sum(
         2 * -(-max(utts[k].shape[0] for k in keys[b:b + 8]) // 128) * 128
         for b in range(0, len(keys), 8))
-    log(f"  nnet_forward: rc 0 in {wall:.3f} s (incl. model read, CUDA "
-        f"warm-up and ark I/O); lstmp_infer launches {launches} "
-        f"(expected {expected}), plain-version calls {plain_calls}")
-    if launches <= 0 or launches != expected:
-        fail("the main path did not go through lstmp_infer as expected")
-    if plain_calls != 0:
-        fail("the main path took the plain version on the card")
+    got, _ = counted("nnet_forward (incl. model read, CUDA warm-up and ark "
+                     "I/O)", {"lstmp_infer": expected},
+                     lambda: nnet_forward.main(argv))
+    launches = got["lstmp_infer"]
 
     got = dict(kio.SequentialMatrixReader(f"ark:{out_ark}"))
     if list(got) != keys:
@@ -801,6 +1289,10 @@ def main() -> int:
     log("phase 3b: K1-K4 vs their plain versions on the card")
     train_recs = phase_train_kernels()
 
+    log("phase 3c: K6/K7 (wavefront two-layer stack) vs their plain "
+        "versions, and the wavefront bench")
+    stack_recs = phase_stack_kernels()
+
     log("phase 4: serving path (nnet_forward, full-width standard net)")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
         launches = phase_main_path(work)
@@ -808,6 +1300,11 @@ def main() -> int:
     log("phase 5: training path (train_lstm_streams, full-width flagship)")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
         train_launches = phase_train(work)
+
+    log("phase 6: deep path (2 x LSTMP -> 16624) through the layer-stacking "
+        "recipe, full width")
+    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
+        phase_deep(work)
 
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
@@ -832,6 +1329,20 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"kaldi_lstm_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    for key, name, replaces in (
+            ("K6", "lstmp_stack_fwd2",
+             "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:70 (_fwd2_kernel)"),
+            ("K7", "lstmp_stack_infer2",
+             "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:247 (_infer2_kernel)")):
+        r = stack_recs[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kaldi_lstm_tpu_torch/csrc/lstmp_stack.cu",
+            "replaces": replaces,
+            "launches": stack_recs["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

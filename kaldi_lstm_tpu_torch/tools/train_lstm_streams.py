@@ -138,7 +138,7 @@ def _bool(s: str) -> bool:
     return str(s).lower() in ("true", "1", "yes")
 
 
-def _unported(args) -> str | None:
+def unported_flag(args) -> str | None:
     """The message for a flag whose machinery is a later slice."""
     if args.mesh:
         return "--mesh: sharded training is ROADMAP queue A item 8"
@@ -167,7 +167,7 @@ def run_main(argv=None):
 
 def main(argv=None, _stats_out=None) -> int:
     args = build_parser().parse_args(argv)
-    msg = _unported(args)
+    msg = unported_flag(args)
     if msg is not None:
         print(f"{TOOL}: {msg}; not in this port yet", file=sys.stderr)
         return 1

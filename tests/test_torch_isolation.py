@@ -53,6 +53,15 @@ _TRAIN_MODULES = {
     "kaldi_lstm_tpu_torch.utils.tree",
 }
 
+_STACK_MODULES = {
+    "kaldi_lstm_tpu_torch.ops.lstm_stack",
+    "kaldi_lstm_tpu_torch.tools.bench_wavefront",
+    "kaldi_lstm_tpu_torch.tools.nnet_concat",
+    "kaldi_lstm_tpu_torch.tools.nnet_edit",
+    "kaldi_lstm_tpu_torch.tools.nnet_info",
+    "kaldi_lstm_tpu_torch.tools.run_recipe",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -61,8 +70,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 24
-    assert _TRAIN_MODULES <= set(res.stdout.splitlines()[1].split())
+    assert n_modules >= 30
+    names = set(res.stdout.splitlines()[1].split())
+    assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
 
 
 def test_chip_smoke_imports_no_jax():
@@ -121,9 +131,11 @@ def test_component_dispatch_on_cpu_counts_plain_calls():
 
 def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
     from kaldi_lstm_tpu_torch.tools import (
+        bench_wavefront,
         nnet_copy,
         nnet_forward,
         nnet_initialize,
+        run_recipe,
         train_lstm_streams,
     )
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -134,7 +146,14 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
     assert nnet_copy.main(["m.nnet", str(tmp_path / "c")]) == 1
     assert train_lstm_streams.main(["ark:f.ark", "ark:p.ark", "m.nnet",
                                     str(tmp_path / "t.nnet")]) == 1
+    assert bench_wavefront.main(["8", "1", "1", "ab"]) == 1
+    exp = tmp_path / "exp"
+    assert run_recipe.main(["--tr-feats", "ark:f.ark", "--tr-targets",
+                            "ark:p.ark", "--cv-feats", "ark:f.ark",
+                            "--cv-targets", "ark:p.ark", "--dir", str(exp),
+                            "--proto", "p.proto"]) == 1
     assert not out.exists() and not (tmp_path / "t.nnet").exists()
+    assert not exp.exists()
 
 
 @pytest.fixture
