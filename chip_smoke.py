@@ -13,12 +13,16 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    the card at the serving path's widths and at the deep config's layer-2
    width (I=512), and time both with CUDA events;
 3b. hold the training kernels K1-K4 (LSTMP forward with residuals, BPTT,
-   fused senone affine + xent forward and backward) against their plain
-   versions at the flagship training width (S=256, T=20, I=40, C=800,
-   R=512, K=8000), at the deep config's new shapes (K1/K2 with dx at
-   I=512, K3/K4 at K=16624) and on ragged, clipped, dropout, no-dx,
-   final-state-cotangent and argmax-tie cases; time kernel and plain;
-   print bounds;
+   fused senone affine + xent forward and backward, the latter two
+   3xTF32 tensor-core kernels) against their plain versions at the
+   flagship training width (S=256, T=20, I=40, C=800, R=512, K=8000), at
+   the deep config's new shapes (K1/K2 with dx at I=512, K3/K4 at
+   K=16624) and on ragged, clipped, dropout, no-dx,
+   final-state-cotangent and argmax-tie cases (K3/K4: ties across a
+   64-class tile edge and across K3's class-chunk edge); time kernel and
+   plain; print bounds (for K3/K4 both the f32 CUDA-core and the
+   3xTF32 tensor-core bound) and, as context, cuBLAS f32 times of the
+   three products;
 3c. hold the wavefront two-layer kernels K6/K7 against their plain
    versions at the deep config's width (S=512, T=20, tb 5/4/2/1, nonzero
    states), on a ragged clipped case and K7 at the serving shape (S=8,
@@ -76,8 +80,9 @@ PROTO = """<NnetProto>
 """
 FRAMES_PER_AUDIO_SECOND = 100.0
 # Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, TF32 in the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain, float32 on both sides (TF32 off). The two sum the
@@ -94,7 +99,8 @@ KERNEL_RTOL = 1e-4
 # products and K = 8000 classes, in other orders than cuBLAS; on an H100
 # this script measured at most 3.4e-6 of that scale, so 1e-4 leaves a
 # 30x margin while a wrong index or a missed term (errors of the order of
-# the entries themselves) still fails. Argmax indices must agree
+# the entries themselves) still fails. K3/K4 compute on the tensor cores
+# in the 3xTF32 split, float32-accurate; the same tolerance holds them. Argmax indices must agree
 # except on near-ties, where the kernel's pick must be within the same
 # tolerance of the row's max.
 TRAIN_TOL = 1e-4
@@ -299,11 +305,21 @@ def k3_bound(N, R, K, Km):
 
 
 def k4_bound(N, R, K, Km):
-    # the function needs the logits once, dr and dW: 3 x 2NKR (the
-    # kernel recomputes the logits in both of its passes: 4 x)
+    # the function needs the logits once, dr and dW: 3 x 2NKR
     return bound_ms(3 * 2.0 * N * K * R,
                     4.0 * (2 * N * R + 2 * K * R + 2 * K + 2 * N * Km
                            + 3 * N))
+
+
+def tc_bound(simt, products, N, R, K):
+    """The float32-accurate tensor-core bound of K3 (1 product) or K4 (3
+    products): 3xTF32 does each product's 2NKR operations three times at
+    the TF32 peak; the compulsory bytes are those of the f32 bound
+    `simt` (ms, by). Returns (ms, by)."""
+    t_ops = 1e3 * 3 * products * 2.0 * N * K * R / PEAK_TF32_FLOPS
+    t_bytes = simt[0] if simt[1] == "bytes" else 0.0
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
 
 
 def compare(what, got, ref, worst):
@@ -416,7 +432,9 @@ def lstm_function_case():
 def xent_case(name, N, R, K, Km, seed, bias_scale=0.1, mask_p=0.8,
               tie_at=None, timed=False):
     """K3 and K4 against their plain versions on one input; returns
-    (worst abs error, timing record or None)."""
+    (worst abs error, timing record or None). Timed cases also print
+    cuBLAS f32 times of the three products (context, not used by the
+    port)."""
     import torch
     from kaldi_lstm_tpu_torch.ops import xent_affine as xa
     g = torch.Generator().manual_seed(seed)
@@ -424,7 +442,7 @@ def xent_case(name, N, R, K, Km, seed, bias_scale=0.1, mask_p=0.8,
     w = torch.randn(K, R, generator=g) * 0.04
     b = torch.randn(K, generator=g) * bias_scale
     if tie_at is not None:
-        # exact tie straddling a 64-class tile edge: small integers and
+        # exact tie straddling a tile or chunk edge: small integers and
         # powers of two make every sum exact in any order
         r = torch.randint(-2, 3, (N, R), generator=g).float()
         w = torch.randint(-4, 5, (K, R), generator=g).float() / 8.0
@@ -464,23 +482,32 @@ def xent_case(name, N, R, K, Km, seed, bias_scale=0.1, mask_p=0.8,
     if not timed:
         return worst, None
     rec = {}
-    for key, kfn, pfn, bnd in (
+    for key, kfn, pfn, simt, products in (
             ("K3", lambda: xa.xent_fwd_cuda(r, w, b, ids, tw),
              lambda: xa.xent_fwd_plain(r, w, b, ids, tw),
-             k3_bound(N, R, K, Km)),
+             k3_bound(N, R, K, Km), 1),
             ("K4", lambda: xa.xent_bwd_cuda(*bargs),
-             lambda: xa.xent_bwd_plain(*bargs), k4_bound(N, R, K, Km))):
+             lambda: xa.xent_bwd_plain(*bargs), k4_bound(N, R, K, Km), 3)):
         k_ms = cuda_ms(kfn)
         p_ms = cuda_ms(pfn)
-        log(f"  [{name}] {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}); library: n/a (no single "
-            f"PyTorch call computes the affine + softmax + sparse-target "
-            f"xent or its fused gradient)")
+        tc = tc_bound(simt, products, N, R, K)
+        bnd = min(simt, tc)
+        log(f"  [{name}] {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+            f"bounds: f32 CUDA cores {simt[0]:.4f} ms ({simt[1]}), 3xTF32 "
+            f"tensor cores {tc[0]:.4f} ms ({tc[1]}; 3 x the product's "
+            f"operations at {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s); library: "
+            f"n/a (no single PyTorch call computes the affine + softmax + "
+            f"sparse-target xent or its fused gradient)")
         rec[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
-                    "bound_by": bnd[1]}
-    gemm_ms = cuda_ms(lambda: r @ w.T)
-    log(f"  [{name}] context: cuBLAS f32 r @ W.T alone {gemm_ms:.3f} ms "
-        f"(not used by the port)")
+                    "bound_by": bnd[1], "bound_f32_simt_ms": simt[0],
+                    "bound_3xtf32_ms": tc[0]}
+    dz = torch.exp(r @ w.T + b - fp[0][:, None]) * (scale * wtot)[:, None]
+    times = [cuda_ms(fn) for fn in (lambda: r @ w.T, lambda: dz @ w,
+                                    lambda: dz.T @ r)]
+    log(f"  [{name}] context (cuBLAS f32, not used by the port): r @ W.T "
+        f"{times[0]:.3f} ms, dz @ W {times[1]:.3f} ms, dz.T @ r "
+        f"{times[2]:.3f} ms")
+    del dz
     return worst, rec
 
 
@@ -511,6 +538,14 @@ def phase_train_kernels():
             recs.update(rec)
     w = lstm_function_case()
     worst["K1"] = worst["K2"] = max(worst["K1"], w)
+    from kaldi_lstm_tpu_torch.ops.xent_affine import FWD_CHUNK
+    log(f"  K3/K4 design: every product (r W^T, dz W, dz^T r) on the tensor "
+        f"cores as mma.sync m16n8k8 TF32 in the 3xTF32 split (x = hi + lo, "
+        f"a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, one zeroed fragment "
+        f"per 32-deep stage), cp.async-fed shared-memory tiles; K3 = "
+        f"(128-frame tile x {FWD_CHUNK}-class chunk) partials + a merge "
+        f"launch, K4 = dz stored once + dr + dW/db; held to TRAIN_TOL as "
+        f"the f32 kernels were")
     xent_cases = [
         ("flagship, main path", (S * T, R, K, 1), {}, True),
         ("ragged N=1001 R=130 K=1000 Km=3", (1001, 130, 1000, 3), {}, False),
@@ -518,6 +553,11 @@ def phase_train_kernels():
          {"bias_scale": 200.0, "mask_p": 0.5}, False),
         ("argmax tie at classes 63/64", (40, 16, 200, 1), {"tie_at": 63},
          False),
+        (f"argmax tie at classes {FWD_CHUNK - 1}/{FWD_CHUNK} (K3 chunk "
+         f"edge)", (40, 16, 2 * FWD_CHUNK + 100, 1),
+         {"tie_at": FWD_CHUNK - 1}, False),
+        ("ragged N=1001 R=136 K=1003 Km=2 (off every tile, K % 4 != 0)",
+         (1001, 136, 1003, 2), {}, False),
         ("deep config K=16624", (S * T, R, DEEP_K, 1), {}, "deep"),
     ]
     for i, (name, dims, extra, timed) in enumerate(xent_cases):
@@ -777,7 +817,8 @@ def phase_train(work: str):
     T = TRAIN_T
     predicted = {"lstmp_train_fwd": 2 * T * steps,
                  "lstmp_train_bwd": (2 * T + 4) * steps,
-                 "xent_affine_fwd": steps, "xent_affine_bwd": 2 * steps}
+                 "xent_affine_fwd": 2 * steps,
+                 "xent_affine_bwd": 3 * steps}
 
     res = {}
 
@@ -896,13 +937,13 @@ def recipe_prediction(layers: int, steps: int) -> dict:
     """Launches of one newbob iteration from a fresh directory: a CV
     epoch, a training epoch and a CV epoch of `steps` steps each.
     Training step: K1 2T per layer, K2 2T+4 per layer (+1 for dx on
-    every layer above the first), K3 1, K4 2; CV step: K5 2T per layer,
-    K3 1."""
+    every layer above the first), K3 2, K4 3; CV step: K5 2T per layer,
+    K3 2."""
     T = TRAIN_T
     return {"lstmp_train_fwd": 2 * T * layers * steps,
             "lstmp_train_bwd": ((2 * T + 4) * layers + layers - 1) * steps,
-            "xent_affine_fwd": 3 * steps,
-            "xent_affine_bwd": 2 * steps,
+            "xent_affine_fwd": 3 * 2 * steps,
+            "xent_affine_bwd": 3 * steps,
             "lstmp_infer": 2 * 2 * T * layers * steps}
 
 
@@ -1331,7 +1372,9 @@ def main() -> int:
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            **{k: r[k] for k in ("bound_f32_simt_ms", "bound_3xtf32_ms")
+               if k in r}})
     for key, name, replaces in (
             ("K6", "lstmp_stack_fwd2",
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:70 (_fwd2_kernel)"),

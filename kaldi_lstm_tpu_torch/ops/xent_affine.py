@@ -7,17 +7,20 @@ the numbers of ``train.loss.masked_xent_loss`` on the logits
 r @ w.T + b without forming the logits, and is differentiable in r, w
 and b. Forward = K3 (per-frame logsumexp, weighted picked logit, first
 max and its index), then the torch epilogue ``fused_loss_and_stats``;
-backward = K4 (dr, dW, db from recomputed logit tiles). On a CUDA tensor
-each half launches ``csrc/xent_affine.cu`` or raises; on a CPU tensor it
-runs its plain version beside it here (``xent_fwd_plain``,
-``xent_bwd_plain``), which forms the logits in torch.
+backward = K4 (dz stored once, then dr, dW, db). Both are 3xTF32
+tensor-core kernels, float32-accurate. On a CUDA tensor each half
+launches ``csrc/xent_affine.cu`` or raises; on a CPU tensor it runs its
+plain version beside it here (``xent_fwd_plain``, ``xent_bwd_plain``),
+which forms the logits in torch. ``xent_fwd_chunked_plain`` spells out
+K3's split over class chunks in torch, for the tests and chip_smoke.py.
 
 Shapes: r [N, R]; w [K, R] (Kaldi orientation); b [K]; ids/tw [N, Km]
 sparse targets; mask [N].
 
-Counters: ``FWD_LAUNCHES`` (K3: 1 per call) and ``BWD_LAUNCHES`` (K4: 2
-per call) count the CUDA kernel launches, ``PLAIN_CALLS`` the calls of
-either half that took the plain version.
+Counters: ``FWD_LAUNCHES`` (K3: 2 per call, the class-chunk pass and
+the merge) and ``BWD_LAUNCHES`` (K4: 3 per call, dz, dr and dW/db)
+count the CUDA kernel launches, ``PLAIN_CALLS`` the calls of either half
+that took the plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from kaldi_lstm_tpu_torch.train.loss import (
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 PLAIN_CALLS = 0
+# classes per K3 chunk (a multiple of the kernels' 128-class tile): the
+# forward's grid is (frame tiles of 128) x (chunks), 40 x 8 CTAs at the
+# flagship shape (N = 5120, K = 8000)
+FWD_CHUNK = 1024
 
 
 def reset_counts() -> None:
@@ -51,10 +58,10 @@ def _entries():
     fwd, bwd = lib.xent_affine_fwd_f32, lib.xent_affine_bwd_f32
     p, i = ctypes.c_void_p, ctypes.c_int
     if fwd.argtypes is None:
-        fwd.argtypes = [p] * 9 + [i] * 4 + [p]
+        fwd.argtypes = [p] * 10 + [i] * 5 + [p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
-        bwd.argtypes = [p] * 11 + [i] * 4 + [p]
+        bwd.argtypes = [p] * 12 + [i] * 6 + [p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -72,6 +79,36 @@ def xent_fwd_plain(r, w, b, ids, tw):
     amax = z.amax(dim=-1)
     aidx = torch.argmax(z, dim=-1).to(torch.int32)
     return lse, picked, amax, aidx
+
+
+def xent_fwd_chunked_plain(r, w, b, ids, tw, chunk: int):
+    """K3's decomposition in torch: per chunk of `chunk` classes the
+    chunk's max, its first index, the sum of exp(z - max) and the
+    weighted picked logits of the targets inside it; then the chunks
+    merged in increasing order with a strict >, as the kernel's second
+    launch does. Same results as ``xent_fwd_plain``."""
+    K = w.shape[0]
+    ids_l = ids.long()
+    parts = []
+    for c0 in range(0, K, chunk):
+        z = r @ w[c0:c0 + chunk].T + b[c0:c0 + chunk]
+        i = torch.argmax(z, dim=-1)
+        v = z.gather(1, i[:, None])[:, 0]
+        s = torch.exp(z - v[:, None]).sum(-1)
+        local = ids_l - c0
+        inside = (local >= 0) & (local < z.shape[1])
+        zt = z.gather(1, local.clamp(0, z.shape[1] - 1))
+        p = torch.where(inside, tw * zt, torch.zeros_like(zt)).sum(-1)
+        parts.append((v, i + c0, s, p))
+    v, i, s, p = parts[0]
+    for v2, i2, s2, p2 in parts[1:]:
+        gt = v2 > v
+        m = torch.where(gt, v2, v)
+        s = s * torch.exp(v - m) + s2 * torch.exp(v2 - m)
+        i = torch.where(gt, i2, i)
+        v = m
+        p = p + p2
+    return v + torch.log(s), p, v, i.to(torch.int32)
 
 
 def xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot):
@@ -116,16 +153,18 @@ def xent_fwd_cuda(r, w, b, ids, tw):
     picked = torch.empty((N,), **f32)
     amax = torch.empty((N,), **f32)
     aidx = torch.empty((N,), dtype=torch.int32, device=r.device)
+    # per-(chunk, row) max, sum-exp, picked and first index
+    part = torch.empty((4, -(-K // FWD_CHUNK), N), **f32)
     fwd, _ = _entries()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fwd(*(t.data_ptr() for t in ops), lse.data_ptr(),
                   picked.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
-                  N, R, K, Km, stream)
+                  part.data_ptr(), N, R, K, Km, FWD_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K3 launch failed with CUDA "
                            f"error {err}")
-    FWD_LAUNCHES += 1
+    FWD_LAUNCHES += 2
     return lse, picked, amax, aidx
 
 
@@ -140,15 +179,20 @@ def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot):
     dr = torch.empty((N, R), **f32)
     dw = torch.empty((K, R), **f32)
     db = torch.empty((K,), **f32)
+    # dz, written once by the first launch and read by the other two;
+    # rows padded to a multiple of 4 floats for 16-byte copies
+    ldz = -(-K // 4) * 4
+    dz = torch.empty((N, ldz), **f32)
     _, bwd = _entries()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = bwd(*(t.data_ptr() for t in ops), dr.data_ptr(),
-                  dw.data_ptr(), db.data_ptr(), N, R, K, Km, stream)
+                  dw.data_ptr(), db.data_ptr(), dz.data_ptr(), ldz, N, R,
+                  K, Km, FWD_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K4 launch failed with CUDA "
                            f"error {err}")
-    BWD_LAUNCHES += 2
+    BWD_LAUNCHES += 3
     return dr, dw, db
 
 

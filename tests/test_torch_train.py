@@ -385,6 +385,7 @@ def test_cuda_train_step_with_gate_dropout(tmp_path):
             torch.tensor(0.01, device="cuda"), rng=rng)
     torch.cuda.synchronize()
     assert lt.FWD_LAUNCHES == 2 * 2 * 6 * 4 and lt.PLAIN_CALLS == 0
-    assert (xa.FWD_LAUNCHES, xa.BWD_LAUNCHES, xa.PLAIN_CALLS) == (4, 8, 0)
+    # K3 launches 2 kernels a step, K4 3
+    assert (xa.FWD_LAUNCHES, xa.BWD_LAUNCHES, xa.PLAIN_CALLS) == (8, 12, 0)
     for t in tree_leaves((params, opt.corr)):
         assert bool(torch.isfinite(t).all())
