@@ -9,25 +9,33 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build every kernel from kaldi_lstm_tpu_torch/csrc/ (one nvcc each,
    started together) and print nvcc's register/shared-memory report;
-3. hold the inference kernel (K5) against its plain PyTorch version on
-   the card at the serving path's widths and at the deep config's layer-2
-   width (I=512), and time both with CUDA events;
+3. hold the inference kernel (K5, one persistent cooperative launch per
+   call) against its plain PyTorch version on the card at the serving
+   path's widths (S=8, T=128 and 1000, clipped, ragged), at the
+   cross-validation shape (S=256, T=20), at the deep config's layer-2
+   width (I=512) and at inputs too wide for the weights to stay in
+   shared memory (I=1024, 1501); time the entry point `lstm_infer` and
+   the plain version, both on batch-major x, with CUDA events at S=8
+   (T=128, 1000), S=256 (T=20) and I=512 (T=1000), and print the time
+   per step at S=8;
 3b. hold the training kernels K1-K4 (LSTMP forward with residuals, BPTT,
    fused senone affine + xent forward and backward, the latter two
    3xTF32 tensor-core kernels) against their plain versions at the
    flagship training width (S=256, T=20, I=40, C=800, R=512, K=8000), at
    the deep config's new shapes (K1/K2 with dx at I=512, K3/K4 at
-   K=16624) and on ragged, clipped, dropout, no-dx,
-   final-state-cotangent and argmax-tie cases (K3/K4: ties across a
-   64-class tile edge and across K3's class-chunk edge); time kernel and
-   plain; print bounds (for K3/K4 both the f32 CUDA-core and the
-   3xTF32 tensor-core bound) and, as context, cuBLAS f32 times of the
-   three products;
+   K=16624, K2 also with dropout at I=512) and on ragged, clipped,
+   dropout, no-dx, final-state-cotangent and argmax-tie cases (K3/K4:
+   ties across a 64-class tile edge and across K3's class-chunk edge);
+   time kernel and plain (K1/K2 at the flagship shape and at I=512 with
+   dx); print bounds (for K2, K3 and K4 both the f32 CUDA-core and the
+   3xTF32 tensor-core bound) and, as context, cuBLAS f32 times of K2's four
+   products and K3/K4's three;
 3c. hold the wavefront two-layer kernels K6/K7 against their plain
    versions at the deep config's width (S=512, T=20, tb 5/4/2/1, nonzero
    states), on a ragged clipped case and K7 at the serving shape (S=8,
    T=1000); K6's residuals through K2 against K1's; time kernel, plain
-   and the serial two-kernel schedule; then drive the port's
+   and the serial two-kernel schedule (K1 x 2, K5 x 2) and print their
+   ratio; then drive the port's
    `tools/bench_wavefront` (A/B, ablation, profile) with the K6/K7
    counts zeroed before its A/B and read after;
 4. drive the serving path: `nnet_forward` scoring of the full-width
@@ -40,8 +48,9 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    the flagship net (Transmit -> LstmProjectedStreams 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax) for one epoch of a synthetic
    corpus (256 utterances, 256 streams, Tbptt 20), with the K1-K4 counts
-   zeroed just before and read just after; check the counts against the
-   design's prediction, no plain call, the model file, a lower
+   zeroed just before and read just after; check two cross-validation
+   runs of one model give the same AvgLoss to the last digit, the counts
+   against the design's prediction, no plain call, the model file, a lower
    cross-validation AvgLoss after the epoch than before, and two steps
    on the card against the same two steps on the port's CPU path; print
    train throughput and a profile of one step;
@@ -99,8 +108,9 @@ KERNEL_RTOL = 1e-4
 # products and K = 8000 classes, in other orders than cuBLAS; on an H100
 # this script measured at most 3.4e-6 of that scale, so 1e-4 leaves a
 # 30x margin while a wrong index or a missed term (errors of the order of
-# the entries themselves) still fails. K3/K4 compute on the tensor cores
-# in the 3xTF32 split, float32-accurate; the same tolerance holds them. Argmax indices must agree
+# the entries themselves) still fails. K2's products and K3/K4 compute on
+# the tensor cores in the 3xTF32 split, float32-accurate; the same
+# tolerance holds them. Argmax indices must agree
 # except on near-ties, where the kernel's pick must be within the same
 # tolerance of the row's max.
 TRAIN_TOL = 1e-4
@@ -224,28 +234,56 @@ def lstm_bound_ms(S, T, I, C, R) -> tuple[float, str]:
 
 def phase_kernels():
     """Kernel vs plain on the card. Returns the timing record of the
-    main-path shape (S=8, T=1000)."""
+    main-path shape (S=8, T=1000), with the cross-validation shape's
+    (S=256, T=20) times and the time per step beside it."""
     import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
     from kaldi_lstm_tpu_torch.ops.lstm_cell import lstm_scan
-    from kaldi_lstm_tpu_torch.ops.lstm_infer import lstm_infer
 
     cases = [
-        # name, (S, T, I, C, R), cell_clip, extra
-        ("full T=128 nonzero state", (8, 128, 40, 800, 512), 50.0, {}),
-        ("full T=1000 nonzero state", (8, 1000, 40, 800, 512), 50.0, {}),
+        # name, (S, T, I, C, R), cell_clip, extra, timed
+        ("full T=128 nonzero state", (8, 128, 40, 800, 512), 50.0, {},
+         True),
+        ("full T=1000 nonzero state", (8, 1000, 40, 800, 512), 50.0, {},
+         True),
         ("full T=128 clip active", (8, 128, 40, 800, 512), 1.0,
-         {"x_scale": 20.0, "param_scale": 0.2}),
-        ("ragged S=3 I=37 C=200 R=130", (3, 128, 37, 200, 130), 50.0, {}),
-        ("deep layer 2, I=512 T=128", (8, 128, 512, 800, 512), 50.0, {}),
+         {"x_scale": 20.0, "param_scale": 0.2}, False),
+        ("ragged S=3 I=37 C=200 R=130", (3, 128, 37, 200, 130), 50.0, {},
+         False),
+        ("cross-validation S=256 T=20", (256, 20, 40, 800, 512), 50.0, {},
+         True),
+        ("deep layer 2, I=512 T=1000", (8, 1000, 512, 800, 512), 50.0, {},
+         True),
+        ("deep layer 2 cross-validation, I=512 S=256 T=20",
+         (256, 20, 512, 800, 512), 50.0, {}, False),
+        # weight slices too wide for a CTA's shared memory: the same
+        # kernel reads them from device memory
+        ("weights in device memory, S=8 T=16 I=1024",
+         (8, 16, 1024, 800, 512), 50.0, {"resident": False}, False),
+        ("weights in device memory, ragged S=3 T=9 I=1501 R=130",
+         (3, 9, 1501, 800, 130), 50.0, {"resident": False}, False),
     ]
     worst = 0.0
-    record = None
-    for i, (name, dims, clip, extra) in enumerate(cases):
+    times = {}
+    for i, (name, dims, clip, extra, timed) in enumerate(cases):
+        resident = extra.pop("resident", True)   # what the plan must say
         params, x, state = lstm_case(*dims, seed=10 + i, **extra)
+
+        def kernel():
+            return li.lstm_infer(params, x, state, clip)
+
+        li.reset_counts()
         with torch.inference_mode():
-            out_k, fin_k = lstm_infer(params, x, state, clip)
+            out_k, fin_k = kernel()
             out_p, fin_p = lstm_scan(params, x, state, clip)
             torch.cuda.synchronize()
+        if (li.LAUNCHES, li.PLAIN_CALLS) != (1, 0):
+            fail(f"{name}: {li.LAUNCHES} launches and {li.PLAIN_CALLS} "
+                 f"plain calls for one call (expected 1 and 0)")
+        plan = li.device_plan(*dims[:1], *dims[2:])
+        if plan["resident"] != int(resident):
+            fail(f"{name}: the plan {plan} does not keep the weights "
+                 f"{'resident' if resident else 'in device memory'}")
         if clip == 1.0 and not bool((fin_p.c.abs() == 1.0).any()):
             fail(f"{name}: the clip never engaged")
         for what, a, b in (("r", out_k, out_p), ("final c", fin_k.c, fin_p.c),
@@ -257,18 +295,28 @@ def phase_kernels():
                 f"{KERNEL_RTOL:g} rel)")
             if not ok or not bool(torch.isfinite(a).all()):
                 fail(f"{name}: {what} disagrees with the plain version")
-        if dims[:2] == (8, 1000):
-            with torch.inference_mode():
-                k_ms = cuda_ms(lambda: lstm_infer(params, x, state, clip))
-                p_ms = cuda_ms(lambda: lstm_scan(params, x, state, clip),
-                               reps=3)
-            bound, by = lstm_bound_ms(*dims)
-            log(f"  [{name}] kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {bound:.4f} ms ({by}); library: n/a (no single "
-                f"PyTorch call computes LSTMP with peepholes and the clip)")
-            record = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                      "bound_by": by}
-    record["max_abs_err"] = worst
+        if not timed:
+            continue
+        with torch.inference_mode():
+            k_ms = cuda_ms(kernel)
+            p_ms = cuda_ms(lambda: lstm_scan(params, x, state, clip),
+                           reps=3)
+        bound, by = lstm_bound_ms(*dims)
+        log(f"  [{name}] kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bound:.4f} ms ({by}); plan {plan}; library: n/a (no "
+            f"single PyTorch call computes LSTMP with peepholes and the "
+            f"clip)")
+        times[dims] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                       "bound_by": by}
+    record = dict(times[(8, 1000, 40, 800, 512)])
+    us_step = 1e3 * (record["ms"] - times[(8, 128, 40, 800, 512)]["ms"]) \
+        / (1000 - 128)
+    log(f"  K5 per step at S=8: {us_step:.3f} us "
+        f"((t(T=1000) - t(T=128)) / 872)")
+    cv = times[(256, 20, 40, 800, 512)]
+    record.update(max_abs_err=worst, us_per_step_s8=us_step,
+                  cv_ms=cv["ms"], cv_plain_ms=cv["plain_ms"],
+                  cv_bound_ms=cv["bound_ms"])
     return record
 
 
@@ -297,6 +345,22 @@ def k2_bound(T, S, I, C, R, mask, need_dx):
     n_out = 4 * C * (I + R + 1) + R * C + 3 * C + S * (C + R) \
         + (N * I if need_dx else 0)
     return bound_ms(ops, 4.0 * (n_in + n_out) + (N * 4 * C if mask else 0))
+
+
+def k2_tc_bound(simt, T, S, I, C, R, need_dx):
+    """K2's float32-accurate tensor-core bound: the products it runs on
+    the tensor cores (the per-step dr = dgifo Wr, dWr, dWrm, dWx and,
+    with dx, dx = dxw Wx) three times over at the TF32 peak, plus the
+    one it keeps on the CUDA cores (bwd_cell's dm = dr_total Wrm) at the
+    f32 peak; the compulsory bytes are those of the f32 bound `simt`
+    (ms, by). Returns (ms, by)."""
+    N = T * S
+    tc_ops = 2.0 * N * (8 * C * R + R * C + (8 if need_dx else 4) * C * I)
+    t_ops = 1e3 * (3 * tc_ops / PEAK_TF32_FLOPS
+                   + 2.0 * N * R * C / PEAK_F32_FLOPS)
+    t_bytes = simt[0] if simt[1] == "bytes" else 0.0
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
 
 
 def k3_bound(N, R, K, Km):
@@ -388,12 +452,38 @@ def lstm_train_case(name, S, T, I, C, R, clip, keep, need_dx, seed,
              k2_bound(T, S, I, C, R, mask is not None, need_dx))):
         k_ms = cuda_ms(kfn)
         p_ms = cuda_ms(pfn, reps=3)
+        rec[key] = {"ms": k_ms, "plain_ms": p_ms}
+        if key == "K2":
+            simt = bnd
+            tc = k2_tc_bound(simt, T, S, I, C, R, need_dx)
+            bnd = min(simt, tc)
+            what = (f"bounds: f32 CUDA cores {simt[0]:.4f} ms ({simt[1]}), "
+                    f"3xTF32 tensor cores {tc[0]:.4f} ms ({tc[1]}; 3 x "
+                    f"the products' operations at "
+                    f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s, dm at "
+                    f"{PEAK_F32_FLOPS / 1e12:g})")
+            rec[key].update(bound_f32_simt_ms=simt[0],
+                            bound_3xtf32_ms=tc[0])
+        else:
+            what = f"bound {bnd[0]:.4f} ms ({bnd[1]})"
         log(f"  [{name}] {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}); library: n/a (no single "
-            f"PyTorch call computes the LSTMP recurrence with peepholes, "
-            f"clip and its residuals)")
-        rec[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
-                    "bound_by": bnd[1]}
+            f"{what}; library: n/a (no single PyTorch call computes the "
+            f"LSTMP recurrence with peepholes, clip and its residuals)")
+        rec[key].update(bound_ms=bnd[0], bound_by=bnd[1])
+    # context: cuBLAS f32 on K2's four products at these shapes (random
+    # operands; the port never calls these)
+    N = T * S
+    dg, ho, rp, xs = (torch.randn(N, n, device="cuda")
+                      for n in (4 * C, C, R, I))
+    drt = torch.randn(N, R, device="cuda")
+    ctx = {what: cuda_ms(fn) for what, fn in (
+        ("dWr", lambda: dg.T @ rp), ("dWrm", lambda: drt.T @ ho),
+        ("dWx", lambda: dg.T @ xs), ("dx", lambda: dg @ params.w_gifo_x))}
+    log(f"  [{name}] context (cuBLAS f32, not used by the port): " +
+        ", ".join(f"{k} {v:.3f} ms" for k, v in ctx.items()) +
+        f"; sum {sum(ctx.values()):.3f} ms")
+    rec["K2"]["cublas_products_ms"] = ctx
+    del dg, ho, rp, xs, drt
     return worst, rec
 
 
@@ -527,6 +617,8 @@ def phase_train_kernels():
          1.0, 0.8, True, {"x_scale": 20.0, "param_scale": 0.2}, False),
         ("deep layer 2, I=512, dx", (S, T, 512, C, R), 50.0, None, True, {},
          "deep"),
+        ("deep layer 2, I=512, keep 0.8, dx", (S, T, 512, C, R), 50.0, 0.8,
+         True, {}, False),
     ]
     # timed: True = the main path's record; "deep" = printed only
     for i, (name, dims, clip, keep, dx, extra, timed) in \
@@ -685,6 +777,8 @@ def phase_stack_kernels():
                 f"{s_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
                 f"library: n/a (no single PyTorch call computes a stacked "
                 f"LSTMP with peepholes and the clip)")
+            log(f"  [{name}] {key} vs {serial}: the serial schedule takes "
+                f"{s_ms / k_ms:.3f}x the wavefront kernel's time")
             if i == 0:
                 recs[key] = {"ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -700,7 +794,7 @@ def phase_stack_kernels():
         "lstmp_stack_infer2": calls * sum(ls.wavefront_launches(bw.T, tb)
                                           for tb in bw.INFER_TBS),
         "lstmp_train_fwd": calls * 2 * 2 * bw.T,
-        "lstmp_infer": calls * 2 * 2 * bw.T}
+        "lstmp_infer": calls * 2}
     for m in (ls, lt, li):
         m.reset_counts()
     torch.cuda.synchronize()
@@ -785,6 +879,7 @@ def phase_train(work: str):
     import torch
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
     from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.ops.lstm_train import bwd_launches
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
     from kaldi_lstm_tpu_torch.train.streams import StreamScheduler
     from kaldi_lstm_tpu_torch.train.trainer import (
@@ -804,10 +899,19 @@ def phase_train(work: str):
     common = [f"--num-stream={TRAIN_S}", f"--batch-size={TRAIN_T}",
               "--targets-delay=0", "--device", "cuda"]
 
-    rc, cv0 = train_lstm_streams.run_main(
-        [feats, post, model_in, "--cross-validate=true"] + common)
-    if rc != 0:
-        fail(f"cross-validation before training exited {rc}")
+    cvs = []
+    for _ in range(2):
+        rc, cv = train_lstm_streams.run_main(
+            [feats, post, model_in, "--cross-validate=true"] + common)
+        if rc != 0:
+            fail(f"cross-validation before training exited {rc}")
+        cvs.append(cv)
+    cv0 = cvs[0]
+    log(f"  cross-validation twice on one model: AvgLoss "
+        f"{cvs[0].avg_loss()!r} and {cvs[1].avg_loss()!r}")
+    if cvs[0].avg_loss() != cvs[1].avg_loss():
+        fail("two cross-validation runs of one model disagree (the kernels "
+             "must sum in a fixed order)")
 
     sched = StreamScheduler(kio.SequentialMatrixReader(feats),
                             kio.RandomAccessPosteriorReader(post), 40,
@@ -816,7 +920,7 @@ def phase_train(work: str):
     steps = len(batches)
     T = TRAIN_T
     predicted = {"lstmp_train_fwd": 2 * T * steps,
-                 "lstmp_train_bwd": (2 * T + 4) * steps,
+                 "lstmp_train_bwd": bwd_launches(T, False) * steps,
                  "xent_affine_fwd": 2 * steps,
                  "xent_affine_bwd": 3 * steps}
 
@@ -936,15 +1040,17 @@ def reset_all_counts() -> tuple:
 def recipe_prediction(layers: int, steps: int) -> dict:
     """Launches of one newbob iteration from a fresh directory: a CV
     epoch, a training epoch and a CV epoch of `steps` steps each.
-    Training step: K1 2T per layer, K2 2T+4 per layer (+1 for dx on
-    every layer above the first), K3 2, K4 3; CV step: K5 2T per layer,
-    K3 2."""
+    Training step: K1 2T per layer, K2 `bwd_launches` per layer (with dx
+    on every layer above the first), K3 2, K4 3; CV step: K5 1 per
+    layer, K3 2."""
+    from kaldi_lstm_tpu_torch.ops.lstm_train import bwd_launches
     T = TRAIN_T
     return {"lstmp_train_fwd": 2 * T * layers * steps,
-            "lstmp_train_bwd": ((2 * T + 4) * layers + layers - 1) * steps,
+            "lstmp_train_bwd": sum(bwd_launches(T, layer > 0)
+                                   for layer in range(layers)) * steps,
             "xent_affine_fwd": 3 * 2 * steps,
             "xent_affine_bwd": 3 * steps,
-            "lstmp_infer": 2 * 2 * T * layers * steps}
+            "lstmp_infer": 2 * layers * steps}
 
 
 def counted(what: str, predicted: dict, fn) -> tuple[dict, float]:
@@ -1094,9 +1200,8 @@ def phase_deep(work: str):
     with open(counts_path, "wb") as f:
         kio.write_vector(kio.KaldiOutput(f), counts)
     out_ark = os.path.join(work, "deep_loglik.ark")
-    t_pad = -(-max(m.shape[0] for m in utts.values()) // 128) * 128
-    counted("nnet_forward (deep standard net, 1 batch of 8)",
-            {"lstmp_infer": 4 * t_pad},
+    counted("nnet_forward (deep standard net, 1 batch of 8: one K5 launch "
+            "per layer)", {"lstmp_infer": 2},
             lambda: nnet_forward.main(
                 [std, f"ark:{feats_ark}", f"ark:{out_ark}",
                  "--apply-log=true", "--class-frame-counts", counts_path,
@@ -1219,9 +1324,8 @@ def phase_main_path(work: str):
     argv = [model, f"ark:{feats_ark}", f"ark:{out_ark}", "--apply-log=true",
             "--class-frame-counts", counts_path, "--device", "cuda"]
     keys = list(utts)
-    expected = sum(
-        2 * -(-max(utts[k].shape[0] for k in keys[b:b + 8]) // 128) * 128
-        for b in range(0, len(keys), 8))
+    # one K5 launch per batch of 8 utterances
+    expected = -(-len(keys) // 8)
     got, _ = counted("nnet_forward (incl. model read, CUDA warm-up and ark "
                      "I/O)", {"lstmp_infer": expected},
                      lambda: nnet_forward.main(argv))
@@ -1355,6 +1459,8 @@ def main() -> int:
         "ms": rec["ms"], "kernel_ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
+        **{k: rec[k] for k in ("us_per_step_s8", "cv_ms", "cv_plain_ms",
+                               "cv_bound_ms")},
     }]
     for key, name, source, replaces in (
             ("K1", "lstmp_train_fwd", "lstmp_train.cu",
@@ -1373,8 +1479,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            **{k: r[k] for k in ("bound_f32_simt_ms", "bound_3xtf32_ms")
-               if k in r}})
+            **{k: r[k] for k in ("bound_f32_simt_ms", "bound_3xtf32_ms",
+                                 "cublas_products_ms") if k in r}})
     for key, name, replaces in (
             ("K6", "lstmp_stack_fwd2",
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:70 (_fwd2_kernel)"),

@@ -22,27 +22,39 @@
 // K2 replaces kaldi_lstm_tpu/ops/lstm_pallas.py::_bwd_kernel. A grid has
 // no carry from block to block, so it is split in two:
 //   (a) a serial reverse loop over t, two launches per step:
-//       bwd_cell:  dr_total = g_r[t] + dr; dm = dr_total Wrm; the gate
-//                  gradients (from the post-activation residuals); the dc
-//                  carry through f and the i/f peepholes, straight through
-//                  the clip. Writes dgifo[t] and dr_total[t].
-//       proj:      dr = dgifo[t] Wr   (gradient into r_{t-1}).
-//   (b) after the loop, the frame-axis contractions over N = T*S rows, the
-//       hoisted GEMMs of the reference and of the Pallas kernel's v1:
-//       dWx = dxw^T x, dWr = dgifo^T r_prev, dWrm = dr_total^T (h o),
-//       dbias and the three peephole sums, and dx = dxw Wx when asked.
-//       dxw = dgifo * keep_mask * inv_keep (dropout gates only the input
-//       branch); r_prev is r0 at t = 0; h o is recomputed from c and o.
-//       Each output tile belongs to one block that loops over all N rows:
-//       no atomics, so the gradients are the same from run to run.
+//       bwd_cell:  dr_total = g_r[t] + dr, with dr the sum of the previous
+//                  step's split-K partials taken in a fixed order;
+//                  dm = dr_total Wrm; the gate gradients (from the
+//                  post-activation residuals); the dc carry through f and
+//                  the i/f peepholes, straight through the clip. Writes
+//                  dgifo[t], dr_total[t], h o = tanh(c) o [t] and, with a
+//                  keep-mask, dxw[t] = dgifo[t] * mask * inv_keep.
+//       dr:        dr = dgifo[t] Wr on the tensor cores (tc_gemm.cuh's
+//                  3xTF32 mainloop, 64 x 64 tiles), split over the 4C
+//                  contraction into `sp_dr` partials so that the step
+//                  fills the card at S=256 (32 tiles x 9 splits).
+//   (b) after the loop, the frame-axis contractions over N = T*S rows on
+//       the same mainloop, each from operands materialised in (a):
+//       dWx = dxw^T x, dWr = dgifo^T r_prev (r_prev = [r0; r_seq[:T-1]]
+//       copied contiguous by two cudaMemcpyAsync), dWrm = dr_total^T (h o),
+//       and dx = dxw Wx when asked; a product with too few 64 x 64 tiles
+//       to fill the card (dWx at I=40: 50) is split over its contraction
+//       too. dbias and the three peephole sums come from col_reduce. One
+//       last launch adds every product's partials in split order and
+//       writes dr0.
+//   No atomics: every output value is one thread's sum in a fixed order,
+//   so the gradients are the same from run to run. The split counts come
+//   from the caller (ops/lstm_train.py::bwd_plan), which also sizes the
+//   partial buffers.
 //
 // What bounds them on an H100: operations. At the flagship shape (T=20,
-// S=256, I=40, C=800, R=512) K1 does 22.3 GFLOP and K2 44.6 GFLOP of f32
-// multiply-adds against a few hundred MB of residual traffic. This first
-// design is the simple one: CUDA-core fma from shared-memory tiles, no
-// tensor cores, weights served from L2; the per-step launches of the two
-// serial chains are latency-bound at small S. Tensor-core (TF32/bf16
-// wgmma) tiles and a persistent recurrence are later work (ROADMAP.md).
+// S=256, I=40, C=800, R=512) K1 does 22.3 GFLOP and K2 43.3 GFLOP of f32
+// multiply-adds against a few hundred MB of residual traffic. K1 is the
+// simple design: CUDA-core fma from shared-memory tiles, weights served
+// from L2, two launches a step. K2 puts 39.1 GFLOP of products on the
+// tensor cores (3 TF32 mma per product, float32-accurate); what stays on
+// the CUDA cores is bwd_cell's dm product (2 N R C = 4.2 GFLOP) and the
+// serial chain of 2T launches.
 //
 // Built with nvcc into a shared library with a plain C entry point per
 // kernel, loaded by kaldi_lstm_tpu_torch/ops/lstm_train.py through ctypes.
@@ -50,6 +62,10 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -155,8 +171,7 @@ __global__ void train_gates_kernel(const float* __restrict__ x_t,
 }
 
 // out[s, q] = sum_k a[s, k] w[k, q] for s < S, q < Q, k < K: a [S, K],
-// w [K, Q] row-major. The K1 projection (a = m, w = Wrm^T) and the K2
-// recurrent gradient (a = dgifo[t], w = Wr) are both this product.
+// w [K, Q] row-major: the K1 projection (a = m, w = Wrm^T).
 __global__ void rows_times_mat_kernel(const float* __restrict__ a,
                                       const float* __restrict__ w,
                                       float* __restrict__ out,
@@ -195,21 +210,28 @@ __global__ void rows_times_mat_kernel(const float* __restrict__ a,
 // K2 (a): one step of the reverse recurrence
 // ---------------------------------------------------------------------------
 
-// g_r_t [S, R] (cotangent of r_t from the layer above), dr [S, R] (carry:
-// gradient into r_t through step t+1), wrm [R, C] (Kaldi orientation),
-// gifo_t [S, 4C] activations, c_t and c_prev [S, C], peep [3, C],
-// dc [S, C] in: gradient into c_t from step t+1, out: into c_{t-1}.
-// Out: dgifo_t [S, 4C] pre-activation gradients, drt_t [S, R] dr_total.
+// g_r_t [S, R] (cotangent of r_t from the layer above); drp [ndrp, S, R]
+// the split-K partials of dr (gradient into r_t through step t+1), added
+// in order (no partials: dr = 0); wrm [R, C] (Kaldi orientation), gifo_t
+// [S, 4C] activations, c_t and c_prev [S, C], peep [3, C], mask_t [S, 4C]
+// int8 or null; dc [S, C] in: gradient into c_t from step t+1, out: into
+// c_{t-1}. Out: dgifo_t [S, 4C] pre-activation gradients, drt_t [S, R]
+// dr_total, ho_t [S, C] = tanh(c_t) o, and with a mask dxw_t [S, 4C] =
+// dgifo_t * mask_t * inv_keep.
 __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
-                                const float* __restrict__ dr,
+                                const float* __restrict__ drp, int ndrp,
                                 const float* __restrict__ wrm,
                                 const float* __restrict__ gifo_t,
                                 const float* __restrict__ c_t,
                                 const float* __restrict__ c_prev,
                                 const float* __restrict__ peep,
+                                const int8_t* __restrict__ mask_t,
+                                float inv_keep,
                                 float* __restrict__ dc,
                                 float* __restrict__ dgifo_t,
                                 float* __restrict__ drt_t,
+                                float* __restrict__ ho_t,
+                                float* __restrict__ dxw_t,
                                 int S, int R, int C) {
   __shared__ float rows[kStreams][kChunk];
   const int j = blockIdx.x * kCells + threadIdx.x;
@@ -217,6 +239,7 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
   const int s0 = blockIdx.y * kStreams;
   const int s = s0 + sl;
   const size_t C4 = 4 * (size_t)C;
+  const size_t SR = (size_t)S * R;
   const int tid = threadIdx.y * kCells + threadIdx.x;
   const bool active = (j < C) && (s < S);
   float dm = 0.f;
@@ -230,7 +253,9 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
       float v = 0.f;
       if (sg < S) {
         const size_t o = (size_t)sg * R + k0 + kk;
-        v = g_r_t[o] + dr[o];
+        float dr = 0.f;
+        for (int p = 0; p < ndrp; ++p) dr += drp[p * SR + o];
+        v = g_r_t[o] + dr;
         if (blockIdx.x == 0) drt_t[o] = v;   // one writer per row
       }
       rows[ss][kk] = v;
@@ -265,124 +290,140 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
   const float df = dc_total * cp * f * (1.0f - f);
   const float di = dc_total * g * i * (1.0f - i);
   const float dg = dc_total * i * (1.0f - g * g);
-  float* dgr = dgifo_t + (size_t)s * C4;
-  dgr[j] = dg;
-  dgr[C + j] = di;
-  dgr[2 * (size_t)C + j] = df;
-  dgr[3 * (size_t)C + j] = d_o;
+  const float dgate[4] = {dg, di, df, d_o};
+  #pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const size_t at = (size_t)s * C4 + (size_t)q * C + j;
+    dgifo_t[at] = dgate[q];
+    if (dxw_t != nullptr) {
+      dxw_t[at] = dgate[q] * ((float)mask_t[at] * inv_keep);
+    }
+  }
+  ho_t[idx] = h * o;
   dc[idx] = dc_total * f + di * peep[j] + df * peep[C + j];
 }
 
 // ---------------------------------------------------------------------------
-// K2 (b): frame-axis contractions
+// K2: products on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kTM = 64;       // output rows per block
-constexpr int kTP = 64;       // output columns per block
-constexpr int kTK = 16;       // contraction chunk
-constexpr int kCThreads = 256;
+// out[p][m][n] = sum over k in split p of A(m, k) B(n, k), m < M, n < N,
+// with A(m, k) = a[m lda + k] (A K-major) or a[k lda + m], B likewise;
+// split p covers k in [p kchunk, (p + 1) kchunk), kchunk a multiple of
+// 32. One CTA per (64 x 64 tile, split) walks its split in order.
+struct Contract {
+  const float* a;
+  int lda;
+  const float* b;
+  int ldb;
+  float* out;
+  int M, N, K, kchunk;
+};
 
-enum BMode { kBPlain = 0, kBShift = 1, kBTanhTimes = 2 };
+template <bool AK, bool BK>
+using TileGemm = tc::Gemm<64, 64, 2, 2, AK, BK>;
 
-// B(k, p) for the three right-hand operands of K2 (b):
-//   kBPlain:     b[k*sbk + p]                                   (x, Wx)
-//   kBShift:     k < shift ? b2[k*sbk + p] : b[(k-shift)*sbk + p]
-//                (r_{t-1} rows: r0 for t = 0, then r_seq shifted by S)
-//   kBTanhTimes: tanh(b[k*sbk + p]) * b2[k*sb2k + p]   (h o from c and o)
-template <int MODE>
-__device__ __forceinline__ float load_b(const float* __restrict__ b,
-                                        const float* __restrict__ b2,
-                                        size_t sbk, size_t sb2k, int shift,
-                                        int k, int p) {
-  if (MODE == kBPlain) return b[(size_t)k * sbk + p];
-  if (MODE == kBShift) {
-    return k < shift ? b2[(size_t)k * sbk + p]
-                     : b[(size_t)(k - shift) * sbk + p];
+template <class G>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, int rows,
+                                           int cols, int m0, int n0,
+                                           const typename G::Acc& acc) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = G::warp_m0(), wn0 = G::warp_n0();
+  #pragma unroll
+  for (int i = 0; i < G::kMT; ++i) {
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + 16 * i + g + 8 * h;
+      if (m >= rows) continue;
+      #pragma unroll
+      for (int j = 0; j < G::kNT; ++j) {
+        const int n = n0 + wn0 + 8 * j + 2 * t;
+        if (n < cols) out[(size_t)m * cols + n] = acc[i][j][2 * h];
+        if (n + 1 < cols) out[(size_t)m * cols + n + 1] = acc[i][j][2 * h + 1];
+      }
+    }
   }
-  return tanhf(b[(size_t)k * sbk + p]) * b2[(size_t)k * sb2k + p];
 }
 
-// out[m, p] = sum_{k < K} A(m, k) B(k, p) for m < M, p < P, out [M, P]
-// row-major. A(m, k) = a[m*sam + k*sak], times amask[same] * inv_keep when
-// amask is given. One block owns one 64 x 64 output tile and walks all of
-// K in a fixed order: no atomics, reproducible sums.
-template <int MODE>
-__global__ void contract_kernel(const float* __restrict__ a,
-                                const int8_t* __restrict__ amask,
-                                float inv_keep, size_t sam, size_t sak,
-                                const float* __restrict__ b,
-                                const float* __restrict__ b2,
-                                size_t sbk, size_t sb2k, int shift,
-                                float* __restrict__ out,
-                                int M, int P, int K) {
-  __shared__ float As[kTK][kTM + 1];
-  __shared__ float Bs[kTK][kTP + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * kTM;
-  const int p0 = blockIdx.x * kTP;
-  float acc[4][4];
-  #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+template <bool AK, bool BK, bool VA, bool VB>
+__global__ void __launch_bounds__(TileGemm<AK, BK>::kThreads)
+contract_tc_kernel(Contract c) {
+  using G = TileGemm<AK, BK>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
+  const int k0 = blockIdx.z * c.kchunk;
+  const int kext = min(c.kchunk, c.K - k0);
+  float* out = c.out + (size_t)blockIdx.z * c.M * c.N;
+  if (kext <= 0) {              // an empty split contributes zeros
+    typename G::Acc acc;
+    tc::zero(acc);
+    store_tile<G>(out, c.M, c.N, m0, n0, acc);
+    return;
   }
+  const tc::Operand A{AK ? c.a + k0 : c.a + (size_t)k0 * c.lda, c.lda, c.M,
+                      kext};
+  const tc::Operand B{BK ? c.b + k0 : c.b + (size_t)k0 * c.ldb, c.ldb, c.N,
+                      kext};
+  G::template run<VA, VB>(
+      smem, A, B, m0, n0, 1,
+      [&](int, typename G::Acc& acc) {
+        store_tile<G>(out, c.M, c.N, m0, n0, acc);
+      },
+      [](const float*, const float*) {});
+}
 
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-    for (int e = tid; e < kTK * kTM; e += kCThreads) {
-      int kk, mm;
-      if (sak == 1) {           // neighbouring threads along k
-        mm = e / kTK;
-        kk = e % kTK;
-      } else {                  // neighbouring threads along m
-        kk = e / kTM;
-        mm = e % kTM;
-      }
-      const int m = m0 + mm;
-      const int k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < K) {
-        const size_t o = (size_t)m * sam + (size_t)k * sak;
-        v = a[o];
-        if (amask != nullptr) v = v * ((float)amask[o] * inv_keep);
-      }
-      As[kk][mm] = v;
-    }
-    for (int e = tid; e < kTK * kTP; e += kCThreads) {
-      const int kk = e / kTP;
-      const int pp = e % kTP;
-      const int p = p0 + pp;
-      const int k = k0 + kk;
-      Bs[kk][pp] = (p < P && k < K)
-                       ? load_b<MODE>(b, b2, sbk, sb2k, shift, k, p)
-                       : 0.f;
-    }
-    __syncthreads();
-    #pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      float av[4], bv[4];
-      #pragma unroll
-      for (int u = 0; u < 4; ++u) av[u] = As[kk][ty + 16 * u];
-      #pragma unroll
-      for (int v = 0; v < 4; ++v) bv[v] = Bs[kk][tx + 16 * v];
-      #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
-      }
-    }
-    __syncthreads();
-  }
-  #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int m = m0 + ty + 16 * u;
-    if (m >= M) continue;
-    #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int p = p0 + tx + 16 * v;
-      if (p < P) out[(size_t)m * P + p] = acc[u][v];
-    }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// out = A B over `splits` consecutive ranges of k: out holds `splits`
+// partial products [splits][M][N] (the product itself when splits = 1).
+template <bool AK, bool BK>
+cudaError_t contract(cudaStream_t st, const float* a, int lda,
+                     const float* b, int ldb, float* out, int M, int N,
+                     int K, int splits) {
+  using G = TileGemm<AK, BK>;
+  splits = std::max(1, splits);
+  const int ksteps = (K + tc::kBK - 1) / tc::kBK;
+  const int per = (ksteps + splits - 1) / splits;
+  const Contract c{a, lda, b, ldb, out, M, N, K, per * tc::kBK};
+  const bool va = lda % 4 == 0 && aligned16(a);
+  const bool vb = ldb % 4 == 0 && aligned16(b);
+  auto kernel = va ? (vb ? contract_tc_kernel<AK, BK, true, true>
+                         : contract_tc_kernel<AK, BK, true, false>)
+                   : (vb ? contract_tc_kernel<AK, BK, false, true>
+                         : contract_tc_kernel<AK, BK, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + G::kBM - 1) / G::kBM, (N + G::kBN - 1) / G::kBN,
+                  splits);
+  kernel<<<grid, G::kThreads, G::kSmemBytes, st>>>(c);
+  return cudaGetLastError();
+}
+
+// out[i] = sum_p part[p][i] for p = 0, 1, ... in order, one segment per
+// blockIdx.y; a segment with count 0 is skipped.
+struct Seg {
+  const float* part;
+  float* out;
+  int parts;
+  int count;
+};
+constexpr int kSegs = 5;
+struct Segs {
+  Seg s[kSegs];
+};
+
+__global__ void reduce_parts_kernel(Segs segs) {
+  const Seg sg = segs.s[blockIdx.y];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < sg.count;
+       i += gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int p = 0; p < sg.parts; ++p) v += sg.part[(size_t)p * sg.count + i];
+    sg.out[i] = v;
   }
 }
 
@@ -441,18 +482,6 @@ __global__ void col_reduce_kernel(const float* __restrict__ dgifo,
   }
 }
 
-template <int MODE>
-cudaError_t launch_contract(cudaStream_t st, const float* a,
-                            const int8_t* amask, float inv_keep, size_t sam,
-                            size_t sak, const float* b, const float* b2,
-                            size_t sbk, size_t sb2k, int shift, float* out,
-                            int M, int P, int K) {
-  const dim3 grid((P + kTP - 1) / kTP, (M + kTM - 1) / kTM);
-  contract_kernel<MODE><<<grid, kCThreads, 0, st>>>(
-      a, amask, inv_keep, sam, sak, b, b2, sbk, sb2k, shift, out, M, P, K);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // K1. Runs the T-step forward on `stream`: 2 launches per step, no
@@ -495,61 +524,91 @@ extern "C" int lstmp_train_fwd_f32(const float* x, const float* w_cat,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // K2. Residuals as K1 wrote them (gifo, c_seq, r_seq [T, S, .]), the
 // chunk's initial state c0 [S, C], r0 [S, R], x [T, S, I], the weights in
 // Kaldi orientation (w_gifo_x [4C, I], w_gifo_r [4C, R], w_r_m [R, C]),
 // peep [3, C], mask [T, S, 4C] int8 or null. g_r [T, S, R] is the
 // cotangent of every r_t, the final r's already added at T-1.
 // In/out: dc [S, C] holds the final c's cotangent on entry and dc0 on
-// return; dr [S, R] holds zeros on entry and dr0 on return.
-// Scratch: dgifo [T, S, 4C], drt [T, S, R].
+// return. Out: dr [S, R] = dr0.
+// Scratch: dgifo [T, S, 4C], drt [T, S, R], ho [T, S, C], dxw [T, S, 4C]
+// (with a mask, else null), r_prev [T, S, R], drp [sp_dr, S, R], and the
+// partials of each frame-axis product split in more than one (part_wx
+// [sp_wx, 4C, I], part_wr [sp_wr, 4C, R], part_wrm [sp_wrm, R, C],
+// part_dx [sp_dx, T S, I]; null where the split count is 1).
 // Out: dx [T, S, I] (skipped when null), dwx [4C, I], dwr [4C, R],
 // dwrm [R, C], dbias [4C], dpeep [3, C].
-// 2T + 4 launches (+1 with dx). Returns cudaGetLastError().
+// 2T + 5 launches (+1 with dx). Returns a CUDA error code (0 on success).
 extern "C" int lstmp_train_bwd_f32(
     const float* x, const float* w_gifo_x, const float* w_gifo_r,
     const float* w_r_m, const float* peep, const float* c0, const float* r0,
     const float* gifo, const float* c_seq, const float* r_seq,
     const int8_t* mask, float inv_keep, const float* g_r, float* dc,
-    float* dr, float* dgifo, float* drt, float* dx, float* dwx, float* dwr,
+    float* dr, float* dgifo, float* drt, float* ho, float* dxw,
+    float* r_prev, float* drp, float* part_wx, float* part_wr,
+    float* part_wrm, float* part_dx, float* dx, float* dwx, float* dwr,
     float* dwrm, float* dbias, float* dpeep, int T, int S, int I, int C,
-    int R, void* stream) {
+    int R, int sp_dr, int sp_wx, int sp_wr, int sp_wrm, int sp_dx,
+    void* stream) {
+  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 || sp_dr < 1 ||
+      sp_wx < 1 || sp_wr < 1 || sp_wrm < 1 || sp_dx < 1 ||
+      (mask != nullptr) != (dxw != nullptr) ||
+      (sp_wx > 1 && part_wx == nullptr) ||
+      (sp_wr > 1 && part_wr == nullptr) ||
+      (sp_wrm > 1 && part_wrm == nullptr) ||
+      (dx != nullptr && sp_dx > 1 && part_dx == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(kCells, kStreams);
   const int sblocks = (S + kStreams - 1) / kStreams;
   const dim3 grid_cell((C + kCells - 1) / kCells, sblocks);
-  const dim3 grid_rec((R + kCells - 1) / kCells, sblocks);
-  const size_t g_step = (size_t)S * 4 * C;
+  const size_t C4 = 4 * (size_t)C;
+  const size_t g_step = (size_t)S * C4;
   const size_t c_step = (size_t)S * C;
   const size_t r_step = (size_t)S * R;
   cudaError_t err;
   for (int t = T - 1; t >= 0; --t) {
     const float* c_prev = (t == 0) ? c0 : c_seq + (t - 1) * c_step;
     bwd_cell_kernel<<<grid_cell, block, 0, st>>>(
-        g_r + t * r_step, dr, w_r_m, gifo + t * g_step, c_seq + t * c_step,
-        c_prev, peep, dc, dgifo + t * g_step, drt + t * r_step, S, R, C);
+        g_r + t * r_step, drp, t == T - 1 ? 0 : sp_dr, w_r_m,
+        gifo + t * g_step, c_seq + t * c_step, c_prev, peep,
+        mask ? mask + t * g_step : nullptr, inv_keep, dc, dgifo + t * g_step,
+        drt + t * r_step, ho + t * c_step, dxw ? dxw + t * g_step : nullptr,
+        S, R, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    rows_times_mat_kernel<<<grid_rec, block, 0, st>>>(
-        dgifo + t * g_step, w_gifo_r, dr, S, 4 * C, R);
-    err = cudaGetLastError();
+    // dr [S, R] = dgifo[t] [S, 4C] Wr [4C, R], split over 4C
+    err = contract<true, false>(st, dgifo + t * g_step, 4 * C, w_gifo_r, R,
+                                drp, S, R, 4 * C, sp_dr);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
   const int N = T * S;
-  const size_t C4 = 4 * (size_t)C;
+  const float* dxw_or_dgifo = dxw ? dxw : dgifo;   // dropout: dx, dWx only
+  err = cudaMemcpyAsync(r_prev, r0, r_step * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess && T > 1) {
+    err = cudaMemcpyAsync(r_prev + r_step, r_seq,
+                          (T - 1) * r_step * sizeof(float),
+                          cudaMemcpyDeviceToDevice, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   // dWx [4C, I] = dxw^T x
-  err = launch_contract<kBPlain>(st, dgifo, mask, inv_keep, 1, C4, x,
-                                 nullptr, I, 0, 0, dwx, 4 * C, I, N);
+  err = contract<false, false>(st, dxw_or_dgifo, 4 * C, x, I,
+                               sp_wx > 1 ? part_wx : dwx, 4 * C, I, N,
+                               sp_wx);
   if (err != cudaSuccess) return static_cast<int>(err);
   // dWr [4C, R] = dgifo^T r_prev
-  err = launch_contract<kBShift>(st, dgifo, nullptr, 1.f, 1, C4, r_seq, r0,
-                                 R, 0, S, dwr, 4 * C, R, N);
+  err = contract<false, false>(st, dgifo, 4 * C, r_prev, R,
+                               sp_wr > 1 ? part_wr : dwr, 4 * C, R, N,
+                               sp_wr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dWrm [R, C] = dr_total^T (tanh(c) o)
-  err = launch_contract<kBTanhTimes>(st, drt, nullptr, 1.f, 1, R, c_seq,
-                                     gifo + 3 * (size_t)C, C, C4, 0, dwrm,
-                                     R, C, N);
+  // dWrm [R, C] = dr_total^T (h o)
+  err = contract<false, false>(st, drt, R, ho, C,
+                               sp_wrm > 1 ? part_wrm : dwrm, R, C, N,
+                               sp_wrm);
   if (err != cudaSuccess) return static_cast<int>(err);
   col_reduce_kernel<<<(7 * C + kRedCols - 1) / kRedCols,
                       kRedCols * kRedRows, 0, st>>>(dgifo, c_seq, c0, dbias,
@@ -558,10 +617,23 @@ extern "C" int lstmp_train_bwd_f32(
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dx != nullptr) {
     // dx [N, I] = dxw Wx
-    err = launch_contract<kBPlain>(st, dgifo, mask, inv_keep, C4, 1,
-                                   w_gifo_x, nullptr, I, 0, 0, dx, N, I,
-                                   4 * C);
+    err = contract<true, false>(st, dxw_or_dgifo, 4 * C, w_gifo_x, I,
+                                sp_dx > 1 ? part_dx : dx, N, I, 4 * C,
+                                sp_dx);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  // the partials of every split product, and dr0 from the last step's
+  auto seg = [](const float* part, float* out, int parts, size_t count) {
+    return Seg{part, out, parts, parts > 1 ? static_cast<int>(count) : 0};
+  };
+  Segs segs{{seg(drp, dr, sp_dr, r_step), seg(part_wx, dwx, sp_wx, C4 * I),
+             seg(part_wr, dwr, sp_wr, C4 * R),
+             seg(part_wrm, dwrm, sp_wrm, (size_t)R * C),
+             seg(part_dx, dx, dx ? sp_dx : 1, (size_t)N * I)}};
+  segs.s[0].count = static_cast<int>(r_step);
+  int most = 0;
+  for (const Seg& sg : segs.s) most = std::max(most, sg.count);
+  const int blocks = std::min((most + 255) / 256, 1024);
+  reduce_parts_kernel<<<dim3(blocks, kSegs), 256, 0, st>>>(segs);
   return static_cast<int>(cudaGetLastError());
 }

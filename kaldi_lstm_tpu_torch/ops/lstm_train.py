@@ -21,10 +21,18 @@ the final r's cotangent joins r(T-1)'s and the final c's seeds dc.
 With ``need_input_grad=False`` no dx is computed and the Function
 returns None for it.
 
+K2 runs its products on the tensor cores, split over the contraction
+where a product has too few tiles to fill the card (``bwd_plan``).
+``lstm_bwd_split_plain`` spells that decomposition out in torch (the
+serial loop writing dgifo, dr_total, h o and dxw, the split-K partials
+of the per-step dr added in a fixed order, then the four frame-axis
+products from the materialised operands); the CPU tests hold it
+against the JAX package's Pallas kernel.
+
 Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
-launches (K1: 2 per step; K2: 2 per step + 4, + 1 with dx);
-``PLAIN_CALLS`` counts the calls of either half that took the plain
-version. ``reset_counts`` zeroes all three.
+launches (K1: 2 per step; K2: ``bwd_launches``, 2 per step + 5, + 1
+with dx); ``PLAIN_CALLS`` counts the calls of either half that took the
+plain version. ``reset_counts`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
 from kaldi_lstm_tpu_torch.ops.lstm_infer import (
+    H100_SMS,
     _check,
     _kernel_operands,
     check_lstm_operands,
@@ -62,9 +71,56 @@ def _entries():
                         i, i, i, i, i, f, p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
-        bwd.argtypes = [p] * 11 + [f] + [p] * 11 + [i] * 5 + [p]
+        bwd.argtypes = [p] * 11 + [f] + [p] * 19 + [i] * 10 + [p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+# csrc/lstmp_train.cu's tensor-core products: 64 x 64 output tiles, 32-deep
+# stages of the contraction
+_TILE, _STAGE = 64, 32
+
+
+def _split(M: int, N: int, K: int, sms: int) -> int:
+    """Contraction splits of an [M, N] product over K: enough (tile,
+    split) CTAs for two per SM, each split at least 8 stages deep, and
+    no split empty."""
+    tiles = -(-M // _TILE) * -(-N // _TILE)
+    ksteps = -(-K // _STAGE)
+    want = max(1, min(-(-2 * sms // tiles), ksteps // 8))
+    per = -(-ksteps // want)
+    return -(-ksteps // per)
+
+
+def bwd_plan(T: int, S: int, I: int, C: int, R: int,
+             sms: int = H100_SMS) -> dict[str, int]:
+    """K2's split counts: the per-step dr = dgifo_t Wr ([S, R] over 4C),
+    dWx ([4C, I] over T S), dWr ([4C, R]), dWrm ([R, C]) and dx ([T S, I]
+    over 4C)."""
+    N = T * S
+    return {"dr": _split(S, R, 4 * C, sms), "wx": _split(4 * C, I, N, sms),
+            "wr": _split(4 * C, R, N, sms), "wrm": _split(R, C, N, sms),
+            "dx": _split(N, I, 4 * C, sms)}
+
+
+def bwd_launches(T: int, need_dx: bool) -> int:
+    """K2's launches per call: bwd_cell and dr per step; dWx, dWr, dWrm,
+    the column sums and the partials' sum; dx."""
+    return 2 * T + 5 + int(need_dx)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, splits: int
+                  ) -> torch.Tensor:
+    """a [M, K] @ b [K, N] as the kernel sums it: partial products over
+    `splits` consecutive ranges of k (whole 32-deep stages each), added
+    in range order."""
+    K = a.shape[1]
+    ksteps = -(-K // _STAGE)
+    kc = -(-ksteps // splits) * _STAGE
+    out = a.new_zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, K, kc):
+        out = out + a[:, k0:k0 + kc] @ b[k0:k0 + kc]
+    return out
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -173,6 +229,71 @@ def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
     return dparams, dx, dc, dr
 
 
+def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
+                         c0: torch.Tensor, r0: torch.Tensor,
+                         gifo: torch.Tensor, c_seq: torch.Tensor,
+                         r_seq: torch.Tensor,
+                         keep_mask_tm: torch.Tensor | None, inv_keep: float,
+                         g_r: torch.Tensor, gcT: torch.Tensor, need_dx: bool,
+                         sms: int = H100_SMS
+                         ) -> tuple[LstmParams, torch.Tensor | None,
+                                    torch.Tensor, torch.Tensor]:
+    """K2's decomposition in torch, the arguments and results of
+    ``lstm_bwd_plain``: the serial loop writes dgifo, dr_total, h o and
+    (with a mask) dxw for every t, the per-step dr comes as ``bwd_plan``'s
+    split-K partials that the next step adds in order, then the four
+    frame-axis products run from the materialised operands (r_prev made
+    contiguous), each split as the kernel splits it."""
+    T, S, I = x_tm.shape
+    C, R = params.cell_dim, params.recur_dim
+    N = T * S
+    sp = bwd_plan(T, S, I, C, R, sms)
+    pi, pf, po = (params.peephole_i_c, params.peephole_f_c,
+                  params.peephole_o_c)
+    dc = gcT.clone()
+    dr = gcT.new_zeros((S, R))
+    dgifo = gifo.new_empty((T, S, 4 * C))
+    drt = gifo.new_empty((T, S, R))
+    ho = gifo.new_empty((T, S, C))
+    dxw = None if keep_mask_tm is None else gifo.new_empty((T, S, 4 * C))
+    for t in range(T - 1, -1, -1):
+        g, i, f, o = gifo[t].split(C, dim=-1)
+        cp = c_seq[t - 1] if t > 0 else c0
+        h = torch.tanh(c_seq[t])
+        dr_total = g_r[t] + dr
+        dm = dr_total @ params.w_r_m
+        d_o = dm * h * o * (1.0 - o)
+        dc_total = dc + dm * o * (1.0 - h * h) + d_o * po
+        df = dc_total * cp * f * (1.0 - f)
+        di = dc_total * g * i * (1.0 - i)
+        dg = dc_total * i * (1.0 - g * g)
+        dgifo[t] = torch.cat([dg, di, df, d_o], dim=-1)
+        drt[t] = dr_total
+        ho[t] = h * o
+        if dxw is not None:
+            dxw[t] = dgifo[t] * (keep_mask_tm[t].to(torch.float32) * inv_keep)
+        dc = dc_total * f + di * pi + df * pf
+        dr = _split_matmul(dgifo[t], params.w_gifo_r, sp["dr"])
+
+    dg2 = dgifo.reshape(N, 4 * C)
+    dxw2 = dg2 if dxw is None else dxw.reshape(N, 4 * C)
+    r_prev = torch.cat([r0[None], r_seq[:-1]]).reshape(N, R)
+    c_prev = torch.cat([c0[None], c_seq[:-1]]).reshape(N, C)
+    dparams = LstmParams(
+        w_gifo_x=_split_matmul(dxw2.T, x_tm.reshape(N, I), sp["wx"]),
+        w_gifo_r=_split_matmul(dg2.T, r_prev, sp["wr"]),
+        bias=dg2.sum(0),
+        peephole_i_c=(dg2[:, C:2 * C] * c_prev).sum(0),
+        peephole_f_c=(dg2[:, 2 * C:3 * C] * c_prev).sum(0),
+        peephole_o_c=(dg2[:, 3 * C:] * c_seq.reshape(N, C)).sum(0),
+        w_r_m=_split_matmul(drt.reshape(N, R).T, ho.reshape(N, C),
+                            sp["wrm"]),
+    )
+    dx = _split_matmul(dxw2, params.w_gifo_x, sp["dx"]).reshape(T, S, I) \
+        if need_dx else None
+    return dparams, dx, dc, dr
+
+
 # ---------------------------------------------------------------------------
 # kernels (CUDA tensors)
 # ---------------------------------------------------------------------------
@@ -247,10 +368,27 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
                                      r_seq, g_r)]
     peep = _peep(params)
     f32 = dict(dtype=torch.float32, device=dev)
+    sp = bwd_plan(T, S, I, C, R,
+                  torch.cuda.get_device_properties(dev).multi_processor_count)
+    if not need_dx:
+        sp["dx"] = 1
+    N = T * S
+
+    def partials(key, rows, cols):
+        return torch.empty((sp[key], rows, cols), **f32) if sp[key] > 1 \
+            else None
+
     dc = gcT.contiguous().clone()
-    dr = torch.zeros((S, R), **f32)
-    dgifo = torch.empty((T, S, 4 * C), **f32)
-    drt = torch.empty((T, S, R), **f32)
+    dr = torch.empty((S, R), **f32)
+    scratch = [torch.empty((T, S, 4 * C), **f32),           # dgifo
+               torch.empty((T, S, R), **f32),               # dr_total
+               torch.empty((T, S, C), **f32),               # h o
+               None if keep_mask_tm is None
+               else torch.empty((T, S, 4 * C), **f32),      # dxw
+               torch.empty((T, S, R), **f32),               # r_prev
+               torch.empty((sp["dr"], S, R), **f32),        # dr partials
+               partials("wx", 4 * C, I), partials("wr", 4 * C, R),
+               partials("wrm", R, C), partials("dx", N, I)]
     dx = torch.empty((T, S, I), **f32) if need_dx else None
     dwx = torch.empty((4 * C, I), **f32)
     dwr = torch.empty((4 * C, R), **f32)
@@ -266,13 +404,14 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
                   r0c.data_ptr(), gifo_c.data_ptr(), c_c.data_ptr(),
                   r_c.data_ptr(), _ptr(keep_mask_tm), float(inv_keep),
                   g_r_c.data_ptr(), dc.data_ptr(), dr.data_ptr(),
-                  dgifo.data_ptr(), drt.data_ptr(), _ptr(dx),
+                  *(_ptr(t) for t in scratch), _ptr(dx),
                   dwx.data_ptr(), dwr.data_ptr(), dwrm.data_ptr(),
-                  dbias.data_ptr(), dpeep.data_ptr(), T, S, I, C, R, stream)
+                  dbias.data_ptr(), dpeep.data_ptr(), T, S, I, C, R,
+                  sp["dr"], sp["wx"], sp["wr"], sp["wrm"], sp["dx"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_train: K2 launch failed with CUDA error "
                            f"{err}")
-    BWD_LAUNCHES += 2 * T + 4 + (1 if need_dx else 0)
+    BWD_LAUNCHES += bwd_launches(T, need_dx)
     dparams = LstmParams(w_gifo_x=dwx, w_gifo_r=dwr, bias=dbias,
                          peephole_i_c=dpeep[0], peephole_f_c=dpeep[1],
                          peephole_o_c=dpeep[2], w_r_m=dwrm)

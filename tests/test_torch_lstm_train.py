@@ -190,6 +190,67 @@ def test_fwd_residuals_plain_match_pallas_fwd_kernel(keep):
     np.testing.assert_allclose(r_seq.numpy(), r_p[:, :S, :R], **TOL)
 
 
+SPLIT_CASES = {
+    # name: (S, T, I, C, R, clip, keep, need_dx, x_scale, weight scale,
+    #        SMs): the wide cases split the per-step dr and dx over 4C,
+    #        the long ones the frame-axis products over T S
+    "no_split": (3, 5, 7, 9, 6, 50.0, None, True, 1.0, 0.3, 132),
+    "dr_dx_split_dropout": (2, 4, 5, 200, 130, 0.1, 0.7, True, 3.0, 0.05,
+                            132),
+    "dr_split_no_dx": (3, 3, 6, 200, 40, 50.0, None, False, 1.0, 0.05, 132),
+    "frame_split_dropout": (64, 10, 5, 9, 6, 50.0, 0.8, True, 1.0, 0.3, 132),
+    "frame_split_no_dx": (64, 10, 5, 9, 6, 50.0, None, False, 1.0, 0.3, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_bwd_split_decomposition_matches_pallas(case):
+    """K2's decomposition (`lstm_bwd_split_plain`: dgifo, dr_total, h o
+    and dxw materialised by the serial loop, the per-step dr as split-K
+    partials added in order, the four frame-axis products from the
+    materialised operands, r_prev made contiguous) against
+    `lstm_scan_pallas`'s gradients."""
+    S, T, I, C, R, clip, keep, need_dx, xs, scale, sms = SPLIT_CASES[case]
+    p, x, c0, r0, mask, cot = make(S, T, I, C, R, scale=scale, x_scale=xs,
+                                   keep=keep, time_major=True)
+    _, jgp, jgx, jgc, jgr = jax_run(p, x, c0, r0, mask, cot, clip, True,
+                                    keep, need_dx)
+    plan = lt.bwd_plan(T, S, I, C, R, sms)
+    if case != "no_split":
+        assert max(plan.values()) > 1, plan
+    tp = LstmParams(**{k: torch.from_numpy(v) for k, v in p.items()})
+    args = [torch.from_numpy(a) for a in (x, c0, r0)]
+    m8 = None if mask is None else torch.from_numpy(mask).to(torch.int8)
+    ik = 1.0 if keep is None else 1.0 / keep
+    res = lt.lstm_fwd_residuals_plain(tp, *args, m8, ik, clip)
+    g_r = torch.from_numpy(cot[0]).clone()
+    g_r[T - 1] += torch.from_numpy(cot[2])
+    dp, dx, dc0, dr0 = lt.lstm_bwd_split_plain(
+        tp, *args, *res, m8, ik, g_r, torch.from_numpy(cot[1]), need_dx,
+        sms)
+    for name in JLstmParams._fields:
+        np.testing.assert_allclose(getattr(dp, name).numpy(),
+                                   np.asarray(getattr(jgp, name)),
+                                   err_msg=name, **TOL)
+    np.testing.assert_allclose(dc0.numpy(), np.asarray(jgc), **TOL)
+    np.testing.assert_allclose(dr0.numpy(), np.asarray(jgr), **TOL)
+    if need_dx:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(jgx), **TOL)
+    else:
+        assert dx is None
+
+
+def test_bwd_plan_fills_the_card_at_the_flagship_shape():
+    """The per-step dr and dWx at I=40 have too few 64 x 64 tiles to fill
+    132 SMs and are split; dWr has enough; every split is at least 8
+    stages deep."""
+    plan = lt.bwd_plan(20, 256, 40, 800, 512)
+    assert plan == {"dr": 9, "wx": 6, "wr": 1, "wrm": 3, "dx": 4}
+    assert lt.bwd_plan(20, 256, 512, 800, 512)["wx"] == 1
+    assert lt.bwd_launches(20, False) == 45
+    assert lt.bwd_launches(20, True) == 46
+
+
 def test_lstm_train_empty_time_keeps_state():
     p, x, c0, r0, _, _ = make(2, 3, 4, 5, 3)
     tp = LstmParams(**{k: torch.from_numpy(v) for k, v in p.items()})
@@ -243,6 +304,7 @@ def cuda_device():
     (8, 6, 40, 800, 512, None, False),
     (3, 7, 37, 200, 130, 0.8, True),
     (1, 1, 1, 1, 1, None, True),
+    (32, 6, 512, 800, 512, 0.8, True),   # the deep net's layer 2
 ])
 def test_cuda_kernels_match_plain_versions(cuda_device, S, T, I, C, R, keep,
                                            need_dx):
@@ -266,7 +328,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, S, T, I, C, R, keep,
     bp = lt.lstm_bwd_plain(tp, *args, *fp, m8, ik, g_r, gc, need_dx)
     torch.cuda.synchronize()
     assert lt.FWD_LAUNCHES == 2 * T
-    assert lt.BWD_LAUNCHES == 2 * T + 4 + int(need_dx)
+    assert lt.BWD_LAUNCHES == lt.bwd_launches(T, need_dx)
     got = [*fk, *bk[0], bk[2], bk[3]] + ([bk[1]] if need_dx else [])
     ref = [*fp, *bp[0], bp[2], bp[3]] + ([bp[1]] if need_dx else [])
     for a, b in zip(got, ref):
