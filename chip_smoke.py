@@ -19,23 +19,29 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    (T=128, 1000), S=256 (T=20) and I=512 (T=1000), and print the time
    per step at S=8;
 3b. hold the training kernels K1-K4 (LSTMP forward with residuals, BPTT,
-   fused senone affine + xent forward and backward, the latter two
-   3xTF32 tensor-core kernels) against their plain versions at the
+   fused senone affine + xent forward and backward, all four with their
+   products on the 3xTF32 tensor-core mainloop) against their plain
+   versions at the
    flagship training width (S=256, T=20, I=40, C=800, R=512, K=8000), at
    the deep config's new shapes (K1/K2 with dx at I=512, K3/K4 at
    K=16624, K2 also with dropout at I=512) and on ragged, clipped,
    dropout, no-dx, final-state-cotangent and argmax-tie cases (K3/K4:
-   ties across a 64-class tile edge and across K3's class-chunk edge);
-   time kernel and plain (K1/K2 at the flagship shape and at I=512 with
-   dx); print bounds (for K2, K3 and K4 both the f32 CUDA-core and the
-   3xTF32 tensor-core bound) and, as context, cuBLAS f32 times of K2's four
-   products and K3/K4's three;
+   ties across a 64-class tile edge and across K3's class-chunk edge),
+   K1's launch count against `fwd_launches`; time kernel and plain
+   (K1/K2 at the flagship shape and at I=512 with dx) and K1's launches
+   by kernel
+   (profiler: the hoisted xw, the gates and the projection per step);
+   print bounds (both the f32 CUDA-core and the 3xTF32 tensor-core bound)
+   and, as context, cuBLAS f32 times of K1's three products, K2's four
+   and K3/K4's three;
 3c. hold the wavefront two-layer kernels K6/K7 against their plain
    versions at the deep config's width (S=512, T=20, tb 5/4/2/1, nonzero
    states), on a ragged clipped case and K7 at the serving shape (S=8,
    T=1000); K6's residuals through K2 against K1's; time kernel, plain
    and the serial two-kernel schedule (K1 x 2, K5 x 2) and print their
-   ratio; then drive the port's
+   ratio (K1's rounding differs from K6's since K1 moved to the tensor
+   cores, so K6-vs-K1 through K2 holds at TRAIN_TOL); then drive the
+   port's
    `tools/bench_wavefront` (A/B, ablation, profile) with the K6/K7
    counts zeroed before its A/B and read after;
 4. drive the serving path: `nnet_forward` scoring of the full-width
@@ -43,7 +49,12 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    AffineTransform 512->8000 -> Softmax, random weights from a seed) over
    a synthetic feature ark, with the K5 launch count zeroed just before
    and read just after, then check the output and compare three
-   utterances with the port's own CPU path;
+   utterances with the port's own CPU path; time steady scoring without
+   and with the pipeline, and print the side-stream score copy's ms, its
+   share of a batch and whether batch k's copy overlapped batch k+1's
+   input copy and forward (CUDA events; with the pipeline, true in some
+   pair and in every pair whose batch k+1's forward was queued before
+   batch k's ended; false in every pair without);
 5. drive the training path: `train_lstm_streams --device cuda` trains
    the flagship net (Transmit -> LstmProjectedStreams 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax) for one epoch of a synthetic
@@ -70,6 +81,7 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -337,6 +349,55 @@ def k1_bound(T, S, I, C, R, mask):
                                                  else 0))
 
 
+def k1_tc_bound(simt, T, S, I, C, R):
+    """K1's float32-accurate tensor-core bound: its three products (the
+    hoisted x Wx^T, r Wr^T and m Wrm^T per step) three times over at the
+    TF32 peak; the compulsory bytes are those of the f32 bound `simt`
+    (ms, by). Returns (ms, by)."""
+    t_ops = 1e3 * 3 * 2.0 * T * S * (4 * C * (I + R) + C * R) \
+        / PEAK_TF32_FLOPS
+    t_bytes = simt[0] if simt[1] == "bytes" else 0.0
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def k1_bytes_ms(T, S, I, C, R, mask):
+    """K1's compulsory bytes over the HBM rate, ms."""
+    n_in = T * S * I + (I + R) * 4 * C + 7 * C + C * R + S * (C + R)
+    n_out = T * S * (4 * C + C + R)
+    return 1e3 * (4.0 * (n_in + n_out) + (T * S * 4 * C if mask else 0)) \
+        / PEAK_BYTES_PER_S
+
+
+K1_KERNELS = {"interleave": "interleave_gate_rows", "xw": "xw_tc_kernel",
+              "gates": "gates_tc_kernel", "projection": "contract_tc_kernel"}
+
+
+def k1_launch_split(fn, T, calls=3):
+    """Device ms per launch of each of K1's kernels over `calls` calls of
+    fn() (torch.profiler), keyed as K1_KERNELS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for what, name in K1_KERNELS.items():
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    name in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += t if t is not None else e.self_cuda_time_total
+                n += e.count
+        split[what] = {"launches": n / calls,
+                       "ms_per_launch": us / 1e3 / n if n else None}
+    return split
+
+
 def k2_bound(T, S, I, C, R, mask, need_dx):
     N = T * S
     ops = 2.0 * N * (2 * R * C + 8 * C * R + (8 if need_dx else 4) * C * I)
@@ -419,7 +480,17 @@ def lstm_train_case(name, S, T, I, C, R, clip, keep, need_dx, seed,
     fwd_args = (params, x_tm, state.c, state.r, mask, ik, clip)
     log(f"  [{name}] S={S} T={T} I={I} C={C} R={R} clip {clip:g} "
         f"keep {keep} dx {need_dx}")
+    plan = lt.fwd_plan(T, S, I, C, R, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    lt.reset_counts()
     fk = lt.lstm_fwd_residuals_cuda(*fwd_args)
+    torch.cuda.synchronize()
+    log(f"    K1 plan {plan}: FWD_LAUNCHES {lt.FWD_LAUNCHES} == "
+        f"fwd_launches({T}) = {lt.fwd_launches(T)}")
+    if (lt.FWD_LAUNCHES, lt.PLAIN_CALLS) != (lt.fwd_launches(T), 0):
+        fail(f"{name}: K1 made {lt.FWD_LAUNCHES} launches and "
+             f"{lt.PLAIN_CALLS} plain calls (expected {lt.fwd_launches(T)} "
+             f"and 0)")
     fp = lt.lstm_fwd_residuals_plain(*fwd_args)
     torch.cuda.synchronize()
     worst = 0.0
@@ -453,7 +524,19 @@ def lstm_train_case(name, S, T, I, C, R, clip, keep, need_dx, seed,
         k_ms = cuda_ms(kfn)
         p_ms = cuda_ms(pfn, reps=3)
         rec[key] = {"ms": k_ms, "plain_ms": p_ms}
-        if key == "K2":
+        if key == "K1":
+            simt = bnd
+            tc = k1_tc_bound(simt, T, S, I, C, R)
+            bnd = min(simt, tc)
+            what = (f"bounds: f32 CUDA cores {simt[0]:.4f} ms ({simt[1]}), "
+                    f"3xTF32 tensor cores {tc[0]:.4f} ms ({tc[1]}; 3 x "
+                    f"the products' operations at "
+                    f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s); compulsory "
+                    f"bytes {k1_bytes_ms(T, S, I, C, R, mask is not None):.4f}"
+                    f" ms")
+            rec[key].update(bound_f32_simt_ms=simt[0],
+                            bound_3xtf32_ms=tc[0])
+        elif key == "K2":
             simt = bnd
             tc = k2_tc_bound(simt, T, S, I, C, R, need_dx)
             bnd = min(simt, tc)
@@ -464,15 +547,39 @@ def lstm_train_case(name, S, T, I, C, R, clip, keep, need_dx, seed,
                     f"{PEAK_F32_FLOPS / 1e12:g})")
             rec[key].update(bound_f32_simt_ms=simt[0],
                             bound_3xtf32_ms=tc[0])
-        else:
-            what = f"bound {bnd[0]:.4f} ms ({bnd[1]})"
         log(f"  [{name}] {key}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"{what}; library: n/a (no single PyTorch call computes the "
             f"LSTMP recurrence with peepholes, clip and its residuals)")
         rec[key].update(bound_ms=bnd[0], bound_by=bnd[1])
-    # context: cuBLAS f32 on K2's four products at these shapes (random
-    # operands; the port never calls these)
+    # K1: its launches by kernel
+    split = k1_launch_split(lambda: lt.lstm_fwd_residuals_cuda(*fwd_args), T)
+    log(f"  [{name}] K1 launches per call by kernel (profiler, ms per "
+        f"launch): " + ", ".join(
+            f"{k} x{v['launches']:g} " + (
+                f"{v['ms_per_launch']:.4f}" if v["ms_per_launch"] is not None
+                else "not measured") for k, v in split.items()))
+    rec["K1"].update(launch_split=split)
+    # context: cuBLAS f32 on K1's three products and K2's four at these
+    # shapes (random operands; the port never calls these)
     N = T * S
+    xs2, r_c, m_c = (torch.randn(n, k, device="cuda")
+                     for n, k in ((N, I), (S, R), (S, C)))
+
+    def k1_products():
+        xs2 @ params.w_gifo_x.T
+        for _ in range(T):
+            r_c @ params.w_gifo_r.T
+            m_c @ params.w_r_m.T
+    k1_ctx = {"x Wx^T": cuda_ms(lambda: xs2 @ params.w_gifo_x.T),
+              f"r Wr^T x{T}": cuda_ms(lambda: [r_c @ params.w_gifo_r.T
+                                               for _ in range(T)]),
+              f"m Wrm^T x{T}": cuda_ms(lambda: [m_c @ params.w_r_m.T
+                                                for _ in range(T)]),
+              "all three": cuda_ms(k1_products)}
+    log(f"  [{name}] K1 context (cuBLAS f32, not used by the port): " +
+        ", ".join(f"{k} {v:.3f} ms" for k, v in k1_ctx.items()))
+    rec["K1"]["cublas_products_ms"] = k1_ctx
+    del xs2, r_c, m_c
     dg, ho, rp, xs = (torch.randn(N, n, device="cuda")
                       for n in (4 * C, C, R, I))
     drt = torch.randn(N, R, device="cuda")
@@ -620,7 +727,8 @@ def phase_train_kernels():
         ("deep layer 2, I=512, keep 0.8, dx", (S, T, 512, C, R), 50.0, 0.8,
          True, {}, False),
     ]
-    # timed: True = the main path's record; "deep" = printed only
+    # timed: True = the main path's record; "deep" = its I=512 times
+    deep = {}
     for i, (name, dims, clip, keep, dx, extra, timed) in \
             enumerate(lstm_cases):
         w, rec = lstm_train_case(name, *dims, clip, keep, dx, 40 + i,
@@ -628,6 +736,13 @@ def phase_train_kernels():
         worst["K1"] = worst["K2"] = max(worst["K1"], w)
         if rec and timed is True:
             recs.update(rec)
+        elif rec:
+            deep = rec
+    for k in ("K1", "K2"):
+        recs[k].update({f"i512_{f}": deep[k][f] for f in
+                        ("ms", "plain_ms", "bound_ms", "bound_3xtf32_ms",
+                         "bound_f32_simt_ms")})
+    recs["K1"]["i512_launch_split"] = deep["K1"]["launch_split"]
     w = lstm_function_case()
     worst["K1"] = worst["K2"] = max(worst["K1"], w)
     from kaldi_lstm_tpu_torch.ops.xent_affine import FWD_CHUNK
@@ -793,7 +908,7 @@ def phase_stack_kernels():
                                         for tb in bw.FWD_TBS),
         "lstmp_stack_infer2": calls * sum(ls.wavefront_launches(bw.T, tb)
                                           for tb in bw.INFER_TBS),
-        "lstmp_train_fwd": calls * 2 * 2 * bw.T,
+        "lstmp_train_fwd": calls * 2 * lt.fwd_launches(bw.T),
         "lstmp_infer": calls * 2}
     for m in (ls, lt, li):
         m.reset_counts()
@@ -839,7 +954,9 @@ def stack_residuals_through_k2(args, clip, worst):
     wave = ls.lstm_stack_fwd2_cuda(*args, clip, tb=5)
     k1a = lt.lstm_fwd_residuals_cuda(p1, x, s1.c, s1.r, cell_clip=clip)
     k1b = lt.lstm_fwd_residuals_cuda(p2, k1a[2], s2.c, s2.r, cell_clip=clip)
-    log("    K6 residuals through K2 vs K1 residuals through K2:")
+    log("    K6 residuals through K2 vs K1 residuals through K2 (K1's "
+        "products run on the tensor cores and K6's on the CUDA cores, so "
+        "they round differently: held at TRAIN_TOL):")
     for n, p, xw, xk, s, res_w, res_k, dx in (
             (1, p1, x, x, s1, wave[:3], k1a, False),
             (2, p2, wave[2], k1a[2], s2, wave[3:], k1b, True)):
@@ -879,7 +996,10 @@ def phase_train(work: str):
     import torch
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
     from kaldi_lstm_tpu_torch.models import Nnet
-    from kaldi_lstm_tpu_torch.ops.lstm_train import bwd_launches
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
     from kaldi_lstm_tpu_torch.train.streams import StreamScheduler
     from kaldi_lstm_tpu_torch.train.trainer import (
@@ -919,7 +1039,7 @@ def phase_train(work: str):
     batches = list(sched)
     steps = len(batches)
     T = TRAIN_T
-    predicted = {"lstmp_train_fwd": 2 * T * steps,
+    predicted = {"lstmp_train_fwd": fwd_launches(T) * steps,
                  "lstmp_train_bwd": bwd_launches(T, False) * steps,
                  "xent_affine_fwd": 2 * steps,
                  "xent_affine_bwd": 3 * steps}
@@ -1040,12 +1160,15 @@ def reset_all_counts() -> tuple:
 def recipe_prediction(layers: int, steps: int) -> dict:
     """Launches of one newbob iteration from a fresh directory: a CV
     epoch, a training epoch and a CV epoch of `steps` steps each.
-    Training step: K1 2T per layer, K2 `bwd_launches` per layer (with dx
-    on every layer above the first), K3 2, K4 3; CV step: K5 1 per
-    layer, K3 2."""
-    from kaldi_lstm_tpu_torch.ops.lstm_train import bwd_launches
+    Training step: K1 `fwd_launches` per layer, K2 `bwd_launches` per
+    layer (with dx on every layer above the first), K3 2, K4 3; CV step:
+    K5 1 per layer, K3 2."""
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
     T = TRAIN_T
-    return {"lstmp_train_fwd": 2 * T * layers * steps,
+    return {"lstmp_train_fwd": fwd_launches(T) * layers * steps,
             "lstmp_train_bwd": sum(bwd_launches(T, layer > 0)
                                    for layer in range(layers)) * steps,
             "xent_affine_fwd": 3 * 2 * steps,
@@ -1297,6 +1420,7 @@ def phase_main_path(work: str):
     import torch
     from kaldi_lstm_tpu_torch.decode.scoring import (
         AmScorer,
+        copy_overlaps,
         log_priors_from_counts,
     )
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
@@ -1351,30 +1475,88 @@ def phase_main_path(work: str):
     if worst > SCORE_ATOL:
         fail("card scores disagree with the CPU path")
 
-    # steady-state throughput: the same scorer, warm, features in memory
+    # steady-state throughput: the same scorer, warm, features in memory,
+    # without and with the pipeline; every batch's scores come back on the
+    # scorer's side stream into fresh pinned memory (CUDA events around it)
     nnet_g, params_g = Nnet.read(model, "cuda")
-    scorer = AmScorer(nnet_g, params_g, log_prior=lp, apply_log=True,
-                      device="cuda")
     frames = sum(m.shape[0] for m in utts.values())
-    for _ in scorer.score_stream(list(utts.items())[:8]):
-        pass
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n = sum(1 for _ in scorer.score_stream(utts.items()))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    log(f"  steady scoring: {n} utterances, {frames} frames in {dt:.3f} s "
-        f"-> {frames / dt:.1f} frames/s, "
-        f"{frames / FRAMES_PER_AUDIO_SECOND / dt:.2f} audio-s/s")
+    digests = {}
+    serving = {}
+    for pipe in (False, True):
+        scorer = AmScorer(nnet_g, params_g, log_prior=lp, apply_log=True,
+                          device="cuda", pipeline=pipe)
+        pend, queued = [], []
+        dispatch, forward = scorer._dispatch, scorer._forward
+
+        def tracked(group, dispatch=dispatch, pend=pend):
+            pend.append(dispatch(group))
+            return pend[-1]
+
+        def tracked_forward(x, forward=forward, pend=pend,
+                            queued=queued):
+            # is batch k+1's forward queued while batch k's still runs?
+            queued.append(bool(pend) and not pend[-1].ready.query())
+            return forward(x)
+        scorer._dispatch, scorer._forward = tracked, tracked_forward
+        rows = {k: hashlib.sha256(y.tobytes()).hexdigest()
+                for k, y in scorer.score_stream(utts.items())}
+        if digests and rows != digests:
+            fail("pipeline=True scores differ from pipeline=False's bytes")
+        digests = rows
+        torch.cuda.synchronize()
+        pend.clear()
+        queued.clear()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in scorer.score_stream(utts.items()))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        copy_ms = [p.start.elapsed_time(p.done) for p in pend]
+        batch_ms = 1e3 * dt / len(pend)
+        overlap = [copy_overlaps(pend[k], pend[k + 1])
+                   for k in range(len(pend) - 1)]
+        early = queued[1:]
+        log(f"  steady scoring, pipeline={pipe}: {n} utterances, {frames} "
+            f"frames in {dt:.3f} s -> {frames / dt:.1f} frames/s, "
+            f"{frames / FRAMES_PER_AUDIO_SECOND / dt:.2f} audio-s/s")
+        log(f"    score copy (side stream, pinned): "
+            f"{statistics.median(copy_ms):.3f} ms per batch (median of "
+            f"{len(copy_ms)}: {', '.join(f'{c:.3f}' for c in copy_ms)}), "
+            f"{statistics.median(copy_ms) / batch_ms:.3f} of a batch's "
+            f"{batch_ms:.3f} ms wall; batch k+1's forward queued before "
+            f"batch k's ended: {early}; batch k's copy ran while batch "
+            f"k+1's input copy and forward did: {overlap}")
+        serving[pipe] = {"audio_s_per_s": frames / FRAMES_PER_AUDIO_SECOND
+                         / dt, "copy_ms": statistics.median(copy_ms),
+                         "batch_ms": batch_ms, "queued": early,
+                         "overlap": overlap}
+        if pipe and (not any(overlap) or not all(
+                o for o, e in zip(overlap, early) if e)):
+            fail(f"with the pipeline no score copy overlapped the next "
+                 f"batch's compute, or one whose next batch was queued in "
+                 f"time did not: queued {early}, overlapped {overlap}")
+        if not pipe and any(overlap):
+            fail(f"without the pipeline a score copy overlapped the next "
+                 f"batch: {overlap}")
+    log("  pipeline=True and pipeline=False scores are byte-identical")
     group = list(utts.items())[:8]
     profile(lambda: [None for _ in scorer.score_stream(group)],
-            f"one batch ({len(group)} utterances)")
+            f"one batch ({len(group)} utterances, pipeline)")
+    profile(lambda: [None for _ in scorer.score_stream(utts.items())],
+            f"three batches ({len(utts)} utterances, pipeline)")
     return launches
 
 
+K1_PROFILE_KEYS = ("interleave_gate_rows", "xw_tc_kernel", "gates_tc_kernel",
+                   "contract_tc_kernel<32, 32, true, true")
+
+
 def profile(fn, what: str) -> None:
-    """Device time by kernel over one call of fn(), and the share of its
-    wall time in which no kernel ran (torch.profiler)."""
+    """Device time by kernel and by copy over one call of fn(), and the
+    share of its wall time in which no kernel ran (torch.profiler; the
+    copy engines' time is reported apart and counts as idle, since the
+    SMs may compute meanwhile: every kernel here runs on one stream);
+    then K1's rows (its projection is the only K-major-by-K-major
+    contract)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1392,16 +1574,26 @@ def profile(fn, what: str) -> None:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         rows.append((us, e.count, e.key))
-    busy = sum(r[0] for r in rows)
+    copies = [r for r in rows if r[2].startswith(("Memcpy", "Memset"))]
+    busy = sum(r[0] for r in rows if r not in copies)
+    copy_us = sum(r[0] for r in copies)
     if busy <= 0:
-        log(f"  profile of {what}: the profiler recorded no device time "
+        log(f"  profile of {what}: the profiler recorded no kernel time "
             f"(not measured)")
         return
-    log(f"  profile of {what}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}")
+    log(f"  profile of {what}: wall {wall_us / 1e3:.3f} ms, kernels busy "
+        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}"
+        f"; copies and sets {copy_us / 1e3:.3f} ms (x"
+        f"{sum(r[1] for r in copies)})")
     for us, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"    {us / 1e3:10.3f} ms {100 * us / busy:5.1f}% x{count:<6d} "
-            f"{key[:90]}")
+        log(f"    {us / 1e3:10.3f} ms {100 * us / (busy + copy_us):5.1f}% "
+            f"x{count:<6d} {key[:90]}")
+    k1 = [r for r in rows if any(k in r[2] for k in K1_PROFILE_KEYS)]
+    if k1:
+        log(f"    K1 rows: {sum(r[0] for r in k1) / 1e3:.3f} ms, "
+            f"{100 * sum(r[0] for r in k1) / busy:.1f}% of kernels busy")
+        for us, count, key in sorted(k1, reverse=True):
+            log(f"      {us / 1e3:10.3f} ms x{count:<6d} {key[:90]}")
 
 
 def main() -> int:
@@ -1479,8 +1671,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            **{k: r[k] for k in ("bound_f32_simt_ms", "bound_3xtf32_ms",
-                                 "cublas_products_ms") if k in r}})
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
     for key, name, replaces in (
             ("K6", "lstmp_stack_fwd2",
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:70 (_fwd2_kernel)"),

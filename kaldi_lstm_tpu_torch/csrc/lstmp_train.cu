@@ -14,10 +14,46 @@
 //   r = (tanh(c_t) o) Wrm^T
 //
 // and writes the POST-activation gates g, i, f, o, the clipped c and r for
-// every t (the residuals K2 reads). Two launches per step on the caller's
-// stream, as in lstmp_infer.cu: gates (a thread owns one (stream, cell)
-// pair, x_t and r_{t-1} rows of the block's 8 streams staged in shared
-// memory), then the projection.
+// every t (the residuals K2 reads). 2T + 2 launches on the caller's
+// stream, every product on tc_gemm.cuh's 3xTF32 mma.sync mainloop:
+//   interleave: wr_perm [4 Cp, R], a copy of Wr's rows dealt so that
+//               each 64-column tile of the gates product holds the g, i,
+//               f, o columns of 16 cells (C padded to Cp = 16k with zero
+//               rows). Made on every call: the optimizer updates the
+//               weights in place, so a cached copy would go stale.
+//   xw:         the input projection hoisted out of the recurrence, one
+//               launch over all N = T S rows: xw = x Wx^T [N, 4C] in
+//               64 x 64 tiles, the epilogue applying mask * inv_keep and
+//               the bias.
+//   per step:   gates, pre = r_{t-1} wr_perm^T [S, 4Cp] in BM x 64 tiles
+//               (BM 64, or 32 where 64 leaves SMs idle); the epilogue
+//               stages the tile in shared memory, adds xw_t and does the
+//               cell math for its 16 cells, writing gifo_t (unpermuted),
+//               c_t and m = tanh(c_t) o. xw_t, c_{t-1} and the
+//               peepholes are loaded into registers before the mainloop,
+//               so their latency hides behind it. Then the projection
+//               r_t = m Wrm^T [S, R] in 32 x 32 tiles, straight
+//               into r_seq[t]. No product is split over its
+//               contraction, so nothing needs a summing pass before r_t
+//               feeds step t+1.
+// The gate tile's rows come from the caller (ops/lstm_train.py::fwd_plan).
+//
+// What bounds K1 on an H100: operations. At the flagship shape (T=20,
+// S=256, I=40, C=800, R=512) its products are 22.3 GFLOP: 0.135 ms as
+// 3xTF32 on the tensor cores (3 x 22.3 GFLOP at 495 TFLOP/s), 0.3326 ms
+// on the f32 CUDA cores; the compulsory bytes (x, the weights, gifo, c,
+// r) take about 0.03 ms at 3.35 TB/s. Three things keep a CUDA-core
+// recurrence far from that: a weight read from L2 for every FMA, the
+// input projection x_t Wx^T summed inside every step's serial launch (at
+// I=512 it doubles the serial contraction), and the f32 rate itself.
+// Here x Wx^T leaves the serial chain for one launch, every product runs
+// on the tensor cores from shared-memory tiles, and a step's L2 traffic
+// is what the tiles imply: the gates re-read r_{t-1} [S, R] once per
+// column tile (4Cp / 64 = 50 times at the flagship shape, 26 MB) and
+// wr_perm once per row tile (S / BM = 4 times, 26 MB); the projection
+// re-reads m [S, C] R / 32 = 16 times and Wrm S / 32 = 8 times (13 +
+// 13 MB). A step is bound by the latency of its serial
+// chain of 16 (gates) and 25 (projection) 32-deep stages.
 //
 // K2 replaces kaldi_lstm_tpu/ops/lstm_pallas.py::_bwd_kernel. A grid has
 // no carry from block to block, so it is split in two:
@@ -47,14 +83,12 @@
 //   from the caller (ops/lstm_train.py::bwd_plan), which also sizes the
 //   partial buffers.
 //
-// What bounds them on an H100: operations. At the flagship shape (T=20,
-// S=256, I=40, C=800, R=512) K1 does 22.3 GFLOP and K2 43.3 GFLOP of f32
-// multiply-adds against a few hundred MB of residual traffic. K1 is the
-// simple design: CUDA-core fma from shared-memory tiles, weights served
-// from L2, two launches a step. K2 puts 39.1 GFLOP of products on the
-// tensor cores (3 TF32 mma per product, float32-accurate); what stays on
-// the CUDA cores is bwd_cell's dm product (2 N R C = 4.2 GFLOP) and the
-// serial chain of 2T launches.
+// What bounds K2 on an H100: operations. At the flagship shape it does
+// 43.3 GFLOP of f32 multiply-adds against a few hundred MB of residual
+// traffic. It puts 39.1 GFLOP of products on the tensor cores (3 TF32 mma
+// per product, float32-accurate); what stays on the CUDA cores is
+// bwd_cell's dm product (2 N R C = 4.2 GFLOP) and the serial chain of 2T
+// launches.
 //
 // Built with nvcc into a shared library with a plain C entry point per
 // kernel, loaded by kaldi_lstm_tpu_torch/ops/lstm_train.py through ctypes.
@@ -78,132 +112,209 @@ __device__ __forceinline__ float sigmoid_f(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: one step of the forward
+// K1: the forward on the tensor cores
 // ---------------------------------------------------------------------------
 
-// x_t [S, I], r_prev [S, R], w_cat [(I + R), 4C] = [Wx^T; Wr^T], bias [4C],
-// peep [3, C] (i, f, o), c_prev [S, C], mask_t [S, 4C] int8 or null.
-// Out: gifo_t [S, 4C] (activations), c_t [S, C], m [S, C] = tanh(c_t) o.
-__global__ void train_gates_kernel(const float* __restrict__ x_t,
-                                   const float* __restrict__ r_prev,
-                                   const float* __restrict__ w_cat,
-                                   const float* __restrict__ bias,
-                                   const float* __restrict__ peep,
-                                   const float* __restrict__ c_prev,
-                                   const int8_t* __restrict__ mask_t,
-                                   float inv_keep,
-                                   float* __restrict__ gifo_t,
-                                   float* __restrict__ c_t,
-                                   float* __restrict__ m,
-                                   int S, int I, int R, int C,
-                                   float cell_clip) {
-  __shared__ float rows[kStreams][kChunk];
-  const int j = blockIdx.x * kCells + threadIdx.x;
-  const int sl = threadIdx.y;
-  const int s0 = blockIdx.y * kStreams;
-  const int s = s0 + sl;
-  const size_t C4 = 4 * (size_t)C;
-  const int tid = threadIdx.y * kCells + threadIdx.x;
-  const bool active = (j < C) && (s < S);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+constexpr int kGateBN = 64;                // columns of a gate tile
+constexpr int kGateCells = kGateBN / 4;    // cells per gate tile
 
-  // phase 0 contracts x_t with Wx^T, phase 1 r_{t-1} with Wr^T; the
-  // dropout mask and the bias land between the two, as in _fwd_kernel
-  for (int phase = 0; phase < 2; ++phase) {
-    const float* src = phase == 0 ? x_t : r_prev;
-    const int K = phase == 0 ? I : R;
-    const float* wbase = w_cat + (phase == 0 ? 0 : (size_t)I * C4);
-    for (int k0 = 0; k0 < K; k0 += kChunk) {
-      const int kn = min(kChunk, K - k0);
-      for (int e = tid; e < kStreams * kn; e += kCells * kStreams) {
-        const int ss = e / kn;
-        const int kk = e % kn;
-        const int sg = s0 + ss;
-        rows[ss][kk] = (sg < S) ? src[(size_t)sg * K + k0 + kk] : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        const float* w = wbase + (size_t)k0 * C4 + j;
-        #pragma unroll 4
-        for (int kk = 0; kk < kn; ++kk) {
-          const float v = rows[sl][kk];
-          acc[0] = fmaf(v, w[0], acc[0]);
-          acc[1] = fmaf(v, w[C], acc[1]);
-          acc[2] = fmaf(v, w[2 * (size_t)C], acc[2]);
-          acc[3] = fmaf(v, w[3 * (size_t)C], acc[3]);
-          w += C4;
-        }
-      }
-      __syncthreads();
-    }
-    if (phase == 0 && active) {
-      #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float xw = acc[g];
-        if (mask_t != nullptr) {
-          xw = xw * ((float)mask_t[(size_t)s * C4 + (size_t)g * C + j] *
-                     inv_keep);
-        }
-        acc[g] = xw + bias[(size_t)g * C + j];
-      }
-    }
-  }
-  if (!active) return;
+template <int BM, int BN, bool AK, bool BK>
+using TileGemm = tc::Gemm<BM, BN, 2, 2, AK, BK>;
 
-  const size_t idx = (size_t)s * C + j;
-  const float cp = c_prev[idx];
-  const float g = tanhf(acc[0]);
-  const float i = sigmoid_f(acc[1] + cp * peep[j]);
-  const float f = sigmoid_f(acc[2] + cp * peep[C + j]);
-  float cn = g * i + cp * f;
-  if (cell_clip > 0.f) {
-    // written out (not fminf/fmaxf) so that a NaN propagates like clip
-    cn = cn < -cell_clip ? -cell_clip : (cn > cell_clip ? cell_clip : cn);
-  }
-  const float o = sigmoid_f(acc[3] + cn * peep[2 * C + j]);
-  float* gr = gifo_t + (size_t)s * C4;
-  gr[j] = g;
-  gr[C + j] = i;
-  gr[2 * (size_t)C + j] = f;
-  gr[3 * (size_t)C + j] = o;
-  c_t[idx] = cn;
-  m[idx] = tanhf(cn) * o;
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// out[s, q] = sum_k a[s, k] w[k, q] for s < S, q < Q, k < K: a [S, K],
-// w [K, Q] row-major: the K1 projection (a = m, w = Wrm^T).
-__global__ void rows_times_mat_kernel(const float* __restrict__ a,
-                                      const float* __restrict__ w,
-                                      float* __restrict__ out,
-                                      int S, int K, int Q) {
-  __shared__ float rows[kStreams][kChunk];
-  const int q = blockIdx.x * kCells + threadIdx.x;
-  const int sl = threadIdx.y;
-  const int s0 = blockIdx.y * kStreams;
-  const int s = s0 + sl;
-  const int tid = threadIdx.y * kCells + threadIdx.x;
-  const bool active = (q < Q) && (s < S);
-  float acc = 0.f;
+// The gate-interleaved copy of w_gifo_r [4C, R]: row p = 64 b + 16 q + l of
+// wr_perm [4 Cp, R] is row q C + j of w_gifo_r, gate q (g, i, f, o) of cell
+// j = 16 b + l, so that gate tile b (columns 64 b .. 64 b + 63 of the
+// per-step product) holds all four gates of cells 16 b .. 16 b + 15. Rows
+// of the padding cells j >= C are zero.
+__global__ void interleave_gate_rows_kernel(const float* __restrict__ wr,
+                                            float* __restrict__ wr_perm,
+                                            int C, int Cp, int R) {
+  const size_t total = (size_t)4 * Cp * R;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int p = static_cast<int>(e / R);
+    const int k = static_cast<int>(e % R);
+    const int q = (p % kGateBN) / kGateCells;
+    const int j = (p / kGateBN) * kGateCells + p % kGateCells;
+    wr_perm[e] = j < C ? wr[((size_t)q * C + j) * R + k] : 0.f;
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    const int kn = min(kChunk, K - k0);
-    for (int e = tid; e < kStreams * kn; e += kCells * kStreams) {
-      const int ss = e / kn;
-      const int sg = s0 + ss;
-      rows[ss][e % kn] = (sg < S) ? a[(size_t)sg * K + k0 + e % kn] : 0.f;
+// The hoisted input projection over all N = T S rows: xw [N, 4C] =
+// x [N, I] w_gifo_x^T, times mask * inv_keep where a keep-mask [N, 4C] is
+// given, then + bias: the reference's order.
+struct XwArgs {
+  const float* x;
+  const float* wx;
+  const float* bias;
+  const int8_t* mask;
+  float inv_keep;
+  float* xw;
+  int N, I, C4;
+};
+
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(TileGemm<64, 64, true, true>::kThreads)
+xw_tc_kernel(XwArgs a) {
+  using G = TileGemm<64, 64, true, true>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
+  const tc::Operand A{a.x, a.I, a.N, a.I};
+  const tc::Operand B{a.wx, a.I, a.C4, a.I};
+  G::template run<VA, VB>(
+      smem, A, B, m0, n0, 1,
+      [&](int, typename G::Acc& acc) {
+        const int lane = threadIdx.x & 31;
+        const int g = lane >> 2, t = lane & 3;
+        const int wm0 = G::warp_m0(), wn0 = G::warp_n0();
+        #pragma unroll
+        for (int i = 0; i < G::kMT; ++i) {
+          #pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm0 + 16 * i + g + 8 * h;
+            if (m >= a.N) continue;
+            #pragma unroll
+            for (int j = 0; j < G::kNT; ++j) {
+              #pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int n = n0 + wn0 + 8 * j + 2 * t + e;
+                if (n >= a.C4) continue;
+                const size_t at = (size_t)m * a.C4 + n;
+                float v = acc[i][j][2 * h + e];
+                if (a.mask != nullptr) {
+                  v = v * ((float)a.mask[at] * a.inv_keep);
+                }
+                a.xw[at] = v + a.bias[n];
+              }
+            }
+          }
+        }
+      },
+      [](const float*, const float*) {});
+}
+
+// One step's gates: pre = r_{t-1} wr_perm^T on the tensor cores, one
+// BM x 64 tile (16 cells x 4 gates) per CTA, staged through shared
+// memory; then each thread takes (stream, cell)
+// pairs of the tile: adds xw_t, applies the peepholes, g/i/f, the clip,
+// o on the clipped c, and writes gifo_t [S, 4C] in g|i|f|o blocks,
+// c_t [S, C] and m [S, C] = tanh(c_t) o. The pairs' xw_t, c_{t-1} and
+// peepholes do not depend on the product: they are loaded into
+// registers before the mainloop, which hides their latency.
+struct GateArgs {
+  const float* r_prev;    // [S, R]
+  const float* wr_perm;   // [4 Cp, R]
+  const float* xw_t;      // [S, 4C]
+  const float* c_prev;    // [S, C]
+  const float* peep;      // [3, C]: i, f, o
+  float* gifo_t;
+  float* c_t;
+  float* m;
+  int S, R, C, Cp;
+  float cell_clip;
+};
+
+template <int BM, bool VA, bool VB>
+__global__ void __launch_bounds__(TileGemm<BM, kGateBN, true, true>::kThreads)
+gates_tc_kernel(GateArgs a) {
+  using G = TileGemm<BM, kGateBN, true, true>;
+  constexpr int kRows = G::kThreads / kGateCells;   // tile rows a round
+  constexpr int kPairs = BM / kRows;                // pairs per thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kGateBN;
+  const size_t C4 = 4 * (size_t)a.C;
+  const int jl = threadIdx.x % kGateCells;
+  const int cell = blockIdx.y * kGateCells + jl;
+  const bool live = cell < a.C;
+  float pi = 0.f, pf = 0.f, po = 0.f;
+  if (live) {
+    pi = a.peep[cell];
+    pf = a.peep[a.C + cell];
+    po = a.peep[2 * a.C + cell];
+  }
+  float xq[kPairs][4], cq[kPairs];
+  #pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int s = m0 + static_cast<int>(threadIdx.x) / kGateCells + p * kRows;
+    const bool ok = live && s < a.S;
+    #pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xq[p][q] = ok ? a.xw_t[(size_t)s * C4 + (size_t)q * a.C + cell]
+                     : 0.f;
     }
-    __syncthreads();
-    if (active) {
-      const float* wp = w + (size_t)k0 * Q + q;
-      #pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        acc = fmaf(rows[sl][kk], *wp, acc);
-        wp += Q;
+    cq[p] = ok ? a.c_prev[(size_t)s * a.C + cell] : 0.f;
+  }
+  const tc::Operand A{a.r_prev, a.R, a.S, a.R};
+  const tc::Operand B{a.wr_perm, a.R, 4 * a.Cp, a.R};
+  typename G::Acc pre;
+  G::template run<VA, VB>(
+      smem, A, B, m0, n0, 1,
+      [&](int, typename G::Acc& acc) {
+        #pragma unroll
+        for (int i = 0; i < G::kMT; ++i) {
+          #pragma unroll
+          for (int j = 0; j < G::kNT; ++j) {
+            #pragma unroll
+            for (int e = 0; e < 4; ++e) pre[i][j][e] = acc[i][j][e];
+          }
+        }
+      },
+      [](const float*, const float*) {});
+
+  // run() returned with the ring idle: stage the tile [BM][64 + 4]
+  constexpr int kLd = kGateBN + 4;
+  {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wm0 = G::warp_m0(), wn0 = G::warp_n0();
+    #pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        #pragma unroll
+        for (int j = 0; j < G::kNT; ++j) {
+          float* at = smem + (wm0 + 16 * i + g + 8 * h) * kLd + wn0 + 8 * j +
+                      2 * t;
+          at[0] = pre[i][j][2 * h];
+          at[1] = pre[i][j][2 * h + 1];
+        }
       }
     }
-    __syncthreads();
   }
-  if (active) out[(size_t)s * Q + q] = acc;
+  __syncthreads();
+
+  #pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int sl = static_cast<int>(threadIdx.x) / kGateCells + p * kRows;
+    const int s = m0 + sl;
+    if (!live || s >= a.S) continue;
+    const float* row = smem + sl * kLd + jl;
+    const size_t idx = (size_t)s * a.C + cell;
+    const float cp = cq[p];
+    const float g = tanhf(xq[p][0] + row[0]);
+    const float i = sigmoid_f(xq[p][1] + row[kGateCells] + cp * pi);
+    const float f = sigmoid_f(xq[p][2] + row[2 * kGateCells] + cp * pf);
+    float cn = g * i + cp * f;
+    if (a.cell_clip > 0.f) {
+      // written out (not fminf/fmaxf) so that a NaN propagates like clip
+      cn = cn < -a.cell_clip ? -a.cell_clip
+                             : (cn > a.cell_clip ? a.cell_clip : cn);
+    }
+    const float o = sigmoid_f(xq[p][3] + row[3 * kGateCells] + cn * po);
+    float* gr = a.gifo_t + (size_t)s * C4 + cell;
+    gr[0] = g;
+    gr[a.C] = i;
+    gr[2 * (size_t)a.C] = f;
+    gr[3 * (size_t)a.C] = o;
+    a.c_t[idx] = cn;
+    a.m[idx] = tanhf(cn) * o;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -310,7 +421,8 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
 // out[p][m][n] = sum over k in split p of A(m, k) B(n, k), m < M, n < N,
 // with A(m, k) = a[m lda + k] (A K-major) or a[k lda + m], B likewise;
 // split p covers k in [p kchunk, (p + 1) kchunk), kchunk a multiple of
-// 32. One CTA per (64 x 64 tile, split) walks its split in order.
+// 32. One CTA per (BM x BN tile, split) walks its split in order: 64 x 64
+// in K2, 32 x 32 or 64 x 64 in K1's projection.
 struct Contract {
   const float* a;
   int lda;
@@ -319,9 +431,6 @@ struct Contract {
   float* out;
   int M, N, K, kchunk;
 };
-
-template <bool AK, bool BK>
-using TileGemm = tc::Gemm<64, 64, 2, 2, AK, BK>;
 
 template <class G>
 __device__ __forceinline__ void store_tile(float* __restrict__ out, int rows,
@@ -346,10 +455,10 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int rows,
   }
 }
 
-template <bool AK, bool BK, bool VA, bool VB>
-__global__ void __launch_bounds__(TileGemm<AK, BK>::kThreads)
+template <int BM, int BN, bool AK, bool BK, bool VA, bool VB>
+__global__ void __launch_bounds__(TileGemm<BM, BN, AK, BK>::kThreads)
 contract_tc_kernel(Contract c) {
-  using G = TileGemm<AK, BK>;
+  using G = TileGemm<BM, BN, AK, BK>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
@@ -374,27 +483,23 @@ contract_tc_kernel(Contract c) {
       [](const float*, const float*) {});
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 // out = A B over `splits` consecutive ranges of k: out holds `splits`
 // partial products [splits][M][N] (the product itself when splits = 1).
-template <bool AK, bool BK>
+template <bool AK, bool BK, int BM = 64, int BN = 64>
 cudaError_t contract(cudaStream_t st, const float* a, int lda,
                      const float* b, int ldb, float* out, int M, int N,
                      int K, int splits) {
-  using G = TileGemm<AK, BK>;
+  using G = TileGemm<BM, BN, AK, BK>;
   splits = std::max(1, splits);
   const int ksteps = (K + tc::kBK - 1) / tc::kBK;
   const int per = (ksteps + splits - 1) / splits;
   const Contract c{a, lda, b, ldb, out, M, N, K, per * tc::kBK};
   const bool va = lda % 4 == 0 && aligned16(a);
   const bool vb = ldb % 4 == 0 && aligned16(b);
-  auto kernel = va ? (vb ? contract_tc_kernel<AK, BK, true, true>
-                         : contract_tc_kernel<AK, BK, true, false>)
-                   : (vb ? contract_tc_kernel<AK, BK, false, true>
-                         : contract_tc_kernel<AK, BK, false, false>);
+  auto kernel = va ? (vb ? contract_tc_kernel<BM, BN, AK, BK, true, true>
+                         : contract_tc_kernel<BM, BN, AK, BK, true, false>)
+                   : (vb ? contract_tc_kernel<BM, BN, AK, BK, false, true>
+                         : contract_tc_kernel<BM, BN, AK, BK, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -482,43 +587,99 @@ __global__ void col_reduce_kernel(const float* __restrict__ dgifo,
   }
 }
 
+// Launch helpers: each picks the 16-byte-copy variant where both operands
+// allow it, raises the dynamic shared-memory limit, launches on `st`.
+template <bool VA, bool VB>
+cudaError_t launch_xw(cudaStream_t st, const XwArgs& a) {
+  using G = TileGemm<64, 64, true, true>;
+  auto kernel = xw_tc_kernel<VA, VB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + G::kBM - 1) / G::kBM, (a.C4 + G::kBN - 1) / G::kBN);
+  kernel<<<grid, G::kThreads, G::kSmemBytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_gates(cudaStream_t st, const GateArgs& a) {
+  using G = TileGemm<BM, kGateBN, true, true>;
+  const bool va = a.R % 4 == 0 && aligned16(a.r_prev);
+  const bool vb = a.R % 4 == 0 && aligned16(a.wr_perm);
+  auto kernel = va ? (vb ? gates_tc_kernel<BM, true, true>
+                         : gates_tc_kernel<BM, true, false>)
+                   : (vb ? gates_tc_kernel<BM, false, true>
+                         : gates_tc_kernel<BM, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + BM - 1) / BM, a.Cp / kGateCells);
+  kernel<<<grid, G::kThreads, G::kSmemBytes, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// K1. Runs the T-step forward on `stream`: 2 launches per step, no
-// synchronisation, no allocation. x [T, S, I] time-major; w_cat
-// [(I + R), 4C] = [Wx^T; Wr^T]; wrm_t [C, R] = Wrm^T; mask [T, S, 4C] int8
-// or null. Out: gifo [T, S, 4C] (g, i, f, o activations), c_out [T, S, C],
-// r_out [T, S, R]; m is [S, C] scratch. Returns cudaGetLastError().
-extern "C" int lstmp_train_fwd_f32(const float* x, const float* w_cat,
-                                   const float* bias, const float* peep,
-                                   const float* wrm_t, const float* c0,
-                                   const float* r0, const int8_t* mask,
-                                   float inv_keep, float* gifo, float* c_out,
-                                   float* r_out, float* m, int T, int S,
-                                   int I, int C, int R, float cell_clip,
+// K1. Runs the T-step forward on `stream`, 2T + 2 launches, no
+// synchronisation, no allocation: the gate interleave, the hoisted input
+// projection, then per step the gates and the projection. x [T, S, I]
+// time-major; the weights in Kaldi orientation (w_gifo_x [4C, I],
+// w_gifo_r [4C, R], w_r_m [R, C]); bias [4C]; peep [3, C] (i, f, o);
+// mask [T, S, 4C] int8 or null. Out: gifo [T, S, 4C] (g, i, f, o
+// activations), c_out [T, S, C], r_out [T, S, R]. Scratch: xw [T, S, 4C],
+// wr_perm [4 Cp, R] with Cp = C rounded up to a multiple of 16, m [S, C].
+// gate_bm (32 or 64) is the gate tile's rows (ops/lstm_train.py::
+// fwd_plan); the projection takes 32 x 32 tiles. Returns a CUDA error
+// code (0 on success).
+extern "C" int lstmp_train_fwd_f32(const float* x, const float* w_gifo_x,
+                                   const float* w_gifo_r, const float* bias,
+                                   const float* peep, const float* w_r_m,
+                                   const float* c0, const float* r0,
+                                   const int8_t* mask, float inv_keep,
+                                   float* gifo, float* c_out, float* r_out,
+                                   float* xw, float* wr_perm, float* m,
+                                   int T, int S, int I, int C, int R,
+                                   float cell_clip, int gate_bm,
                                    void* stream) {
+  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 ||
+      (gate_bm != 32 && gate_bm != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto gates = gate_bm == 64 ? launch_gates<64> : launch_gates<32>;
+  // r_t [S, R] = m [S, C] w_r_m^T: both operands K-major, 32 x 32 tiles
+  // (128 CTAs at S=256, R=512; 64 x 64 measured slower wherever tried)
+  auto proj = contract<true, true, 32, 32>;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kCells, kStreams);
-  const int sblocks = (S + kStreams - 1) / kStreams;
-  const dim3 grid_a((C + kCells - 1) / kCells, sblocks);
-  const dim3 grid_b((R + kCells - 1) / kCells, sblocks);
-  const size_t x_step = (size_t)S * I;
-  const size_t g_step = (size_t)S * 4 * C;
+  const int Cp = (C + kGateCells - 1) / kGateCells * kGateCells;
+  const int C4 = 4 * C;
+  const size_t perm = (size_t)4 * Cp * R;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((perm + 255) / 256, 1024));
+  interleave_gate_rows_kernel<<<blocks, 256, 0, st>>>(w_gifo_r, wr_perm, C,
+                                                      Cp, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const XwArgs xa{x, w_gifo_x, bias, mask, inv_keep, xw, T * S, I, C4};
+  const bool va = I % 4 == 0 && aligned16(x);
+  const bool vb = I % 4 == 0 && aligned16(w_gifo_x);
+  err = va ? (vb ? launch_xw<true, true>(st, xa)
+                 : launch_xw<true, false>(st, xa))
+           : (vb ? launch_xw<false, true>(st, xa)
+                 : launch_xw<false, false>(st, xa));
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t g_step = (size_t)S * C4;
   const size_t c_step = (size_t)S * C;
   const size_t r_step = (size_t)S * R;
   for (int t = 0; t < T; ++t) {
-    const float* r_prev = (t == 0) ? r0 : r_out + (t - 1) * r_step;
-    const float* c_prev = (t == 0) ? c0 : c_out + (t - 1) * c_step;
-    const int8_t* mask_t = mask ? mask + t * g_step : nullptr;
-    train_gates_kernel<<<grid_a, block, 0, st>>>(
-        x + t * x_step, r_prev, w_cat, bias, peep, c_prev, mask_t, inv_keep,
-        gifo + t * g_step, c_out + t * c_step, m, S, I, R, C, cell_clip);
-    cudaError_t err = cudaGetLastError();
+    const GateArgs ga{t == 0 ? r0 : r_out + (t - 1) * r_step, wr_perm,
+                      xw + t * g_step, t == 0 ? c0 : c_out + (t - 1) * c_step,
+                      peep, gifo + t * g_step, c_out + t * c_step, m, S, R, C,
+                      Cp, cell_clip};
+    err = gates(st, ga);
     if (err != cudaSuccess) return static_cast<int>(err);
-    rows_times_mat_kernel<<<grid_b, block, 0, st>>>(m, wrm_t,
-                                                    r_out + t * r_step,
-                                                    S, C, R);
-    err = cudaGetLastError();
+    err = proj(st, m, C, w_r_m, C, r_out + t * r_step, S, R, C, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
 // An f32-accurate tensor-core tile mainloop for Hopper (sm_90a), shared by
-// every product of csrc/xent_affine.cu.
+// every product of csrc/xent_affine.cu (K3, K4) and csrc/lstmp_train.cu
+// (K1, K2).
 //
 // C[m, n] = sum_k A(m, k) B(k, n) over float32 operands in device memory.
 // Each operand is either K-major (element (row, k) at p[row * ld + k]) or

@@ -11,7 +11,7 @@ time shift). tools/nnet_forward.py writes the matrices.
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +47,27 @@ def dense_from_topk(vals: np.ndarray, idx: np.ndarray, num_pdfs: int,
     return out
 
 
+class PendingFetch(NamedTuple):
+    """A batch's device result on its way to the host (CUDA only):
+    fresh pinned host tensors that a side stream copies into, and timing
+    events. ``begin`` and ``ready`` are recorded on the compute stream
+    before the batch's input copy and after its forward, ``start`` and
+    ``done`` on the side stream before and after its result's copy."""
+    host: tuple
+    begin: torch.cuda.Event
+    ready: torch.cuda.Event
+    start: torch.cuda.Event
+    done: torch.cuda.Event
+
+
+def copy_overlaps(a: PendingFetch, b: PendingFetch) -> bool:
+    """Whether batch a's copy to the host ran while batch b's device work
+    did: [a.start, a.done] and [b.begin, b.ready] intersect. Both must
+    have completed."""
+    return a.start.elapsed_time(b.ready) > 0.0 \
+        and b.begin.elapsed_time(a.done) > 0.0
+
+
 def _params_device(params) -> torch.device:
     for p in params:
         for t in (p.values() if isinstance(p, dict) else p):
@@ -58,8 +79,13 @@ class AmScorer:
     """Batched whole-utterance AM scoring (see module docstring).
 
     * ``pipeline=True``: batch k+1 is queued on the device stream before
-      batch k is copied to the host, so device compute overlaps the
-      host-side fetch and whatever the caller does with the rows.
+      batch k is fetched, so device compute overlaps the host-side fetch
+      and whatever the caller does with the rows. On CUDA every batch's
+      scores go to the host on a side stream of the scorer's own, into
+      fresh pinned memory, as soon as its forward is done: batch k's
+      copy runs while batch k+1 computes. A pinned buffer is never
+      reused, because the rows yielded are views of it that the caller
+      may keep.
     * ``top_p > 0``: prune the fetch ON DEVICE — only the top-P
       log-likelihoods per frame (values + int32 pdf indices) are copied;
       dense rows are rebuilt host-side with the per-frame floor
@@ -100,6 +126,7 @@ class AmScorer:
         self.num_pdfs = nnet.output_dim
         self._lp_dev = None if log_prior is None else \
             torch.tensor(log_prior, dtype=torch.float32, device=self.device)
+        self._copy_stream = None
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor):
@@ -120,9 +147,36 @@ class AmScorer:
             y = y.to(self.fetch_dtype)
         return y
 
+    def _copy_async(self, y, begin: torch.cuda.Event) -> PendingFetch:
+        """Queue the copy of a device result (a tensor, or the top_p
+        (vals, idx) pair) to fresh pinned host tensors on the side
+        stream, after the compute stream's work so far."""
+        ready = torch.cuda.Event(enable_timing=True)
+        ready.record(torch.cuda.current_stream(self.device))
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        host = []
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            start.record(side)
+            for t in (y if isinstance(y, tuple) else (y,)):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)   # the allocator keeps t for the copy
+                host.append(h)
+            done.record(side)
+        return PendingFetch(tuple(host), begin, ready, start, done)
+
     def _fetch(self, y) -> np.ndarray:
-        """Copy a device result to the host as a dense [B, T, K] f32 block
-        (reconstructing from the pruned (vals, idx) pair with top_p)."""
+        """Bring a result to the host as a dense [B, T, K] f32 block
+        (reconstructing from the pruned (vals, idx) pair with top_p). On
+        CUDA ``y`` is a PendingFetch: wait for its copy only."""
+        if isinstance(y, PendingFetch):
+            y.done.synchronize()
+            y = y.host if self.top_p > 0 else y.host[0]
         if self.top_p <= 0:
             return y.cpu().float().numpy()
         return dense_from_topk(y[0].cpu().float().numpy(),
@@ -139,7 +193,8 @@ class AmScorer:
         return y
 
     def _dispatch(self, group):
-        """Stage a group and queue its device computation (async)."""
+        """Stage a group and queue its device computation (async); on
+        CUDA also queue the copy of its result to the host."""
         T = -(-max(f.shape[0] for _, f in group) // self.bucket) \
             * self.bucket
         D = group[0][1].shape[1]
@@ -153,7 +208,11 @@ class AmScorer:
         if self.device.type == "cuda":
             # pinned staging makes the copy asynchronous, so queuing
             # batch k+1 does not wait for batch k to finish
-            xt = xt.pin_memory().to(self.device, non_blocking=True)
+            xt = xt.pin_memory()
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record(torch.cuda.current_stream(self.device))
+            xt = xt.to(self.device, non_blocking=True)
+            return self._copy_async(self._forward(xt), begin)
         return self._forward(xt.to(self.device))
 
     def _emit(self, group, y_dev) -> Iterator[tuple[str, np.ndarray]]:

@@ -21,6 +21,15 @@ the final r's cotangent joins r(T-1)'s and the final c's seeds dc.
 With ``need_input_grad=False`` no dx is computed and the Function
 returns None for it.
 
+K1 runs its products on the tensor cores: the input projection hoisted
+over all T steps in one launch, then per step the gates (the recurrent
+product with the cell math in its epilogue, over a gate-interleaved
+copy of Wr) and the projection, tiled by ``fwd_plan``.
+``lstm_fwd_tc_plain`` spells that decomposition out in torch (the
+hoisted xw with mask and bias, the per-step gates through the
+interleaved column order and back, the projection); the CPU tests hold
+it against the JAX package's Pallas kernel.
+
 K2 runs its products on the tensor cores, split over the contraction
 where a product has too few tiles to fill the card (``bwd_plan``).
 ``lstm_bwd_split_plain`` spells that decomposition out in torch (the
@@ -30,9 +39,9 @@ products from the materialised operands); the CPU tests hold it
 against the JAX package's Pallas kernel.
 
 Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
-launches (K1: 2 per step; K2: ``bwd_launches``, 2 per step + 5, + 1
-with dx); ``PLAIN_CALLS`` counts the calls of either half that took the
-plain version. ``reset_counts`` zeroes all three.
+launches (K1: ``fwd_launches``, 2 per step + 2; K2: ``bwd_launches``,
+2 per step + 5, + 1 with dx); ``PLAIN_CALLS`` counts the calls of either
+half that took the plain version. ``reset_counts`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -45,7 +54,6 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
 from kaldi_lstm_tpu_torch.ops.lstm_infer import (
     H100_SMS,
     _check,
-    _kernel_operands,
     check_lstm_operands,
 )
 
@@ -67,8 +75,7 @@ def _entries():
     fwd, bwd = lib.lstmp_train_fwd_f32, lib.lstmp_train_bwd_f32
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if fwd.argtypes is None:
-        fwd.argtypes = [p, p, p, p, p, p, p, p, f, p, p, p, p,
-                        i, i, i, i, i, f, p]
+        fwd.argtypes = [p] * 9 + [f] + [p] * 6 + [i] * 5 + [f, i, p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
         bwd.argtypes = [p] * 11 + [f] + [p] * 19 + [i] * 10 + [p]
@@ -77,8 +84,58 @@ def _entries():
 
 
 # csrc/lstmp_train.cu's tensor-core products: 64 x 64 output tiles, 32-deep
-# stages of the contraction
+# stages of the contraction; K1's gate tiles are 64 columns wide, the four
+# gates of 16 cells
 _TILE, _STAGE = 64, 32
+_GATE_CELLS = 16
+_PROJ_TILE = 32
+
+
+def _ctas(M: int, N: int, bm: int, bn: int) -> int:
+    return -(-M // bm) * -(-N // bn)
+
+
+def fwd_plan(T: int, S: int, I: int, C: int, R: int,
+             sms: int = H100_SMS) -> dict[str, int]:
+    """K1's tiles. The hoisted xw [T S, 4C] takes 64 x 64 tiles; the
+    per-step gates [S, 4Cp] (Cp = C padded to whole 16-cell tiles) take
+    64 x 64 tiles, or 32 x 64 where 64 rows leave SMs without a tile;
+    the per-step projection [S, R] takes 32 x 32 tiles at every shape
+    (64 x 64 measured slower wherever tried). No product is split over
+    its contraction: r_t feeds step t+1 with no summing pass."""
+    Cp = -(-C // _GATE_CELLS) * _GATE_CELLS
+    gate_bm = 64 if _ctas(S, 4 * Cp, 64, 64) >= sms else 32
+    return {"padded_cells": Cp, "gate_bm": gate_bm,
+            "xw_ctas": _ctas(T * S, 4 * C, 64, 64),
+            "gate_ctas": _ctas(S, 4 * Cp, gate_bm, 64),
+            "proj_ctas": _ctas(S, R, _PROJ_TILE, _PROJ_TILE)}
+
+
+def fwd_launches(T: int) -> int:
+    """K1's launches per call: the gate interleave, the hoisted xw, and
+    gates and projection per step."""
+    return 2 * T + 2
+
+
+def gate_interleave(C: int) -> torch.Tensor:
+    """Row p of K1's gate-interleaved copy of w_gifo_r [4C, R] is row
+    ``gate_interleave(C)[p]`` of it, or a zero row where that is -1 (a
+    padding cell): gate tile b (rows 64 b .. 64 b + 63) holds gates g, i,
+    f, o of cells 16 b .. 16 b + 15 in that order."""
+    p = torch.arange(4 * (-(-C // _GATE_CELLS) * _GATE_CELLS))
+    q = (p % (4 * _GATE_CELLS)) // _GATE_CELLS
+    j = (p // (4 * _GATE_CELLS)) * _GATE_CELLS + p % _GATE_CELLS
+    return torch.where(j < C, q * C + j, -1)
+
+
+def gate_deinterleave(C: int) -> torch.Tensor:
+    """The inverse: column n of the natural g|i|f|o layout [4C] sits at
+    column ``gate_deinterleave(C)[n]`` of the interleaved product."""
+    rows = gate_interleave(C)
+    cols = torch.empty(4 * C, dtype=torch.long)
+    real = rows >= 0
+    cols[rows[real]] = torch.nonzero(real).flatten()
+    return cols
 
 
 def _split(M: int, N: int, K: int, sms: int) -> int:
@@ -136,14 +193,14 @@ def _peep(params: LstmParams) -> torch.Tensor:
 # plain versions (CPU tensors; the card holds the kernels against them)
 # ---------------------------------------------------------------------------
 
-def lstm_fwd_residuals_plain(params: LstmParams, x_tm: torch.Tensor,
-                             c0: torch.Tensor, r0: torch.Tensor,
-                             keep_mask_tm: torch.Tensor | None = None,
-                             inv_keep: float = 1.0, cell_clip: float = 50.0
-                             ) -> tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """K1's outputs in torch ops: (gifo [T, S, 4C] gate activations,
-    c_seq [T, S, C] clipped cells, r_seq [T, S, R]) from x [T, S, I]."""
+def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
+              r0: torch.Tensor, keep_mask_tm: torch.Tensor | None,
+              inv_keep: float, cell_clip: float, recurrent
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's function with ``recurrent(r)`` [S, 4C] giving r_{t-1} Wr^T:
+    the hoisted xw = x Wx^T, times the keep-mask * inv_keep, + bias; per
+    step pre = xw_t + recurrent(r_{t-1}), the cell (the o peephole reads
+    the clipped c_t) and r_t = (tanh(c_t) o) Wrm^T."""
     T, S, I = x_tm.shape
     C = params.cell_dim
     xw = (x_tm.reshape(T * S, I) @ params.w_gifo_x.T).reshape(T, S, 4 * C)
@@ -155,7 +212,7 @@ def lstm_fwd_residuals_plain(params: LstmParams, x_tm: torch.Tensor,
     r_seq = xw.new_empty((T, S, params.recur_dim))
     c, r = c0, r0
     for t in range(T):
-        pre = xw[t] + r @ params.w_gifo_r.T
+        pre = xw[t] + recurrent(r)
         g = torch.tanh(pre[:, :C])
         i = torch.sigmoid(pre[:, C:2 * C] + c * params.peephole_i_c)
         f = torch.sigmoid(pre[:, 2 * C:3 * C] + c * params.peephole_f_c)
@@ -168,6 +225,38 @@ def lstm_fwd_residuals_plain(params: LstmParams, x_tm: torch.Tensor,
         c_seq[t] = c
         r_seq[t] = r
     return gifo, c_seq, r_seq
+
+
+def lstm_fwd_residuals_plain(params: LstmParams, x_tm: torch.Tensor,
+                             c0: torch.Tensor, r0: torch.Tensor,
+                             keep_mask_tm: torch.Tensor | None = None,
+                             inv_keep: float = 1.0, cell_clip: float = 50.0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K1's outputs in torch ops: (gifo [T, S, 4C] gate activations,
+    c_seq [T, S, C] clipped cells, r_seq [T, S, R]) from x [T, S, I]."""
+    return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
+                     cell_clip, lambda r: r @ params.w_gifo_r.T)
+
+
+def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
+                      c0: torch.Tensor, r0: torch.Tensor,
+                      keep_mask_tm: torch.Tensor | None = None,
+                      inv_keep: float = 1.0, cell_clip: float = 50.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's decomposition in torch, the arguments and results of
+    ``lstm_fwd_residuals_plain``: the hoisted xw with the mask and the
+    bias, then per step the recurrent product against the
+    gate-interleaved copy of Wr (zero rows for the padding cells), taken
+    back to the g|i|f|o order and added to xw_t, the cell, and the
+    projection."""
+    C = params.cell_dim
+    rows = gate_interleave(C).to(x_tm.device)
+    cols = gate_deinterleave(C).to(x_tm.device)
+    wr_perm = torch.where((rows >= 0)[:, None],
+                          params.w_gifo_r[rows.clamp_min(0)], 0.0)
+    return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
+                     cell_clip, lambda r: (r @ wr_perm.T)[:, cols])
 
 
 def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
@@ -321,25 +410,33 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
     check_lstm_operands(params, T, S, I, LstmState(c0, r0), dev,
                         "lstm_train")
     _check_mask(keep_mask_tm, (T, S, 4 * C), dev)
-    x_c = x_tm.contiguous()
-    w_cat, bias, peep, wrm_t = _kernel_operands(params)
-    c0c, r0c = c0.contiguous(), r0.contiguous()
-    gifo = torch.empty((T, S, 4 * C), dtype=torch.float32, device=dev)
-    c_seq = torch.empty((T, S, C), dtype=torch.float32, device=dev)
-    r_seq = torch.empty((T, S, R), dtype=torch.float32, device=dev)
-    m = torch.empty((S, C), dtype=torch.float32, device=dev)
+    plan = fwd_plan(T, S, I, C, R, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    cont = [t.contiguous() for t in (x_tm, params.w_gifo_x, params.w_gifo_r,
+                                     params.bias, params.w_r_m, c0, r0)]
+    x_c, wx, wr, bias, wrm, c0c, r0c = cont
+    peep = _peep(params)
+    f32 = dict(dtype=torch.float32, device=dev)
+    gifo = torch.empty((T, S, 4 * C), **f32)
+    c_seq = torch.empty((T, S, C), **f32)
+    r_seq = torch.empty((T, S, R), **f32)
+    xw = torch.empty((T, S, 4 * C), **f32)
+    wr_perm = torch.empty((4 * plan["padded_cells"], R), **f32)
+    m = torch.empty((S, C), **f32)
     fwd, _ = _entries()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fwd(x_c.data_ptr(), w_cat.data_ptr(), bias.data_ptr(),
-                  peep.data_ptr(), wrm_t.data_ptr(), c0c.data_ptr(),
-                  r0c.data_ptr(), _ptr(keep_mask_tm), float(inv_keep),
-                  gifo.data_ptr(), c_seq.data_ptr(), r_seq.data_ptr(),
-                  m.data_ptr(), T, S, I, C, R, float(cell_clip), stream)
+        err = fwd(x_c.data_ptr(), wx.data_ptr(), wr.data_ptr(),
+                  bias.data_ptr(), peep.data_ptr(), wrm.data_ptr(),
+                  c0c.data_ptr(), r0c.data_ptr(), _ptr(keep_mask_tm),
+                  float(inv_keep), gifo.data_ptr(), c_seq.data_ptr(),
+                  r_seq.data_ptr(), xw.data_ptr(), wr_perm.data_ptr(),
+                  m.data_ptr(), T, S, I, C, R, float(cell_clip),
+                  plan["gate_bm"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_train: K1 launch failed with CUDA error "
                            f"{err}")
-    FWD_LAUNCHES += 2 * T
+    FWD_LAUNCHES += fwd_launches(T)
     return gifo, c_seq, r_seq
 
 

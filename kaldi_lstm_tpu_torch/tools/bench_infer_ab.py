@@ -1,19 +1,23 @@
-"""Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``)
-against another checkout's, on the card, in turns.
+"""Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``) and
+training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``) against
+another checkout's, on the card, in turns.
 
     python -m kaldi_lstm_tpu_torch.tools.bench_infer_ab OTHER_DIR \\
-        [S,T,I ...]
+        [k5:S,T,I | k1:S,T,I ...]
 
 OTHER_DIR is the root of another checkout of this repository (for
-example the parent commit unpacked with ``git archive``). For each shape
-(default: the cross-validation shape 256,20,40 and the serving shape
-8,1000,40; C=800, R=512 throughout) the script runs ``lstm_infer`` of
-the other tree, this tree, this tree, the other tree, each in a process
-of its own that imports that tree's package and builds its kernels, and
-prints each process's median CUDA-event time over 5 calls (after one
-warm-up call), its launches per call, and the card's name and power
-limit. The inputs are made from numpy seed 0 in every process, so both
-trees see the same weights and features. Needs a CUDA card.
+example the parent commit unpacked with ``git archive``). For each case
+(default: K5 at the cross-validation shape k5:256,20,40 and the serving
+shape k5:8,1000,40, K1 at the flagship training shape k1:256,20,40 and
+the deep net's layer 2 k1:256,20,512; C=800, R=512 throughout; a bare
+S,T,I means K5) the script runs the kernel's entry point of the other
+tree, this tree, this tree, the other tree, each in a process of its own
+that imports that tree's package and builds its kernels, and prints each
+process's median CUDA-event time over 5 calls (after one warm-up call),
+its launches per call, and the card's name and power limit. K1 runs
+time-major, without dropout, clip 50. The inputs are made from numpy
+seed 0 in every process, so both trees see the same weights and
+features. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import os
 import subprocess
 import sys
 
-SHAPES = ("256,20,40", "8,1000,40")
+SHAPES = ("k5:256,20,40", "k5:8,1000,40", "k1:256,20,40", "k1:256,20,512")
 C, R = 800, 512
 
 
@@ -35,8 +39,10 @@ def _time_here(shape: str) -> dict:
     import torch
 
     from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
     from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
-    S, T, I = (int(v) for v in shape.split(","))
+    kernel, _, dims = shape.rpartition(":")
+    S, T, I = (int(v) for v in dims.split(","))
     rng = np.random.RandomState(0)
 
     def u(*dims):
@@ -47,20 +53,32 @@ def _time_here(shape: str) -> dict:
                    u(R, C))
     x = torch.tensor(rng.randn(S, T, I).astype(np.float32), device="cuda")
     st = LstmState(u(S, C), u(S, R))
+    if kernel == "k1":
+        x_tm = x.transpose(0, 1).contiguous()
+        mod = lt
+
+        def call():
+            lt.lstm_fwd_residuals(p, x_tm, st.c, st.r, None, 1.0, 50.0)
+    else:
+        mod = li
+
+        def call():
+            li.lstm_infer(p, x, st)
     times = []
     with torch.inference_mode():
-        li.lstm_infer(p, x, st)
+        call()
         torch.cuda.synchronize()
-        li.reset_counts()
+        mod.reset_counts()
         for _ in range(5):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            li.lstm_infer(p, x, st)
+            call()
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
-    return {"ms": statistics.median(times), "launches": li.LAUNCHES / 5}
+    launches = lt.FWD_LAUNCHES if kernel == "k1" else li.LAUNCHES
+    return {"ms": statistics.median(times), "launches": launches / 5}
 
 
 def _child(tree: str, shape: str) -> dict:
@@ -98,7 +116,7 @@ def main(argv: list[str] | None = None) -> int:
                            ("this", here), ("other", other)):
             r = _child(tree, shape)
             rec.setdefault(name, []).append(r["ms"])
-            print(f"  S,T,I={shape} C={C} R={R} {name:5s} {r['ms']:.3f} ms, "
+            print(f"  {shape} (S,T,I) C={C} R={R} {name:5s} {r['ms']:.3f} ms, "
                   f"{r['launches']:g} launches per call", flush=True)
         print(json.dumps({"shape": shape, "other_ms": rec["other"],
                           "this_ms": rec["this"]}))

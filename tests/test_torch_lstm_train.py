@@ -190,6 +190,90 @@ def test_fwd_residuals_plain_match_pallas_fwd_kernel(keep):
     np.testing.assert_allclose(r_seq.numpy(), r_p[:, :S, :R], **TOL)
 
 
+TC_FWD_CASES = {
+    # name: (S, T, I, C, R, weight scale): C = 9 pads to one 16-cell gate
+    # tile, C = 200 to 13 tiles (208 cells); R = 130 is no multiple of 4
+    "one_padded_tile": (3, 5, 7, 9, 6, 0.3),
+    "ragged_wide": (2, 4, 5, 200, 130, 0.05),
+}
+
+
+@pytest.mark.parametrize("keep", [None, 0.75])
+@pytest.mark.parametrize("case", list(TC_FWD_CASES))
+def test_fwd_tc_plain_matches_pallas_fwd_kernel(case, keep):
+    """K1's tensor-core decomposition (`lstm_fwd_tc_plain`: the hoisted
+    xw with mask and bias, the per-step gates through the interleaved
+    column order and back, the projection) against the residuals the
+    Pallas forward kernel writes, clip active."""
+    S, T, I, C, R, scale = TC_FWD_CASES[case]
+    p, x, c0, r0, mask, _ = make(S, T, I, C, R, scale=scale, x_scale=4.0,
+                                 keep=keep, time_major=True)
+    jp = JLstmParams(**{k: jnp.asarray(v) for k, v in p.items()})
+    inv_keep = 1.0 if keep is None else 1.0 / keep
+    clip = 1.0 if case == "one_padded_tile" else 0.1
+    (_, _), res = _lstm_pallas_fwd(
+        jp, jnp.asarray(x), JLstmState(c=jnp.asarray(c0),
+                                       r=jnp.asarray(r0)),
+        None if mask is None else jnp.asarray(mask), clip, True, True,
+        inv_keep, True)
+    gifo_p, c_p, r_p = (np.asarray(a) for a in res[2:5])
+    cp = gifo_p.shape[2] // 4
+    gifo_ref = gifo_p[:, :S].reshape(T, S, 4, cp)[..., :C].reshape(
+        T, S, 4 * C)
+    tp = LstmParams(**{k: torch.from_numpy(v) for k, v in p.items()})
+    m8 = None if mask is None else torch.from_numpy(mask).to(torch.int8)
+    gifo, c_seq, r_seq = lt.lstm_fwd_tc_plain(
+        tp, torch.from_numpy(x), torch.from_numpy(c0), torch.from_numpy(r0),
+        m8, inv_keep, clip)
+    assert (c_seq.abs() == clip).any()
+    np.testing.assert_allclose(gifo.numpy(), gifo_ref, **TOL)
+    np.testing.assert_allclose(c_seq.numpy(), c_p[:, :S, :C], **TOL)
+    np.testing.assert_allclose(r_seq.numpy(), r_p[:, :S, :R], **TOL)
+
+
+@pytest.mark.parametrize("C", [1, 9, 16, 200, 800])
+def test_gate_interleave_round_trip(C):
+    """Each 64-row tile of the interleaved copy holds gates g, i, f, o of
+    16 cells in that order, padding cells read as zero rows, and the
+    inverse puts every natural column back."""
+    rows, cols = lt.gate_interleave(C), lt.gate_deinterleave(C)
+    Cp = -(-C // 16) * 16
+    assert rows.shape == (4 * Cp,) and cols.shape == (4 * C,)
+    assert torch.equal(rows[cols], torch.arange(4 * C))
+    assert sorted(rows[rows >= 0].tolist()) == list(range(4 * C))
+    for p in range(4 * Cp):
+        b, q, cell = p // 64, (p % 64) // 16, p % 16
+        j = 16 * b + cell
+        assert rows[p] == (q * C + j if j < C else -1)
+    w = torch.arange(4 * C * 3, dtype=torch.float32).reshape(4 * C, 3) + 1
+    perm = torch.where((rows >= 0)[:, None], w[rows.clamp_min(0)], 0.0)
+    assert torch.equal(perm[cols], w)
+    assert float(perm[rows < 0].abs().sum()) == 0.0
+
+
+def test_fwd_plan_fills_the_card_at_the_flagship_shape():
+    """At S=256 the gates' 64 x 64 tiles give 200 CTAs for 132 SMs; the
+    projection [256, 512] takes 32 x 32 tiles at every shape (128 CTAs
+    here); the hoisted xw has thousands. No split over a contraction at
+    any width."""
+    plan = lt.fwd_plan(20, 256, 40, 800, 512)
+    assert plan == {"padded_cells": 800, "gate_bm": 64,
+                    "xw_ctas": 4000, "gate_ctas": 200, "proj_ctas": 128}
+    assert plan["gate_ctas"] >= 132 and plan["xw_ctas"] >= 132
+    assert lt.fwd_plan(20, 256, 512, 800, 512) == plan
+    ragged = lt.fwd_plan(20, 3, 37, 200, 130)
+    assert (ragged["padded_cells"], ragged["gate_bm"],
+            ragged["proj_ctas"]) == (208, 32, 5)
+    assert lt.fwd_plan(20, 1024, 40, 800, 1024)["proj_ctas"] == 1024
+
+
+def test_fwd_launches():
+    """The interleave, the hoisted xw, then gates and projection per
+    step."""
+    assert lt.fwd_launches(20) == 42
+    assert lt.fwd_launches(1) == 4
+
+
 SPLIT_CASES = {
     # name: (S, T, I, C, R, clip, keep, need_dx, x_scale, weight scale,
     #        SMs): the wide cases split the per-step dr and dx over 4C,
@@ -327,7 +411,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, S, T, I, C, R, keep,
     bk = lt.lstm_bwd_cuda(tp, *args, *fp, m8, ik, g_r, gc, need_dx)
     bp = lt.lstm_bwd_plain(tp, *args, *fp, m8, ik, g_r, gc, need_dx)
     torch.cuda.synchronize()
-    assert lt.FWD_LAUNCHES == 2 * T
+    assert lt.FWD_LAUNCHES == lt.fwd_launches(T)
     assert lt.BWD_LAUNCHES == lt.bwd_launches(T, need_dx)
     got = [*fk, *bk[0], bk[2], bk[3]] + ([bk[1]] if need_dx else [])
     ref = [*fp, *bp[0], bp[2], bp[3]] + ([bp[1]] if need_dx else [])

@@ -133,3 +133,91 @@ def test_top_p_requires_log_domain_and_dense_floor(data):
     np.testing.assert_array_equal(
         dense_from_topk(vals, idx, 5, 10.0),
         [[[-2.0, -12.0, -12.0, -1.0, -12.0]]])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(top_p=4, floor_margin=3.0),
+    dict(fetch_dtype=torch.bfloat16),
+], ids=["dense", "top_p", "bf16_fetch"])
+def test_pipeline_gives_the_rows_of_no_pipeline(data, kw):
+    """`pipeline=True` changes only when batch k is fetched, never what
+    is fetched: identical keys and bytes on the CPU path."""
+    from kaldi_lstm_tpu_torch.decode.scoring import (
+        log_priors_from_counts,
+        read_class_frame_counts,
+    )
+    _, model, _, counts, utts = data
+    lp = log_priors_from_counts(read_class_frame_counts(counts))
+    tn, tp = Nnet.read(model, "cpu")
+    rows = [list(AmScorer(tn, tp, log_prior=lp, apply_log=True,
+                          batch_utts=3, length_bucket=16, device="cpu",
+                          pipeline=pipe, **kw).score_stream(utts.items()))
+            for pipe in (False, True)]
+    assert [k for k, _ in rows[0]] == [k for k, _ in rows[1]] == list(utts)
+    for (_, a), (_, b) in zip(*rows):
+        assert a.dtype == b.dtype == np.float32
+        assert a.tobytes() == b.tobytes()
+
+
+FULL_PROTO = """<NnetProto>
+<TimeShift> <InputDim> 40 <OutputDim> 40 <Shift> 5
+<LstmProjected> <InputDim> 40 <OutputDim> 512 <CellDim> 800 <ParamScale> 0.01
+<AffineTransform> <InputDim> 512 <OutputDim> 8000 <ParamStddev> 0.04
+<Softmax> <InputDim> 8000 <OutputDim> 8000
+</NnetProto>
+"""
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the side-stream score copy runs "
+                    "only there); run on the card with: python -m pytest "
+                    "-m gpu tests/test_torch_scoring.py")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_p", [0, 16])
+def test_cuda_score_copy_overlaps_next_batch(cuda_device, top_p):
+    """At the full-width decode net, with the pipeline, batch k's
+    side-stream copy runs while batch k+1's input copy and forward do
+    (the intervals between CUDA events on the two streams intersect);
+    without it no copy does. A spin kernel of about 0.5 s before every
+    forward keeps the device behind the host, so that the order of the
+    work on the two streams decides, not the host's speed: the host's
+    work on batch k (copying its rows out, and with top_p rebuilding
+    them dense) outlasts a forward, and with one batch in flight batch
+    k+2 is queued only after it. The rows equal `pipeline=False`'s byte
+    for byte."""
+    from kaldi_lstm_tpu_torch.decode.scoring import copy_overlaps
+    nnet, params = Nnet.init_from_proto(
+        FULL_PROTO, torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.RandomState(1)
+    utts = [(f"utt{i:03d}", rng.randn(int(rng.randint(200, 1001)), 40)
+             .astype(np.float32)) for i in range(24)]
+    spin = 1_000_000_000   # cycles: about 0.5 s at 1.98 GHz, more if slower
+    out, overlap = {}, {}
+    for pipe in (False, True):
+        scorer = AmScorer(nnet, params, apply_log=True, pipeline=pipe,
+                          top_p=top_p)
+        pend = []
+        dispatch, forward = scorer._dispatch, scorer._forward
+        scorer._dispatch = lambda g: pend.append(dispatch(g)) or pend[-1]
+
+        def slow_forward(x, forward=forward):
+            torch.cuda._sleep(spin)
+            return forward(x)
+        scorer._forward = slow_forward
+        # copies, not the rows: a kept row holds its pinned block, and
+        # each batch would then pin fresh host memory
+        out[pipe] = [(k, y.copy()) for k, y in scorer.score_stream(utts)]
+        torch.cuda.synchronize()
+        assert len(pend) == 3
+        overlap[pipe] = [copy_overlaps(pend[k], pend[k + 1])
+                         for k in range(len(pend) - 1)]
+    assert overlap == {False: [False, False], True: [True, True]}
+    assert [k for k, _ in out[True]] == [k for k, _ in utts]
+    for (ka, a), (kb, b) in zip(out[False], out[True]):
+        assert ka == kb and a.dtype == b.dtype and a.tobytes() == b.tobytes()
