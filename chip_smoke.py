@@ -65,6 +65,18 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    cross-validation AvgLoss after the epoch than before, and two steps
    on the card against the same two steps on the port's CPU path; print
    train throughput and a profile of one step;
+5b. drive the grouped training path on phase 5's corpus and model:
+   `train_lstm_streams --step-group 4 --profile-dir` (an eager warm-up
+   group, CUDA-graph replays, a plain tail), with the counts zeroed just
+   before and read just after; hold its model file (byte for byte, or
+   within 1e-6 relative with the reason printed) and its report against
+   phase 5's, its counts against phase 5's prediction and against the
+   kernel events in the trace it wrote, and the graph replays against
+   the group count; the grouped CV pass (K5 and K3 replayed) against
+   phase 5's; `--verbose 1` prints the three moment-dump blocks and
+   `--debug-dump` writes the LSTM layer's finite per-frame tensors; print
+   ms per step, frames/s, the idle share of steady calls, capture ms
+   and graph-pool MB at group 1, 4 and 16 over 32 steps;
 6. drive the deep path (2 x LSTMP 800c/512r -> 16624 senones) through
    the layer-stacking recipe at full width: `run_recipe` trains the
    one-layer net, `nnet_edit` stacks a fresh LSTMP-2 and senone affine
@@ -75,7 +87,8 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    class counts; K1-K5 counts against the prediction for every step and
    batch, no plain call; one deep step and three utterances' scores on
    the card against the port's CPU path; print the warm deep step, the
-   deep scoring rate and a profile of one deep step;
+   deep scoring rate, a profile of one deep step, and the deep step at
+   group 4 (ms, idle share, capture ms, pool MB);
 7. print one JSON line with every kernel, then the device line last.
 """
 
@@ -814,6 +827,7 @@ def phase_stack_kernels():
     then the bench with the K6/K7 counts. Returns {"K6": record,
     "K7": record, "launches": {...}}."""
     import torch
+    from kaldi_lstm_tpu_torch.ops import counts
     from kaldi_lstm_tpu_torch.ops import lstm_infer as li
     from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
     from kaldi_lstm_tpu_torch.ops import lstm_train as lt
@@ -910,26 +924,22 @@ def phase_stack_kernels():
                                           for tb in bw.INFER_TBS),
         "lstmp_train_fwd": calls * 2 * lt.fwd_launches(bw.T),
         "lstmp_infer": calls * 2}
-    for m in (ls, lt, li):
-        m.reset_counts()
+    counts.reset_counts()
     torch.cuda.synchronize()
     rc = bw.main(["512", str(G), str(reps), "ab"])
     torch.cuda.synchronize()
-    launches = {"lstmp_stack_fwd2": ls.FWD2_LAUNCHES,
-                "lstmp_stack_infer2": ls.INFER2_LAUNCHES,
-                "lstmp_train_fwd": lt.FWD_LAUNCHES,
-                "lstmp_infer": li.LAUNCHES}
-    plain = (ls.PLAIN_CALLS, lt.PLAIN_CALLS, li.PLAIN_CALLS)
+    launches = {k: v for k, v in counts.snapshot_counts().items()
+                if k in predicted}
+    plain = counts.plain_calls()
     if rc != 0:
         fail(f"bench_wavefront exited {rc}")
     for k in predicted:
         log(f"    bench {k}: launches {launches[k]} (predicted "
             f"{predicted[k]})")
-    log(f"    plain-version calls (lstm_stack, lstm_train, lstm_infer): "
-        f"{plain}")
+    log(f"    plain-version calls: {plain}")
     if launches != predicted:
         fail("the bench did not launch K6/K7 (and K1/K5) as predicted")
-    if plain != (0, 0, 0):
+    if plain != 0:
         fail("the bench took a plain version on the card")
     recs["launches"] = launches
     for mode in ("ablate", "profile"):
@@ -991,8 +1001,9 @@ def write_train_corpus(work: str, label_stride: int = 200):
     return feats, post
 
 
-def phase_train(work: str):
-    """The training main path; returns the K1-K4 launch counts."""
+def phase_train(work: str) -> dict:
+    """The training main path; returns the K1-K4 launch counts and, for
+    phase 5b, the corpus, the model files and the statistics."""
     import torch
     from kaldi_lstm_tpu_torch.io import kaldi_io as kio
     from kaldi_lstm_tpu_torch.models import Nnet
@@ -1131,30 +1142,240 @@ def phase_train(work: str):
         f"({TRAIN_S * T / FRAMES_PER_AUDIO_SECOND / dt:.2f} audio-s/s) "
         f"with every slot counted, {valid / dt:.1f} valid frames/s")
     profile(lambda: run_steps(placed[:1]), "one training step")
-    return launches
+    return {"launches": launches, "feats": feats, "post": post,
+            "common": common, "model_in": model_in, "model_out": model_out,
+            "stats": stats, "cv": cv1, "batches": batches,
+            "predicted": predicted}
 
 
-def counts_now() -> dict:
-    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
-    import kaldi_lstm_tpu_torch.ops.lstm_train as lt
-    import kaldi_lstm_tpu_torch.ops.xent_affine as xa
-    return {"lstmp_train_fwd": lt.FWD_LAUNCHES,
-            "lstmp_train_bwd": lt.BWD_LAUNCHES,
-            "xent_affine_fwd": xa.FWD_LAUNCHES,
-            "xent_affine_bwd": xa.BWD_LAUNCHES,
-            "lstmp_infer": li.LAUNCHES}
+# kernel names of each counted entry point, as the profiler lists them:
+# K1's projection is the only contract with both operands K-major
+KERNEL_NAMES = {
+    "lstmp_train_fwd": ("interleave_gate_rows_kernel", "xw_tc_kernel",
+                        "gates_tc_kernel",
+                        "contract_tc_kernel<32, 32, true, true"),
+    "lstmp_train_bwd": ("bwd_cell_kernel", "col_reduce_kernel",
+                        "reduce_parts_kernel", "contract_tc_kernel<"),
+    "xent_affine_fwd": ("xent_fwd_chunk_kernel", "xent_fwd_combine_kernel"),
+    "xent_affine_bwd": ("xent_bwd_dz_kernel", "xent_bwd_dr_kernel",
+                        "xent_bwd_dw_kernel"),
+    "lstmp_infer": ("lstmp_infer_kernel",),
+}
+GROUP = 4
+BENCH_GROUPS = (1, 4, 16)
+BENCH_STEPS = 32
 
 
-def reset_all_counts() -> tuple:
-    """Zero every kernel count; returns the plain-call counters' reader."""
-    import kaldi_lstm_tpu_torch.ops.lstm_infer as li
-    import kaldi_lstm_tpu_torch.ops.lstm_stack as ls
-    import kaldi_lstm_tpu_torch.ops.lstm_train as lt
-    import kaldi_lstm_tpu_torch.ops.xent_affine as xa
-    for m in (li, ls, lt, xa):
-        m.reset_counts()
-    return lambda: (lt.PLAIN_CALLS, xa.PLAIN_CALLS, li.PLAIN_CALLS,
-                    ls.PLAIN_CALLS)
+def kernel_counts_in_trace(path: str) -> dict:
+    """Kernel events of a Chrome trace, counted by entry point (a name
+    matches the first entry point whose key it contains; K1's keys come
+    before K2's generic contract)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {k: 0 for k in KERNEL_NAMES}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k, keys in KERNEL_NAMES.items():
+            if any(key in e.get("name", "") for key in keys):
+                out[k] += 1
+                break
+    return out
+
+
+def params_rel_diff(path_a: str, path_b: str) -> float:
+    """Largest |a - b| / (1 + |b|) over the two model files' params."""
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+    _, pa = Nnet.read(path_a, "cpu")
+    _, pb = Nnet.read(path_b, "cpu")
+    return max(float(((a - b).abs() / (1 + b.abs())).max())
+               for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def grouped_bench(model: str, batches: list, group: int,
+                  steps: int = BENCH_STEPS) -> dict:
+    """`steps` warm steps of `group` per call (1 = the plain step), each
+    call uploading its batches from host memory that was stacked and
+    pinned before the timing (the epoch loop does that on its staging
+    thread, for both paths); then the idle share of two calls from the
+    profiler."""
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum
+    from kaldi_lstm_tpu_torch.train.trainer import (
+        TrainOptions,
+        _batch_arrays,
+        _host_tensors,
+        _stage_group,
+        _to_device,
+        make_grouped_train_step,
+        make_train_step,
+    )
+    nnet, params = Nnet.read(model, "cuda")
+    opts = TrainOptions(learn_rate=TRAIN_LR, momentum=0.9)
+    S = batches[0].feats.shape[0]
+    st = {"p": params, "o": init_momentum(params),
+          "s": nnet.init_states(S, "cuda")}
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    n = len(batches)
+    if group == 1:
+        step = make_train_step(nnet, opts, device="cuda")
+        hosts = [_host_tensors(_batch_arrays(b), True) for b in batches]
+
+        def call(k):
+            st["p"], st["o"], st["s"], _ = step(
+                st["p"], st["o"], st["s"], (),
+                *_to_device(hosts[k % n], "cuda"), lr)
+        g = None
+    else:
+        g = make_grouped_train_step(nnet, opts, device="cuda", group=group)
+        hosts = [_stage_group([batches[(k * group + i) % n]
+                               for i in range(group)], True)
+                 for k in range(max(2, steps // group))]
+
+        def call(k):
+            st["p"], st["o"], st["s"], _ = g(
+                st["p"], st["o"], st["s"], (), *hosts[k % len(hosts)], lr)
+    call(0)                      # warm-up (the eager group when grouped)
+    call(1)                      # the capture and first replay
+    torch.cuda.synchronize()
+    calls_n = max(1, steps // group)
+    t0 = time.perf_counter()
+    for k in range(calls_n):
+        call(k)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (calls_n * group)
+    prof = profile(lambda: [call(k) for k in range(2)],
+                   f"two calls of group {group} (steady)", rows=0)
+    valid = np.mean([float(b.mask.sum()) for b in batches])
+    return {"ms": 1e3 * dt, "frames_s": S * TRAIN_T / dt,
+            "valid_frames_s": valid / dt,
+            "idle": None if prof is None else prof["idle"],
+            "capture_ms": None if g is None else g.capture_ms,
+            "pool_mb": None if g is None else g.pool_bytes / 2**20}
+
+
+def phase_grouped(work: str, p5: dict) -> None:
+    """Phase 5b: the grouped training path (train_lstm_streams --step-group
+    4) at the flagship's full width on phase 5's corpus and model."""
+    import contextlib
+    import io
+    import torch
+    import kaldi_lstm_tpu_torch.train.trainer as trainer
+    from kaldi_lstm_tpu_torch.tools import train_lstm_streams
+    feats, post, common = p5["feats"], p5["post"], p5["common"]
+    steps = len(p5["batches"])
+    full, tail = divmod(steps, GROUP)
+    log(f"  prediction: {steps} steps at group {GROUP} = 1 eager warm-up "
+        f"group (real steps of the epoch) + {full - 1} replays + a "
+        f"{tail}-step plain tail, so the launch counts equal phase 5's "
+        f"(steps x per-step, no extra warm-up launches); the same bytes "
+        f"out; device busy time per step unchanged, idle share below "
+        f"phase 5's")
+    out_g = os.path.join(work, "flagship.iter1.grouped")
+    prof_dir = os.path.join(work, "prof")
+    res = {}
+
+    def train():
+        rc, res["stats"] = train_lstm_streams.run_main(
+            [feats, post, p5["model_in"], out_g, f"--learn-rate={TRAIN_LR}",
+             "--momentum=0.9", f"--step-group={GROUP}", "--profile-dir",
+             prof_dir] + common)
+        return rc
+
+    trainer.GRAPH_REPLAYS = 0
+    counted(f"train_lstm_streams --step-group {GROUP} --profile-dir "
+            f"({steps} steps)", p5["predicted"], train)
+    if trainer.GRAPH_REPLAYS != full - 1:
+        fail(f"grouped training replayed {trainer.GRAPH_REPLAYS} graphs, "
+             f"not {full - 1}")
+    traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+    if len(traces) != 1 or not traces[0].endswith(".pt.trace.json"):
+        fail(f"--profile-dir wrote {traces}, not one trace file")
+    in_trace = kernel_counts_in_trace(os.path.join(prof_dir, traces[0]))
+    log(f"  --profile-dir wrote {traces[0]} "
+        f"({os.path.getsize(os.path.join(prof_dir, traces[0]))} bytes); "
+        f"its kernel events by entry point: {in_trace}")
+    for k, v in p5["predicted"].items():
+        if in_trace[k] != v:
+            fail(f"the profiler saw {in_trace[k]} {k} kernels, the "
+                 f"counters {v}")
+    stats = res["stats"]
+    with open(out_g, "rb") as f, open(p5["model_out"], "rb") as g:
+        same = f.read() == g.read()
+    if same:
+        log("  grouped model file: byte-identical to phase 5's")
+    else:
+        diff = params_rel_diff(out_g, p5["model_out"])
+        log(f"  grouped model file differs from phase 5's: largest "
+            f"|a-b|/(1+|b|) {diff:.3e}; the replayed kernels are phase "
+            f"5's, so any difference is in summation order")
+        if diff > 1e-6:
+            fail("the grouped epoch's model differs beyond 1e-6")
+    log(f"  AvgLoss grouped {stats.avg_loss()!r} vs phase 5 "
+        f"{p5['stats'].avg_loss()!r}; {stats.report().splitlines()[-1]}")
+    if stats.report() != p5["stats"].report():
+        fail("the grouped epoch's statistics differ from phase 5's")
+
+    # the grouped CV pass (K5 and K3 in the graph) on phase 5's model
+    def cv_run():
+        rc, res["cv"] = train_lstm_streams.run_main(
+            [feats, post, p5["model_out"], "--cross-validate=true",
+             f"--step-group={GROUP}"] + common)
+        return rc
+
+    trainer.GRAPH_REPLAYS = 0
+    counted(f"train_lstm_streams --cross-validate=true --step-group {GROUP}",
+            {"lstmp_infer": steps, "xent_affine_fwd": 2 * steps}, cv_run)
+    if trainer.GRAPH_REPLAYS != full - 1:
+        fail(f"the grouped CV pass replayed {trainer.GRAPH_REPLAYS} graphs, "
+             f"not {full - 1}")
+    log(f"  grouped CV AvgLoss {res['cv'].avg_loss()!r} vs phase 5 "
+        f"{p5['cv'].avg_loss()!r}")
+    if res["cv"].report() != p5["cv"].report():
+        fail("the grouped CV pass differs from phase 5's")
+
+    # --verbose 1: the three moment-dump blocks; --debug-dump: the
+    # per-frame LSTM dumps of the first minibatch
+    err = io.StringIO()
+    dbg = os.path.join(work, "dbg")
+    with contextlib.redirect_stderr(err):
+        rc = train_lstm_streams.main(
+            [feats, post, p5["model_in"], os.path.join(work, "v1.nnet"),
+             f"--learn-rate={TRAIN_LR}", f"--step-group={GROUP}",
+             "--verbose=1", "--debug-dump", dbg] + common)
+    text = err.getvalue()
+    blocks = ("### Forward propagation buffer content :",
+              "w_gifo_x_corr_", "### Backward propagation buffer content :")
+    if rc != 0 or not all(b in text for b in blocks):
+        fail(f"--verbose 1 (rc {rc}) did not print the moment dumps")
+    dumped = sorted(os.listdir(dbg)) if os.path.isdir(dbg) else []
+    if dumped != ["layer1.<LstmProjectedStreams>.npz"] or \
+            "backward-pass frame 0 (variant 1)" not in text:
+        fail(f"--debug-dump wrote {dumped}")
+    with np.load(os.path.join(dbg, dumped[0])) as z:
+        shapes = {k: z[k].shape for k in ("y_c", "d_r", "grad_w_gifo_x")}
+        if not all(np.isfinite(z[k]).all() for k in z.files):
+            fail("--debug-dump wrote non-finite tensors")
+    log(f"  --verbose 1 printed the three moment-dump blocks; --debug-dump "
+        f"wrote {dumped[0]} {shapes}")
+    for line in text.splitlines():
+        if ("[output of AffineTransform]" in line
+                or "[diff at input of LstmProjectedStreams]" in line):
+            log(f"    {line.strip()}")
+
+    # steady time per step at group 1, 4 and 16
+    for group in BENCH_GROUPS:
+        r = grouped_bench(p5["model_in"], p5["batches"], group)
+        cap = ("" if r["capture_ms"] is None else
+               f", capture {r['capture_ms']:.1f} ms, pool "
+               f"{r['pool_mb']:.1f} MB")
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+        log(f"  group {group:2d}: {r['ms']:.3f} ms per step of "
+            f"{TRAIN_S}x{TRAIN_T} over {BENCH_STEPS} steps -> "
+            f"{r['frames_s']:.1f} frames/s ({r['valid_frames_s']:.1f} "
+            f"valid), idle share {idle}{cap}")
 
 
 def recipe_prediction(layers: int, steps: int) -> dict:
@@ -1182,23 +1403,24 @@ def counted(what: str, predicted: dict, fn) -> tuple[dict, float]:
     is positive and met and no plain version ran. Returns (the counts,
     the wall seconds)."""
     import torch
-    plain = reset_all_counts()
+    from kaldi_lstm_tpu_torch.ops.counts import reset_counts, snapshot_counts
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = counts_now()
+    got = snapshot_counts()
+    plain = {k: v for k, v in got.items() if k.startswith("plain.")}
     if rc != 0:
         fail(f"{what} exited {rc}")
     log(f"  {what}: rc 0 in {wall:.3f} s")
     for k in predicted:
         log(f"    {k}: launches {got[k]} (predicted {predicted[k]})")
-    log(f"    plain-version calls (lstm_train, xent_affine, lstm_infer, "
-        f"lstm_stack): {plain()}")
+    log(f"    plain-version calls: {plain}")
     if any(got[k] != predicted[k] or got[k] <= 0 for k in predicted):
         fail(f"{what} did not launch the kernels as predicted")
-    if plain() != (0, 0, 0, 0):
+    if any(plain.values()):
         fail(f"{what} took a plain version on the card")
     return got, wall
 
@@ -1415,6 +1637,14 @@ def phase_deep(work: str):
         f"audio-s/s) with every slot counted")
     profile(lambda: run_steps(placed[:1]), "one deep training step")
 
+    # 8. the deep step grouped by GROUP (CUDA-graph replays)
+    r = grouped_bench(f"{exp}/nnet.init", batches(TRAIN_S), GROUP)
+    idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+    log(f"  deep step at group {GROUP}: {r['ms']:.3f} ms per step of "
+        f"{TRAIN_S}x{TRAIN_T} over {BENCH_STEPS} steps -> "
+        f"{r['frames_s']:.1f} frames/s, idle share {idle}, capture "
+        f"{r['capture_ms']:.1f} ms, pool {r['pool_mb']:.1f} MB")
+
 
 def phase_main_path(work: str):
     import torch
@@ -1550,13 +1780,14 @@ K1_PROFILE_KEYS = ("interleave_gate_rows", "xw_tc_kernel", "gates_tc_kernel",
                    "contract_tc_kernel<32, 32, true, true")
 
 
-def profile(fn, what: str) -> None:
+def profile(fn, what: str, rows: int = 10):
     """Device time by kernel and by copy over one call of fn(), and the
     share of its wall time in which no kernel ran (torch.profiler; the
     copy engines' time is reported apart and counts as idle, since the
     SMs may compute meanwhile: every kernel here runs on one stream);
-    then K1's rows (its projection is the only K-major-by-K-major
-    contract)."""
+    then the top `rows` kernels and K1's rows (its projection is the
+    only K-major-by-K-major contract). Returns {wall_ms, busy_ms, idle},
+    or None when the profiler recorded no kernel time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1566,34 +1797,36 @@ def profile(fn, what: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = []
+    table = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((us, e.count, e.key))
-    copies = [r for r in rows if r[2].startswith(("Memcpy", "Memset"))]
-    busy = sum(r[0] for r in rows if r not in copies)
+        table.append((us, e.count, e.key))
+    copies = [r for r in table if r[2].startswith(("Memcpy", "Memset"))]
+    busy = sum(r[0] for r in table if r not in copies)
     copy_us = sum(r[0] for r in copies)
     if busy <= 0:
         log(f"  profile of {what}: the profiler recorded no kernel time "
             f"(not measured)")
-        return
+        return None
+    idle = max(0.0, 1 - busy / wall_us)
     log(f"  profile of {what}: wall {wall_us / 1e3:.3f} ms, kernels busy "
-        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / wall_us):.3f}"
+        f"{busy / 1e3:.3f} ms, idle share {idle:.3f}"
         f"; copies and sets {copy_us / 1e3:.3f} ms (x"
         f"{sum(r[1] for r in copies)})")
-    for us, count, key in sorted(rows, reverse=True)[:10]:
+    for us, count, key in sorted(table, reverse=True)[:rows]:
         log(f"    {us / 1e3:10.3f} ms {100 * us / (busy + copy_us):5.1f}% "
             f"x{count:<6d} {key[:90]}")
-    k1 = [r for r in rows if any(k in r[2] for k in K1_PROFILE_KEYS)]
-    if k1:
+    k1 = [r for r in table if any(k in r[2] for k in K1_PROFILE_KEYS)]
+    if k1 and rows:
         log(f"    K1 rows: {sum(r[0] for r in k1) / 1e3:.3f} ms, "
             f"{100 * sum(r[0] for r in k1) / busy:.1f}% of kernels busy")
         for us, count, key in sorted(k1, reverse=True):
             log(f"      {us / 1e3:10.3f} ms x{count:<6d} {key[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle": idle}
 
 
 def main() -> int:
@@ -1636,7 +1869,12 @@ def main() -> int:
 
     log("phase 5: training path (train_lstm_streams, full-width flagship)")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
-        train_launches = phase_train(work)
+        p5 = phase_train(work)
+        train_launches = p5["launches"]
+        log(f"phase 5b: grouped training path (train_lstm_streams "
+            f"--step-group {GROUP}: CUDA-graph replays), full-width "
+            f"flagship")
+        phase_grouped(work, p5)
 
     log("phase 6: deep path (2 x LSTMP -> 16624) through the layer-stacking "
         "recipe, full width")

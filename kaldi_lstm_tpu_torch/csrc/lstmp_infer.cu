@@ -14,8 +14,9 @@
 //
 // and writes r for every t and the final c. The final r is r[T-1].
 //
-// Design. The grid is one CTA per SM (at most), launched with
-// cudaLaunchCooperativeKernel, so every CTA is resident and the grid-wide
+// Design. The grid is one CTA per SM (at most), launched cooperatively
+// (cudaLaunchKernelExC with cudaLaunchAttributeCooperative, which a CUDA
+// graph can capture), so every CTA is resident and the grid-wide
 // barrier cannot hang: a grid that cannot be co-resident is refused at
 // launch and the wrapper raises. The barrier is a counter in device memory
 // (zeroed on the stream before the launch): after a __syncthreads, thread 0
@@ -584,9 +585,21 @@ extern "C" int lstmp_infer_f32(const float* x, const float* w_cat,
                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&prm};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(pl.grid), dim3(kThreads),
-                                    args, static_cast<size_t>(pl.smem),
-                                    static_cast<cudaStream_t>(stream));
+  // cudaLaunchKernelEx with the cooperative attribute is the form of a
+  // cooperative launch that stream capture takes (the grouped CV step
+  // replays K5 inside a CUDA graph); outside a capture it launches the
+  // same grid as cudaLaunchCooperativeKernel.
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(pl.smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

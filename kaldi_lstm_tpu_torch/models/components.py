@@ -38,9 +38,29 @@ def _np(t) -> np.ndarray:
         else np.asarray(t)
 
 
+class Moments:
+    """Precomputed tensor moments for monitoring: the training monitor
+    reduces every buffer to min/max/mean/std on the device and fetches
+    them all in one copy, then hands these host scalars to the same
+    info_gradient()/moment_statistics() formatting."""
+
+    __slots__ = ("shape", "min", "max", "mean", "std")
+
+    def __init__(self, shape, mn, mx, mean, std):
+        self.shape = tuple(shape)
+        self.min, self.max = float(mn), float(mx)
+        self.mean, self.std = float(mean), float(std)
+
+
 def moment_statistics(name: str, arr) -> str:
     """Tensor moment summary for Info() monitoring (Kaldi's
-    MomentStatistics)."""
+    MomentStatistics). Accepts a tensor, an array or a `Moments`."""
+    if isinstance(arr, Moments):
+        if int(np.prod(arr.shape or (1,))) == 0:
+            return f"{name} [empty]"
+        return (f"{name} [dim {'x'.join(map(str, arr.shape))}] "
+                f"min {arr.min:.6g} max {arr.max:.6g} "
+                f"mean {arr.mean:.6g} stddev {arr.std:.6g}")
     a = _np(arr)
     if a.size == 0:
         return f"{name} [empty]"
@@ -92,6 +112,9 @@ class Component:
 
     # --- monitoring -------------------------------------------------------
     def info(self, params: Params) -> str:
+        return ""
+
+    def info_gradient(self, grads: Params) -> str:
         return ""
 
     def num_params(self, params: Params) -> int:
@@ -432,6 +455,10 @@ class AffineTransform(Component):
         return (moment_statistics("linearity", params["linearity"]) + "\n  "
                 + moment_statistics("bias", params["bias"]))
 
+    def info_gradient(self, grads):
+        return (moment_statistics("linearity_grad", grads["linearity"])
+                + "\n  " + moment_statistics("bias_grad", grads["bias"]))
+
 
 # ---------------------------------------------------------------------------
 # projected LSTM components
@@ -552,6 +579,11 @@ class _LstmBase(Component):
     def info(self, p: LstmParams):
         return "\n  ".join(
             moment_statistics(f"{name}_", getattr(p, name))
+            for name in LstmParams._fields)
+
+    def info_gradient(self, g: LstmParams):
+        return "\n  ".join(
+            moment_statistics(f"{name}_corr_", getattr(g, name))
             for name in LstmParams._fields)
 
 

@@ -131,6 +131,40 @@ class Nnet:
                 lines.append("  " + s)
         return "\n".join(lines)
 
+    @torch.no_grad()
+    def info_propagate(self, params: ParamsList, x: torch.Tensor,
+                       states: Optional[StatesList] = None) -> str:
+        """Per-component activation moment statistics (the reference's
+        InfoPropagate dump at the first minibatch and every 25k frames,
+        bd-nnet-train-lstm-streams.cc:232-260)."""
+        if states is None:
+            states = tuple(None for _ in self.components)
+        acts = [x]
+        for c, p, s in zip(self.components, params, states):
+            x, _ = c.apply(p, x, s)
+            acts.append(x)
+        return self.propagate_text(acts)
+
+    def propagate_text(self, acts) -> str:
+        """The forward-propagation dump of the input and each component's
+        output; `acts` holds tensors or `Moments`."""
+        lines = ["### Forward propagation buffer content :",
+                 "  " + comp.moment_statistics("[input]", acts[0])]
+        for c, a in zip(self.components, acts[1:]):
+            lines.append("  " + comp.moment_statistics(
+                f"[output of {c.token[1:-1]}]", a))
+        return "\n".join(lines)
+
+    def info_gradient(self, grads: ParamsList) -> str:
+        """Per-component gradient moment statistics; `grads` holds
+        tensors or `Moments` in the params' shape."""
+        lines = []
+        for c, g in zip(self.components, grads):
+            s = c.info_gradient(g)
+            if s:
+                lines.append(f"{c.token[1:-1]}:\n  {s}")
+        return "\n".join(lines)
+
     # ------------------------------------------------------------------
     # serialization
     # ------------------------------------------------------------------

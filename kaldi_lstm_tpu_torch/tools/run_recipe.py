@@ -22,10 +22,11 @@ even within --min-iters. Progress is journaled to <dir>/nnet/newbob.state
 in the JAX tool's JSON format, so a run resumes in either package.
 
 The port's `nnet_initialize` and `train_lstm_streams` run in this
-process on ``--device`` (default cuda; cpu runs the plain path). Flags
-the port's trainer does not take yet (``--step-group`` > 1, ``--bf16
-true``, ``--mesh`` and the multi-process flags) exit 1 before any file
-is written, naming the ROADMAP item, as the trainer does.
+process on ``--device`` (default cuda; cpu runs the plain path), with
+``--step-group``, ``--verbose`` and the other trainer flags passed on.
+Flags the port's trainer does not take yet (``--bf16 true``, ``--mesh``
+and the multi-process flags) exit 1 before any file is written, naming
+the ROADMAP item, as the trainer does.
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "train_scheduler.sh force-accepts). 0 = exact "
                         "upstream behavior")
     p.add_argument("--step-group", type=int, default=1,
-                   help="passed to the trainer (only 1 is ported: "
-                        "ROADMAP queue A item 10)")
+                   help="passed to the trainer: batches per grouped step "
+                        "(one CUDA-graph replay on the card)")
     p.add_argument("--bf16", default="false",
                    help="passed to the trainer (only false is ported: "
                         "ROADMAP queue A item 5)")

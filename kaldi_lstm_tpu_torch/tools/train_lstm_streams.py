@@ -11,16 +11,22 @@ e.g.  python -m kaldi_lstm_tpu_torch.tools.train_lstm_streams \\
 Same arguments and log lines as the JAX tool, plus ``--device`` (default
 cuda; exits 1 when CUDA is missing; ``--device cpu`` runs the plain
 PyTorch path). ``--fused-xent`` keeps its meaning: auto = on for CUDA,
-false = the unfused torch loss by the user's choice. Flags whose
-machinery is not ported yet exit 1 with the ROADMAP item that adds it:
-``--mesh`` and the multi-process flags, ``--step-group`` > 1,
-``--bf16 true``, ``--debug-dump``, ``--profile-dir``.
+false = the unfused torch loss by the user's choice. ``--step-group N``
+runs N steps per CUDA-graph replay on the card (a loop on the CPU),
+``--verbose 1`` prints the first-minibatch moment dumps, ``--debug-dump
+DIR`` the per-frame LSTM dumps of ``tools/nnet_debug_dump.py`` before
+training, and ``--profile-dir DIR`` writes a torch.profiler trace of the
+training epoch. Flags whose machinery is not ported yet exit 1 with the
+ROADMAP item that adds it: ``--mesh`` and the multi-process flags,
+``--bf16 true``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import time
 
 from kaldi_lstm_tpu_torch.io.kaldi_io import (
     RandomAccessPosteriorReader,
@@ -81,8 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-interval", type=int, default=50000,
                    help="---LSTM--- num utts between model dumping")
     p.add_argument("--step-group", type=int, default=1,
-                   help="Batches per device dispatch; only 1 is ported "
-                        "(the grouped step is ROADMAP queue A item 10)")
+                   help="Batches per grouped step: one CUDA-graph replay "
+                        "of that many steps on the card (identical math; "
+                        "takes the per-launch host cost out of the step "
+                        "loop), a loop on the CPU")
     p.add_argument("--mesh", default="",
                    help="Multi-chip sharded training 'data=D[,model=M]'; "
                         "not ported (ROADMAP queue A item 8)")
@@ -113,11 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 matmul inputs; only false is ported "
                         "(ROADMAP queue A item 5)")
     p.add_argument("--debug-dump", default="",
-                   help="Dump per-frame LSTM activations of the first "
-                        "minibatch; not ported (ROADMAP queue A item 11)")
+                   help="directory: before training, dump per-frame LSTM "
+                        "activations/derivatives for the first minibatch "
+                        "(the reference's int DEBUG blocks, "
+                        "bd-nnet-lstm-projected-streams.h:314-324)")
     p.add_argument("--profile-dir", default="",
-                   help="Write a profiler trace of the steady-state "
-                        "steps; not ported (ROADMAP queue A item 12)")
+                   help="Write a torch.profiler trace (Chrome trace JSON) "
+                        "of the training epoch to this directory")
     p.add_argument("--frame-weights", default="",
                    help="Per-frame weights (ark: float-vector table) to "
                         "scale gradients")
@@ -145,16 +155,35 @@ def unported_flag(args) -> str | None:
     if args.coordinator_address or args.num_processes > 1:
         return ("multi-process training (--coordinator-address, "
                 "--num-processes) is ROADMAP queue A item 8")
-    if args.step_group > 1:
-        return ("--step-group > 1: the grouped step (a CUDA-graph "
-                "capture) is ROADMAP queue A item 10")
     if _bool(args.bf16):
         return "--bf16 true: bfloat16 kernels are ROADMAP queue A item 5"
-    if args.debug_dump:
-        return "--debug-dump is ROADMAP queue A item 11"
-    if args.profile_dir:
-        return "--profile-dir is ROADMAP queue A item 12"
     return None
+
+
+def _reads_stdin(rspec: str) -> bool:
+    # 'ark:-', 'ark,t:-', 'scp:-', bare '-' all map to sys.stdin
+    return rspec == "-" or rspec.rsplit(":", 1)[-1] == "-"
+
+
+def _start_profiler(device):
+    """A torch.profiler run over the training epoch (the CPU side,
+    and the card's kernels and copies on CUDA)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=acts)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, directory: str) -> str:
+    """Stop the profiler and write its Chrome trace into `directory`."""
+    profiler.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{TOOL}.{os.getpid()}.pt.trace.json")
+    profiler.export_chrome_trace(path)
+    return path
 
 
 def run_main(argv=None):
@@ -171,10 +200,10 @@ def main(argv=None, _stats_out=None) -> int:
     if msg is not None:
         print(f"{TOOL}: {msg}; not in this port yet", file=sys.stderr)
         return 1
+    if args.step_group < 1:
+        print(f"{TOOL}: --step-group must be >= 1", file=sys.stderr)
+        return 1
     set_verbose_level(args.verbose)
-    if args.verbose >= 1:
-        WARN("--verbose >= 1: the first-minibatch moment dumps are ROADMAP "
-             "queue A item 11; only the progress logs are printed")
     crossvalidate = _bool(args.cross_validate)
     if not crossvalidate and args.model_out is None:
         print("error: <model-out> required unless --cross-validate=true",
@@ -187,7 +216,12 @@ def main(argv=None, _stats_out=None) -> int:
     transf = transf_params = None
     if args.feature_transform:
         transf, transf_params = Nnet.read(args.feature_transform, device)
+    prof = args.verbose >= 2
+    t_start = time.perf_counter()
     nnet, params = Nnet.read(args.model_in, device)
+    if prof:
+        LOG(f"invocation profile: model read {args.model_in} "
+            f"{time.perf_counter() - t_start:.2f}s")
     fused = None if args.fused_xent == "auto" else _bool(args.fused_xent)
     opts = TrainOptions(learn_rate=args.learn_rate, momentum=args.momentum,
                         grad_clip=args.grad_clip,
@@ -195,6 +229,31 @@ def main(argv=None, _stats_out=None) -> int:
                         l2_penalty=args.l2_penalty,
                         objective=args.objective_function,
                         fused_xent=fused)
+
+    if args.debug_dump and (_reads_stdin(args.feature_rspecifier)
+                            or _reads_stdin(args.targets_rspecifier)):
+        # the dump pre-reads the rspecifiers with its own readers; a
+        # single-shot stdin stream would be consumed before training
+        WARN("--debug-dump skipped: stdin rspecifiers cannot be read "
+             "twice")
+        args.debug_dump = ""
+    if args.debug_dump:
+        from kaldi_lstm_tpu_torch.tools.nnet_debug_dump import (
+            debug_dump,
+            load_chunk,
+        )
+        raw_dim = transf.input_dim if transf else nnet.input_dim
+        dbg_x, dbg_ids = load_chunk(
+            args.feature_rspecifier, args.targets_rspecifier,
+            args.num_stream, args.batch_size, raw_dim)
+        if transf is not None:
+            import torch
+            with torch.no_grad():
+                dbg_x = transf.feedforward(
+                    transf_params, torch.from_numpy(dbg_x).to(device)
+                ).cpu().numpy()
+        debug_dump(nnet, params, dbg_x, dbg_ids, args.debug_dump,
+                   have_targets=True)
 
     LOG(("CROSS-VALIDATION" if crossvalidate else "TRAINING") + " STARTED")
 
@@ -223,12 +282,26 @@ def main(argv=None, _stats_out=None) -> int:
                                                    device)
         LOG(f"resumed train state from {args.state_in} (meta: {meta})")
 
+    profiler = None
+    if args.profile_dir and not crossvalidate:
+        profiler = _start_profiler(device)
+
+    if prof:
+        LOG(f"invocation profile: setup (parse+read+readers) "
+            f"{time.perf_counter() - t_start:.2f}s to epoch start")
     res = run_epoch(nnet, params, scheduler, opts,
                     transf=transf, transf_params=transf_params,
                     crossvalidate=crossvalidate, opt_state=opt_state,
-                    dump_interval=args.dump_interval, dump_fn=dump)
+                    dump_interval=args.dump_interval, dump_fn=dump,
+                    monitor_verbose=args.verbose,
+                    step_group=args.step_group)
+
+    if profiler is not None:
+        path = _stop_profiler(profiler, args.profile_dir)
+        LOG(f"profiler trace written to {path}")
 
     if not crossvalidate:
+        t_write = time.perf_counter()
         nnet.write(args.model_out, res.params, binary=_bool(args.binary))
         if args.state_out:
             from kaldi_lstm_tpu_torch.train.checkpoint import \
@@ -237,6 +310,9 @@ def main(argv=None, _stats_out=None) -> int:
                              meta={"learn_rate": args.learn_rate,
                                    "num_done": scheduler.num_done})
             LOG(f"wrote train state to {args.state_out}")
+        if prof:
+            LOG(f"invocation profile: model fetch+write {args.model_out} "
+                f"{time.perf_counter() - t_write:.2f}s")
 
     LOG(f"Done {scheduler.num_done} files, {scheduler.num_no_tgt_mat} with "
         f"no tgt_mats, {scheduler.num_other_error} with other errors. "

@@ -1,5 +1,5 @@
-"""The training step and the epoch loop, PyTorch edition of
-``kaldi_lstm_tpu.train.trainer``.
+"""The training step, the grouped step and the epoch loop, PyTorch
+edition of ``kaldi_lstm_tpu.train.trainer``.
 
 One step, as the reference does it per minibatch
 (bd-nnet-train-lstm-streams.cc:209-229):
@@ -15,14 +15,19 @@ detached between chunks. `learn_rate` is a 0-d device tensor, so the
 filler-batch guard (lr 0, momentum 1 when a batch has no frames) and the
 statistics need no host sync inside a step.
 
-The epoch loop (`run_epoch`) adds the host side: the stream scheduler
-on a prefetch thread, pinned non-blocking uploads, statistics kept on the
-device and fetched once per `STATS_FLUSH` batches (with the non-finite
-check at each fetch), progress logs and periodic model dumps.
+The grouped step (`make_grouped_train_step`, the reference's lax.scan
+device loop) runs B steps per call: on the card as one CUDA-graph
+replay of the B steps, which takes the per-launch host cost of the ~100
+kernels a step out of the loop; on the CPU as a loop.
 
-Not in this module yet (ROADMAP.md): the grouped step
-(`make_grouped_train_step`, a CUDA-graph capture here), the first-batch
-moment dumps of `--verbose >= 1`, and the sharded path.
+The epoch loop (`run_epoch`) adds the host side: the stream scheduler
+on a prefetch thread, the stacking and pinning of the next group on a
+second one, non-blocking uploads on the compute stream, statistics kept
+on the device and fetched once per `STATS_FLUSH` blocks (with the
+non-finite check at each fetch), progress logs, periodic model dumps,
+the `--verbose` moment dumps (`make_monitor_fn`) and the epoch profile.
+
+Not in this module yet (ROADMAP.md): the sharded path.
 """
 
 from __future__ import annotations
@@ -33,8 +38,14 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from kaldi_lstm_tpu_torch.models.components import AffineTransform, Softmax
+from kaldi_lstm_tpu_torch.models.components import (
+    AffineTransform,
+    Moments,
+    Softmax,
+    moment_statistics,
+)
 from kaldi_lstm_tpu_torch.models.nnet import Nnet
+from kaldi_lstm_tpu_torch.ops.counts import add_counts, snapshot_counts
 from kaldi_lstm_tpu_torch.ops.xent_affine import fused_affine_xent
 from kaldi_lstm_tpu_torch.train.loss import (
     LossAux,
@@ -52,7 +63,7 @@ from kaldi_lstm_tpu_torch.train.streams import (
     StreamBatch,
     StreamScheduler,
 )
-from kaldi_lstm_tpu_torch.utils import VLOG
+from kaldi_lstm_tpu_torch.utils import LOG, VLOG
 from kaldi_lstm_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -204,12 +215,17 @@ def default_use_fused(nnet: Nnet, opts: TrainOptions, device) -> bool:
 
 def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
                   crossvalidate: bool, device):
-    """The single-step computation for tensors on `device`."""
+    """The single-step computation for tensors on `device`. It reads
+    nothing back to the host and copies nothing from it, so a CUDA graph
+    can capture it (`make_grouped_train_step`)."""
     use_fused = default_use_fused(nnet, opts, device)
     objective_fn = make_objective(
         nnet, _LOSS_FNS[opts.objective], use_fused, train=not crossvalidate,
         time_major=use_fused and trunk_supports_time_major(nnet),
         want_logits=opts.objective == "xent")
+    # the filler guard's momentum pair as device constants, made once
+    mmt_real = torch.tensor(opts.momentum, dtype=torch.float32, device=device)
+    mmt_filler = torch.ones((), dtype=torch.float32, device=device)
 
     def step(params, opt_state, states, transf_params, feats, tgt_ids,
              tgt_weights, mask, reset_flags, learn_rate, rng=None):
@@ -241,7 +257,7 @@ def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
         # (device scalars, no host sync).
         real = aux.frames > 0
         lr_eff = learn_rate * real.to(torch.float32)
-        mmt_eff = torch.where(real, opts.momentum, 1.0)
+        mmt_eff = torch.where(real, mmt_real, mmt_filler)
         params, opt_state = momentum_update(
             params, grads, opt_state, lr_eff, mmt_eff, opts.grad_clip,
             lr_scale=build_lr_scale(nnet, params),
@@ -264,6 +280,285 @@ def make_train_step(nnet: Nnet, opts: TrainOptions,
     return _make_step_fn(nnet, opts, transf, crossvalidate, device)
 
 
+def _pack_aux(aux: LossAux) -> torch.Tensor:
+    """[1, 4] float32 device row (xent, entropy, correct, frames)."""
+    return torch.stack([torch.as_tensor(v).to(torch.float32).reshape(())
+                        for v in aux]).reshape(1, 4)
+
+
+# replays of grouped-step graphs in this process (a caller can show that
+# a grouped epoch replayed and did not run eagerly)
+GRAPH_REPLAYS = 0
+
+
+class _GroupedStep:
+    """B consecutive steps per call, over batch tensors with a leading
+    [B] axis: (params, opt_state, states, transf_params, feats, tgt_ids,
+    tgt_weights, mask, reset_flags, learn_rate, rng) -> (params,
+    opt_state, states, aux [B, 4] float32 rows of (xent, entropy,
+    correct, frames)).
+
+    On the CPU the B steps run as a loop. On CUDA the object owns static
+    device buffers for the B batches, the lr, the carried state and the
+    [B, 4] aux block; its first call runs the B steps eagerly on a side
+    stream (the warm-up: a real group of the epoch, so nothing is undone
+    after it); its second call captures the B steps in one
+    `torch.cuda.CUDAGraph` and every call from then on copies the group
+    into the buffers on the current stream and replays the graph. The
+    graph binds the live params, momentum and feature-transform tensors
+    (the step updates them in place), so every call must pass those same
+    tensors. A dropout generator is registered with the graph, so every
+    replay draws fresh masks, the ones the plain steps would draw.
+
+    `capture_ms` and `pool_bytes` say what the capture cost: its wall
+    time and the device memory the graph's private pool took."""
+
+    def __init__(self, nnet: Nnet, opts: TrainOptions,
+                 transf: Optional[Nnet], crossvalidate: bool, device,
+                 group: int):
+        if group < 1:
+            raise ValueError(f"step group must be >= 1, got {group}")
+        self.B = int(group)
+        self.device = torch.device(device)
+        self.step = _make_step_fn(nnet, opts, transf, crossvalidate,
+                                  self.device)
+        self.calls = 0
+        self.graph = None
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self._delta: dict = {}
+        self._bound: list = []
+
+    def _steps(self, params, opt_state, states, transf_params, batches,
+               learn_rate, rng):
+        rows = []
+        for i in range(self.B):
+            params, opt_state, states, aux = self.step(
+                params, opt_state, states, transf_params,
+                *(t[i] for t in batches), learn_rate, rng=rng)
+            rows.append(_pack_aux(aux))
+        return params, opt_state, states, torch.cat(rows)
+
+    def __call__(self, params, opt_state, states, transf_params, feats,
+                 tgt_ids, tgt_weights, mask, reset_flags, learn_rate,
+                 rng=None):
+        global GRAPH_REPLAYS
+        batches = (feats, tgt_ids, tgt_weights, mask, reset_flags)
+        if any(t.shape[0] != self.B for t in batches):
+            raise ValueError(f"grouped step: every batch tensor needs a "
+                             f"leading axis of {self.B}")
+        self.calls += 1
+        if self.device.type != "cuda":
+            return self._steps(params, opt_state, states, transf_params,
+                               batches, learn_rate, rng)
+        if self.calls == 1:
+            self._allocate(batches, states)
+        for buf, t in zip(self._inputs, batches):
+            if buf.shape != t.shape or buf.dtype != t.dtype:
+                raise ValueError(
+                    f"grouped step: batch {tuple(t.shape)} {t.dtype} "
+                    f"differs from the captured {tuple(buf.shape)} "
+                    f"{buf.dtype}")
+            buf.copy_(t, non_blocking=True)
+        self._lr.copy_(learn_rate)
+        if states is not self._states:
+            for dst, src in zip(tree_leaves(self._states),
+                                tree_leaves(states)):
+                dst.copy_(src)
+        bound = tree_leaves((params, opt_state, transf_params))
+        if self.calls == 1:
+            self._bound = bound
+            self._warm_up(params, opt_state, transf_params, rng)
+        else:
+            if (len(bound) != len(self._bound)
+                    or any(a is not b for a, b in zip(bound, self._bound))):
+                raise ValueError("grouped step: the graph binds the params, "
+                                 "momentum and transform tensors of its "
+                                 "first call; pass those same tensors")
+            if self.graph is None:
+                self._capture(params, opt_state, transf_params, rng)
+            self.graph.replay()
+            add_counts(self._delta)
+            GRAPH_REPLAYS += 1
+        return params, opt_state, self._states, self._aux.clone()
+
+    def _allocate(self, batches, states) -> None:
+        dev = self.device
+        self._inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+                        for t in batches]
+        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self._states = tree_map(torch.empty_like, states)
+        self._aux = torch.empty((self.B, 4), dtype=torch.float32,
+                                device=dev)
+
+    def _body(self, params, opt_state, transf_params, rng) -> None:
+        """The B steps on the static buffers, their results written back
+        into them: what the graph holds."""
+        _, _, states, aux = self._steps(params, opt_state, self._states,
+                                        transf_params, self._inputs,
+                                        self._lr, rng)
+        self._aux.copy_(aux)
+        for dst, src in zip(tree_leaves(self._states), tree_leaves(states)):
+            dst.copy_(src)
+
+    def _warm_up(self, params, opt_state, transf_params, rng) -> None:
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._body(params, opt_state, transf_params, rng)
+        main.wait_stream(side)
+
+    def _capture(self, params, opt_state, transf_params, rng) -> None:
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        # a captured graph bumps the launch counters once, at capture;
+        # take that back and add the capture's delta at every replay, so
+        # the counts stay per launch
+        before = snapshot_counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if rng is not None:
+            graph.register_generator_state(rng)
+        # thread-local mode: the staging thread may pin host memory while
+        # this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._body(params, opt_state, transf_params, rng)
+        torch.cuda.synchronize(self.device)
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        after = snapshot_counts()
+        self._delta = {k: after[k] - before[k] for k in after}
+        add_counts({k: -d for k, d in self._delta.items()})
+        self.graph = graph
+        LOG(f"grouped step: {self.B} steps captured in one CUDA graph in "
+            f"{self.capture_ms:.1f} ms; graph pool "
+            f"{self.pool_bytes / 2**20:.1f} MB")
+
+
+def make_grouped_train_step(nnet: Nnet, opts: TrainOptions,
+                            transf: Optional[Nnet] = None,
+                            crossvalidate: bool = False, *, device,
+                            group: int) -> _GroupedStep:
+    """`group` steps per call (a CUDA-graph replay on the card, a loop on
+    the CPU): the reference's grouped step, whose lax.scan device loop
+    amortises the per-step dispatch. `crossvalidate` groups the CV pass
+    the same way (params pass through unchanged)."""
+    return _GroupedStep(nnet, opts, transf, crossvalidate, device, group)
+
+
+# ---------------------------------------------------------------------------
+# first-batch moment dumps (--verbose >= 1)
+# ---------------------------------------------------------------------------
+
+def _moms4(a: torch.Tensor) -> torch.Tensor:
+    """[min, max, mean, std] of a tensor as one tiny device tensor."""
+    a32 = a.detach().to(torch.float32)
+    return torch.stack([a32.min(), a32.max(), a32.mean(),
+                        a32.std(correction=0)])
+
+
+def make_monitor_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
+                    crossvalidate: bool, *, device):
+    """The first-minibatch introspection (reference :232-239
+    InfoPropagate/InfoGradient/InfoBackPropagate) as one function that
+    returns ONE [N, 4] device tensor of moments: activation rows, then
+    the gradient leaves in tree order, then the backprop rows (d loss /
+    d input of each component). Every moment is reduced on the device,
+    so the caller fetches N x 4 floats in one copy. The gradients come
+    from the step's own objective (K1/K2 and K3/K4 on the card), the
+    backprop rows from one cotangent chain over per-component autograd
+    graphs."""
+    loss_fn = _LOSS_FNS[opts.objective]
+    comps = nnet.components
+    # combined softmax+xent: the diff enters at the logits
+    n_bp = len(comps) - (1 if isinstance(comps[-1], Softmax) else 0)
+    objective_fn = make_objective(
+        nnet, loss_fn, default_use_fused(nnet, opts, device), train=False,
+        want_logits=opts.objective == "xent")
+
+    def monitor(params, transf_params, x, states, ids, w, mask):
+        if transf is not None:
+            with torch.no_grad():
+                x = transf.feedforward(transf_params, x)
+        ins, acts = [], [x]
+        with torch.set_grad_enabled(not crossvalidate):
+            a = x
+            for c, p, s in zip(comps, params, states):
+                a = a.detach().requires_grad_(not crossvalidate)
+                ins.append(a)
+                a, _ = c.apply(p, a, s)
+                acts.append(a)
+        rows = [_moms4(t) for t in acts]
+        if crossvalidate:
+            return torch.stack(rows)
+
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, _ = objective_fn(live, x, states, ids, w, mask, None)
+            flat = tree_leaves(live)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            rows += [_moms4(torch.zeros_like(p) if g is None else g)
+                     for p, g in zip(flat, grads)]
+            y = acts[n_bp].detach().requires_grad_(True)
+            cot = torch.autograd.grad(loss_fn(y, ids, w, mask)[0], y)[0]
+            bp_m = [None] * n_bp
+            for i in range(n_bp - 1, -1, -1):
+                # d loss / d acts[i] = input of component i
+                cot = torch.autograd.grad(acts[i + 1], ins[i], cot)[0]
+                bp_m[i] = _moms4(cot)
+        return torch.stack(rows + bp_m)
+
+    return monitor
+
+
+def _monitor_first_batch(nnet, params, transf, transf_params,
+                         batch: StreamBatch, opts, crossvalidate,
+                         total_frames: int = 0, level: int = 1) -> None:
+    """Format and VLOG the moment dumps (reference :232-239 output layout
+    at the first minibatch; :251-260 every-25k-frames repeat at vlog-2,
+    `level=2`), from fresh zero states."""
+    device = _params_device(params)
+    monitor = make_monitor_fn(nnet, opts, transf, crossvalidate,
+                              device=device)
+    S, T = batch.feats.shape[:2]
+    feats, ids, w, mask, _ = place_batch(batch, device)
+    # ONE [N, 4] tensor, fetched with one copy, split on the host (rows:
+    # activations, gradient leaves, backprop diffs)
+    packed = monitor(params, transf_params, feats,
+                     nnet.init_states(S, device), ids, w, mask).cpu().numpy()
+    n_act = len(nnet.components) + 1
+
+    def moms(dim, m):
+        return Moments((S, T, dim), m[0], m[1], m[2], m[3])
+
+    comps = nnet.components
+    in_dim = transf.output_dim if transf is not None else nnet.input_dim
+    dims = [in_dim] + [c.output_dim for c in comps]
+    VLOG(level, f"### After {total_frames} frames,")
+    VLOG(level, nnet.propagate_text(
+        [moms(d, m) for d, m in zip(dims, packed)]))
+    if crossvalidate:
+        return
+
+    leaves = tree_leaves(params)
+    grad_m = packed[n_act:n_act + len(leaves)]
+    bp_m = packed[n_act + len(leaves):]
+    mom_tree = tree_unflatten(params, [
+        Moments(p.shape, *m) for p, m in zip(leaves, grad_m)])
+    VLOG(level, nnet.info_gradient(mom_tree))
+    lines = ["### Backward propagation buffer content :"]
+    for c, m in zip(comps, bp_m):
+        lines.append("  " + moment_statistics(
+            f"[diff at input of {c.token[1:-1]}]", moms(c.input_dim, m)))
+    VLOG(level, "\n".join(lines))
+
+
+# ---------------------------------------------------------------------------
+# the epoch loop
+# ---------------------------------------------------------------------------
+
 class EpochResult(NamedTuple):
     params: Any
     opt_state: MomentumState
@@ -273,13 +568,7 @@ class EpochResult(NamedTuple):
     elapsed: float
 
 
-STATS_FLUSH = 32  # batches of device stats fetched per host transfer
-
-
-def _pack_aux(aux: LossAux) -> torch.Tensor:
-    """[1, 4] float32 device row (xent, entropy, correct, frames)."""
-    return torch.stack([torch.as_tensor(v).to(torch.float32).reshape(())
-                        for v in aux]).reshape(1, 4)
+STATS_FLUSH = 32  # aux blocks of device stats fetched per host transfer
 
 
 def _flush_stats(pending: list, stats: LossStats, scheduler,
@@ -304,15 +593,34 @@ def _flush_stats(pending: list, stats: LossStats, scheduler,
     return total_frames
 
 
+def _batch_arrays(b: StreamBatch) -> tuple:
+    return (b.feats, b.tgt_ids, b.tgt_weights, b.mask, b.reset_flags)
+
+
+def _host_tensors(arrays, pin: bool) -> tuple[torch.Tensor, ...]:
+    """Host tensors over numpy arrays, in pinned memory for a card."""
+    ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    return tuple(t.pin_memory() for t in ts) if pin else ts
+
+
+def _to_device(host: tuple, device) -> tuple[torch.Tensor, ...]:
+    if torch.device(device).type != "cuda":
+        return host
+    return tuple(t.to(device, non_blocking=True) for t in host)
+
+
 def place_batch(b: StreamBatch, device) -> tuple[torch.Tensor, ...]:
     """(feats, tgt_ids, tgt_weights, mask, reset_flags) on `device`; to a
     card through pinned buffers and non-blocking copies."""
-    arrs = (b.feats, b.tgt_ids, b.tgt_weights, b.mask, b.reset_flags)
-    if torch.device(device).type != "cuda":
-        return tuple(torch.from_numpy(a) for a in arrs)
-    return tuple(torch.from_numpy(a).pin_memory().to(device,
-                                                     non_blocking=True)
-                 for a in arrs)
+    cuda = torch.device(device).type == "cuda"
+    return _to_device(_host_tensors(_batch_arrays(b), cuda), device)
+
+
+def _stage_group(group: list, pin: bool) -> tuple[torch.Tensor, ...]:
+    """The group's batches stacked along a leading [B] axis, on the host
+    (pinned for a card); the grouped step copies them in."""
+    return _host_tensors([np.stack(a) for a in zip(
+        *(_batch_arrays(b) for b in group))], pin)
 
 
 def _params_device(params) -> torch.device:
@@ -325,12 +633,27 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
               transf: Optional[Nnet] = None, transf_params=(),
               crossvalidate: bool = False,
               opt_state: Optional[MomentumState] = None,
-              dump_interval: int = 0, dump_fn=None) -> EpochResult:
+              dump_interval: int = 0, dump_fn=None,
+              monitor_verbose: int = 0,
+              step_group: int = 1) -> EpochResult:
     """One pass over the utterance source (one `bd-nnet-train-lstm-streams`
     invocation) on the device the params live on. `dump_fn(params,
-    num_done)` is called every `dump_interval` utterances."""
+    num_done)` is called every `dump_interval` utterances (:275-281).
+    `monitor_verbose >= 1`
+    prints the InfoPropagate/InfoGradient moment dumps at the first
+    minibatch (:232-239), `>= 2` also every 25k frames (:251-260).
+    `step_group > 1` runs that many batches per grouped step (one
+    CUDA-graph replay on the card; identical math, dump and monitor
+    checks at group granularity); a tail group shorter than that takes
+    the plain step."""
     device = _params_device(params)
-    step = make_train_step(nnet, opts, transf, crossvalidate, device=device)
+    cuda = device.type == "cuda"
+    use_group = step_group > 1
+    step = None if use_group else make_train_step(
+        nnet, opts, transf, crossvalidate, device=device)
+    gstep = make_grouped_train_step(
+        nnet, opts, transf, crossvalidate, device=device,
+        group=step_group) if use_group else None
     if opt_state is None:
         opt_state = init_momentum(params)
     states = nnet.init_states(scheduler.S, device)
@@ -346,20 +669,100 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     consumed_done = 0   # utterances in trained batches (the scheduler
     last_report_done = 0  # runs ahead by the prefetch depth)
     last_dump_done = 0
-    pending: list = []
-    for b in PrefetchIterator(scheduler, depth=2):
-        placed = place_batch(b, device)
-        params, opt_state, states, aux = step(
-            params, opt_state, states, transf_params, *placed, lr, rng=rng)
-        pending.append(_pack_aux(aux))
-        consumed_done += b.num_new_utts
+    monitor_frames = 0  # host-side masked-frame count (:241 semantics)
+    first_batch = True
+    num_steps = 0
+    pending: list = []  # [n, 4] device blocks of per-step stats
+    # per-stage wall: `stage` stacks and pins groups (on the staging
+    # thread, overlapped), `wait` is this thread starving on it,
+    # `dispatch` the step calls with their uploads, `stats` the blocking
+    # stats fetches; logged at the end under -v 2
+    prof = {"stage": 0.0, "wait": 0.0, "dispatch": 0.0, "stats": 0.0}
+
+    def batched_source():
+        """Lists of up to `step_group` StreamBatches; the scheduler runs
+        on the first prefetch thread."""
+        group: list = []
+        for b in PrefetchIterator(scheduler, depth=max(2, step_group + 1)):
+            group.append(b)
+            if len(group) >= step_group:
+                yield group
+                group = []
+        if group:
+            yield group
+
+    def staged_source():
+        """(group, kind, host tensors): kind 'g' is one grouped step,
+        's' per-batch steps."""
+        for group in batched_source():
+            t0 = time.perf_counter()
+            if use_group and len(group) == step_group:
+                item = (group, "g", _stage_group(group, cuda))
+            else:
+                item = (group, "s", [_host_tensors(_batch_arrays(b), cuda)
+                                     for b in group])
+            prof["stage"] += time.perf_counter() - t0
+            yield item
+
+    # second pipeline stage: stacking and pinning run on their own
+    # thread; the uploads stay on this thread's compute stream
+    src_it = iter(PrefetchIterator(staged_source(), depth=2))
+
+    while True:
+        t0 = time.perf_counter()
+        item = next(src_it, None)
+        prof["wait"] += time.perf_counter() - t0
+        if item is None:
+            break
+        group, kind, staged = item
+        if first_batch and monitor_verbose >= 1:
+            _monitor_first_batch(nnet, params, transf, transf_params,
+                                 group[0], opts, crossvalidate)
+        first_batch = False
+        prev_monitor_frames = monitor_frames
+        monitor_frames += sum(int(g.mask.sum()) for g in group)
+        consumed_done += sum(g.num_new_utts for g in group)
+        t0 = time.perf_counter()
+        if kind == "g":
+            params, opt_state, states, aux = gstep(
+                params, opt_state, states, transf_params, *staged, lr,
+                rng=rng)
+            pending.append(aux)
+        else:
+            for host in staged:
+                if step is None:  # a grouped epoch's tail
+                    step = make_train_step(nnet, opts, transf,
+                                           crossvalidate, device=device)
+                params, opt_state, states, aux = step(
+                    params, opt_state, states, transf_params,
+                    *_to_device(host, device), lr, rng=rng)
+                # stats stay on the device and come back in blocks: a
+                # per-step copy would stall the host every step
+                pending.append(_pack_aux(aux))
+        num_steps += len(group)
+        prof["dispatch"] += time.perf_counter() - t0
+
+        if (monitor_verbose >= 2
+                and prev_monitor_frames // 25000
+                != monitor_frames // 25000):
+            # every-25k-frames moment dump at vlog-2 (reference
+            # :251-260): post-step params, post-increment frame label;
+            # under grouping the dump lands at group granularity
+            _monitor_first_batch(nnet, params, transf, transf_params,
+                                 group[0], opts, crossvalidate,
+                                 total_frames=monitor_frames, level=2)
+
         if len(pending) >= STATS_FLUSH:
+            t0 = time.perf_counter()
             total_frames = _flush_stats(pending, stats, scheduler,
                                         total_frames)
-        # speed report every 1000 utterances
+            prof["stats"] += time.perf_counter() - t0
+        # speed report every 1000 utterances (:263-267)
         if consumed_done - last_report_done >= 1000:
+            t0 = time.perf_counter()
             total_frames = _flush_stats(pending, stats, scheduler,
                                         total_frames)
+            prof["stats"] += time.perf_counter() - t0
             last_report_done = consumed_done - consumed_done % 1000
             t = time.perf_counter() - t_start
             VLOG(1, f"After {consumed_done} utterances: time elapsed = "
@@ -370,10 +773,23 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
             last_dump_done = consumed_done - consumed_done % dump_interval
             if not crossvalidate:
                 dump_fn(params, consumed_done)
+    t0 = time.perf_counter()
     total_frames = _flush_stats(pending, stats, scheduler, total_frames)
-    if device.type == "cuda":
+    prof["stats"] += time.perf_counter() - t0
+    if cuda:
         torch.cuda.synchronize(device)
+    elapsed = time.perf_counter() - t_start
+    if monitor_verbose >= 2:
+        other = elapsed - prof["wait"] - prof["dispatch"] - prof["stats"]
+        graph = ""
+        if gstep is not None and gstep.graph is not None:
+            graph = (f"; graph capture {gstep.capture_ms:.1f} ms, pool "
+                     f"{gstep.pool_bytes / 2**20:.1f} MB")
+        LOG(f"epoch profile ({num_steps} steps, {elapsed:.2f}s wall): "
+            f"wait_data {prof['wait']:.2f}s, dispatch "
+            f"{prof['dispatch']:.2f}s, stats_fetch {prof['stats']:.2f}s, "
+            f"other_host {other:.2f}s (stage+pin {prof['stage']:.2f}s, "
+            f"overlapped){graph}")
     return EpochResult(params=params, opt_state=opt_state, stats=stats,
                        num_done=scheduler.num_done,
-                       total_frames=total_frames,
-                       elapsed=time.perf_counter() - t_start)
+                       total_frames=total_frames, elapsed=elapsed)

@@ -2,7 +2,8 @@
 
 * importing every module of `kaldi_lstm_tpu_torch` (the training slice
   among them) loads neither `jax` nor the JAX package (checked in a
-  fresh interpreter), and `chip_smoke.py` imports neither;
+  fresh interpreter; the debug-dump modules also each alone), and
+  `chip_smoke.py` imports neither;
 * `lstm_infer` on a CPU tensor takes the plain version and counts no
   kernel launch;
 * `--device cuda` without CUDA exits 1 and writes nothing;
@@ -63,6 +64,12 @@ _STACK_MODULES = {
 }
 
 
+_MONITOR_MODULES = {
+    "kaldi_lstm_tpu_torch.ops.lstm_grad_variants",
+    "kaldi_lstm_tpu_torch.tools.nnet_debug_dump",
+}
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -73,6 +80,21 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert n_modules >= 30
     names = set(res.stdout.splitlines()[1].split())
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
+    assert _MONITOR_MODULES <= names
+
+
+@pytest.mark.parametrize("module", sorted(_MONITOR_MODULES))
+def test_monitor_modules_import_no_jax(module):
+    """Each of the debug-dump modules alone, in a fresh interpreter,
+    loads neither jax nor the JAX package."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'kaldi_lstm_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_imports_no_jax():
@@ -133,6 +155,7 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
     from kaldi_lstm_tpu_torch.tools import (
         bench_wavefront,
         nnet_copy,
+        nnet_debug_dump,
         nnet_forward,
         nnet_initialize,
         run_recipe,
@@ -147,12 +170,18 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch):
     assert train_lstm_streams.main(["ark:f.ark", "ark:p.ark", "m.nnet",
                                     str(tmp_path / "t.nnet")]) == 1
     assert bench_wavefront.main(["8", "1", "1", "ab"]) == 1
+    assert nnet_debug_dump.main(["m.nnet", "ark:f.ark",
+                                 str(tmp_path / "dump")]) == 1
+    assert train_lstm_streams.main(["ark:f.ark", "ark:p.ark", "m.nnet",
+                                    str(tmp_path / "t.nnet"),
+                                    "--step-group", "4"]) == 1
     exp = tmp_path / "exp"
     assert run_recipe.main(["--tr-feats", "ark:f.ark", "--tr-targets",
                             "ark:p.ark", "--cv-feats", "ark:f.ark",
                             "--cv-targets", "ark:p.ark", "--dir", str(exp),
                             "--proto", "p.proto"]) == 1
     assert not out.exists() and not (tmp_path / "t.nnet").exists()
+    assert not (tmp_path / "dump").exists()
     assert not exp.exists()
 
 

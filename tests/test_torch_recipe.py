@@ -9,7 +9,8 @@
   same scripted stub (as tests/test_newbob.py does): the same trainer
   calls, accept / reject / halve / stop decisions, files, final model
   and newbob resume JSON; a state file written by one package resumes in
-  the other; flags the port's trainer does not take exit 1 up front;
+  the other; flags the port's trainer does not take exit 1 up front, and
+  `--step-group`/`--verbose` reach every trainer call;
 * the layer-stacking recipe end to end on the port's CPU path at a tiny
   size: one-layer pretrain, stack with a frozen trunk (bit-identical
   after training), unfreeze and fine-tune.
@@ -328,7 +329,6 @@ def test_fixed_scheduler_matches_jax(tmp_path, monkeypatch, name, losses,
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--step-group", "2"], "item 10"),
     (["--bf16", "true"], "item 5"),
     (["--mesh", "data=4"], "item 8"),
     (["--num-processes", "2", "--coordinator-address", "h:1"], "item 8"),
@@ -340,6 +340,30 @@ def test_unported_trainer_flags_exit_1_up_front(tmp_path, monkeypatch,
                       ["--scheduler", "newbob", "--proto", "p"] + flag)
     assert rc == 1 and not stub.calls and not d.exists()
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,passed", [
+    (["--step-group", "2"], ["--step-group=2", "--verbose=1"]),
+    (["--step-group", "16", "--verbose", "2"],
+     ["--step-group=16", "--verbose=2"]),
+])
+def test_trainer_flags_reach_the_trainer(tmp_path, monkeypatch, flags,
+                                         passed):
+    """--step-group and --verbose pass through to every trainer call, as
+    the JAX recipe passes them."""
+    res = {}
+    for key, recipe in (("jax", j_recipe), ("port", t_recipe)):
+        d = _exp(tmp_path, key)
+        rc, stub = _drive(recipe, d, [5.0, 4.0], monkeypatch,
+                          ["--scheduler", "newbob", "--max-iters", "1"]
+                          + flags)
+        assert rc == 0
+        res[key] = _calls(stub, d)
+    assert res["port"] == res["jax"]
+    assert len(res["port"]) == 3     # CV of the start model, train, CV
+    for argv in res["port"]:
+        for f in passed:
+            assert f in argv
 
 
 def test_no_init_and_no_proto_exits_1(tmp_path, monkeypatch, capsys):
