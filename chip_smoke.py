@@ -44,6 +44,19 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    port's
    `tools/bench_wavefront` (A/B, ablation, profile) with the K6/K7
    counts zeroed before its A/B and read after;
+3d. hold the bf16 variants of K1-K5 (the --bf16 path: K1-K4's products
+   on the mainloop's bf16 mma, K1's gate residual in bf16, K5's weights
+   in shared memory as bf16) against their bf16 plain versions, each
+   output's RMS error within a tenth of the RMS bf16-vs-f32 distance of
+   the plain version on the same inputs (or twice the plain version's
+   own f32-vs-f64 noise, BF16_NOISE): K1/K2 at the flagship shape, at
+   I=512 with dx, with dropout, at T=2 and ragged at T=2; K3/K4 at
+   N=5120, R=512, K=8000, at K=16624 and ragged; K5 at S=8, T=1000 and
+   S=256, T=20 at I=40 and I=512, at I=1024 (resident in bf16, not in
+   f32), at I=2400 (the bf16 weights leave shared memory), at T=2 and
+   ragged at T=2 (every ragged case on the 4-byte-copy instances); time
+   kernel and plain and print bounds at 989 TFLOP/s and 3.35 TB/s and,
+   as context, cuBLAS bf16 times of the products;
 4. drive the serving path: `nnet_forward` scoring of the full-width
    standard decode net (TimeShift(5) -> LstmProjected 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax, random weights from a seed) over
@@ -74,9 +87,19 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    kernel events in the trace it wrote, and the graph replays against
    the group count; the grouped CV pass (K5 and K3 replayed) against
    phase 5's; `--verbose 1` prints the three moment-dump blocks and
-   `--debug-dump` writes the LSTM layer's finite per-frame tensors; print
-   ms per step, frames/s, the idle share of steady calls, capture ms
-   and graph-pool MB at group 1, 4 and 16 over 32 steps;
+   `--debug-dump` writes the LSTM layer's finite per-frame tensors;
+5c. drive the bf16 training path on phase 5's corpus and model:
+   `train_lstm_streams --bf16 true` trains one epoch and runs its
+   cross-validation pass at --step-group 1, 4 and 16 (the recipes'
+   default), the counts zeroed just before and read just after each:
+   only the bf16 entry points of K1-K5, in the predicted counts, no f32
+   launch of K1-K5 and no plain call; the epoch's trace against the
+   counters (kernels templated on tc::Bf16 / tc::F32 by name); a finite
+   CV AvgLoss, printed beside phase 5's f32 one; the bf16 model not
+   equal to the f32 one, and the grouped bf16 models byte-identical to
+   group 1's; then ms per step, frames/s, the idle share of two steady
+   calls (with the top kernels at group 1), capture ms and graph-pool MB
+   at group 1, 4 and 16 over 32 steps, f32 and bf16 in turns;
 6. drive the deep path (2 x LSTMP 800c/512r -> 16624 senones) through
    the layer-stacking recipe at full width: `run_recipe` trains the
    one-layer net, `nnet_edit` stacks a fresh LSTMP-2 and senone affine
@@ -88,8 +111,9 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    batch, no plain call; one deep step and three utterances' scores on
    the card against the port's CPU path; print the warm deep step, the
    deep scoring rate, a profile of one deep step, and the deep step at
-   group 4 (ms, idle share, capture ms, pool MB);
-7. print one JSON line with every kernel, then the device line last.
+   group 4 in f32 and in bf16 (ms, idle share, capture ms, pool MB);
+7. print one JSON line with every kernel (the bf16 variants as
+   entries of their own), then the device line last.
 """
 
 from __future__ import annotations
@@ -117,6 +141,7 @@ FRAMES_PER_AUDIO_SECOND = 100.0
 # cores, TF32 in the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain, float32 on both sides (TF32 off). The two sum the
@@ -147,6 +172,29 @@ TRAIN_TOL = 1e-4
 # correct-frame counts within 2 frames (argmax near-ties).
 STEP_ATOL = 1e-5
 STEP_RTOL = 1e-4
+# The bf16 kernels vs their bf16 plain versions (the --bf16 path): both
+# round the same operands to bf16 and sum the exact bf16 products in f32,
+# so they differ by f32 summation order and by the bf16 roundings that an
+# operand computed in f32 takes the other way ("flips"); a kernel that
+# rounded one operand more or fewer, or ran in f32, would differ by a
+# good part of the bf16 effect itself. Each output's RMS error must stay
+# within BF16_SHARE of the RMS bf16-vs-f32 distance of the plain version
+# on the same inputs (tests/test_torch_bf16.py holds the plain versions
+# to the JAX package's bf16 kernels by that rule), or within BF16_NOISE
+# times the plain version's own noise where that is larger: the RMS
+# distance between the plain version summing in f32 and the same plain
+# version summing in f64 (the same rounding points). Over a recurrence
+# the flips are not rare: at the flagship shape about 1e-3 of the
+# rounded values flip between two f32 orders, and the recurrence carries
+# each one on, so two correct plain versions (f32 and f64 sums) already
+# differ by 0.07-0.24 of the bf16 distance in K1's r and K2's weight
+# gradients (measured on the CPU with ops/lstm_train.py's plain
+# versions). The T=2 cases, where no long recurrence carries flips, hold
+# the rounding points to BF16_SHARE; the ragged ones are T=2 too, since
+# at S=3 a single flip carried over 20 steps moves a third of the
+# streams (measured: K2 at 0.05-0.19 of the distance after one).
+BF16_SHARE = 0.1
+BF16_NOISE = 2.0
 TRAIN_PROTO = """<NnetProto>
 <Transmit> <InputDim> 40 <OutputDim> 40
 <LstmProjectedStreams> <InputDim> 40 <OutputDim> 512 <CellDim> 800 <ParamScale> 0.01 <NumStream> 4
@@ -790,6 +838,417 @@ def phase_train_kernels():
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: the bf16 variants of K1-K5 (the --bf16 path)
+# ---------------------------------------------------------------------------
+
+def rms(t) -> float:
+    return float(t.double().pow(2).mean().sqrt()) if t.numel() else 0.0
+
+
+def bf16_compare(what, got, ref, ref_f32, ref_f64, worst):
+    """The bf16 kernel `got` against its bf16 plain version `ref`: fail
+    unless rms(got - ref) <= max(BF16_SHARE * distance, BF16_NOISE *
+    noise), with distance = rms(ref - ref_f32) (the plain version in bf16
+    against itself in f32) real (above 1e-6 of the plain result's RMS,
+    some eight f32 ulps: lse carries a large offset, log K)
+    and noise = rms(ref_f64 - ref) (the plain version in bf16 summing in
+    f64 against it summing in f32). Returns the new worst absolute
+    error."""
+    got, ref, ref_f32, ref_f64 = (a.double() for a in (got, ref, ref_f32,
+                                                       ref_f64))
+    err, dist, noise = rms(got - ref), rms(ref - ref_f32), rms(ref_f64 - ref)
+    mx = float((got - ref).abs().max()) if got.numel() else 0.0
+    tol = max(BF16_SHARE * dist, BF16_NOISE * noise)
+    log(f"    {what}: max_abs_err {mx:.3e}, rms err {err:.3e}; bf16-vs-f32 "
+        f"distance rms {dist:.3e}; err / distance "
+        f"{err / dist if dist else float('inf'):.4f}; the plain version's "
+        f"f32-vs-f64 noise / distance "
+        f"{noise / dist if dist else float('inf'):.4f} (tol "
+        f"max({BF16_SHARE:g}, {BF16_NOISE:g} x noise) x distance)")
+    if not bool(got.isfinite().all()):
+        fail(f"{what} has non-finite entries")
+    if not dist > 1e-6 * rms(ref):
+        fail(f"{what}: the bf16-vs-f32 distance is too small to test")
+    if not err <= tol:
+        fail(f"{what} disagrees with its bf16 plain version")
+    return max(worst, mx)
+
+
+def f64(tree):
+    """Every f32 tensor of a tuple (or LstmParams, LstmState) in f64,
+    anything else as it is."""
+    import torch
+    if isinstance(tree, tuple):
+        items = [f64(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.double()
+    return tree
+
+
+def bf16_bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on this card for a function whose products take bf16
+    operands: the operations at the bf16 tensor-core peak against the
+    compulsory bytes at the HBM rate. Returns (ms, by)."""
+    t_ops = ops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bf16_bound(T, S, I, C, R, mask):
+    """K1 in bf16: its three products at 989 TFLOP/s; the bytes of the
+    f32 inputs and c, r out, gifo out in bf16 (2 bytes) and the int8
+    mask."""
+    ops = 2.0 * T * S * (4 * C * (I + R) + C * R)
+    n_in = T * S * I + (I + R) * 4 * C + 7 * C + C * R + S * (C + R)
+    nbytes = 4.0 * (n_in + T * S * (C + R)) + 2.0 * T * S * 4 * C \
+        + (T * S * 4 * C if mask else 0)
+    return bf16_bound(ops, nbytes)
+
+
+def k2_bf16_bound(T, S, I, C, R, mask, need_dx):
+    """K2 in bf16: every product (dm, dr, dWx, dWr, dWrm, dx) at 989
+    TFLOP/s; the bytes of k2_bound with gifo read in bf16."""
+    N = T * S
+    ops = 2.0 * N * (2 * R * C + 8 * C * R + (8 if need_dx else 4) * C * I)
+    n_in = (N * (I + C + 2 * R) + 4 * C * (I + R) + R * C + 3 * C
+            + S * (2 * C + R))
+    n_out = 4 * C * (I + R + 1) + R * C + 3 * C + S * (C + R) \
+        + (N * I if need_dx else 0)
+    return bf16_bound(ops, 4.0 * (n_in + n_out) + 2.0 * N * 4 * C
+                      + (N * 4 * C if mask else 0))
+
+
+def lstm_train_bf16_case(name, S, T, I, C, R, keep, need_dx, seed,
+                         timed=False):
+    """K1 and K2 in bf16 against their bf16 plain versions on one input;
+    returns (worst abs error, timing record or None)."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    bf = torch.bfloat16
+    params, x, state = lstm_case(S, T, I, C, R, seed)
+    x_tm = x.transpose(0, 1).contiguous()
+    rng = np.random.RandomState(seed + 100)
+    mask = None
+    if keep is not None:
+        mask = torch.tensor(rng.rand(T, S, 4 * C) < keep,
+                            device="cuda").to(torch.int8)
+    ik = 1.0 if keep is None else 1.0 / keep
+    g_r = torch.tensor(rng.randn(T, S, R).astype(np.float32), device="cuda")
+    gcT = torch.tensor(rng.randn(S, C).astype(np.float32), device="cuda")
+    fa = (params, x_tm, state.c, state.r, mask, ik, 50.0)
+    log(f"  [{name}] S={S} T={T} I={I} C={C} R={R} keep {keep} dx "
+        f"{need_dx}")
+    lt.reset_counts()
+    fk = lt.lstm_fwd_residuals_cuda(*fa, compute_dtype=bf)
+    torch.cuda.synchronize()
+    if (lt.FWD_BF16_LAUNCHES, lt.FWD_LAUNCHES, lt.PLAIN_CALLS) != \
+            (lt.fwd_launches(T), 0, 0) or fk[0].dtype != bf:
+        fail(f"{name}: K1 bf16 made {lt.FWD_BF16_LAUNCHES} bf16 and "
+             f"{lt.FWD_LAUNCHES} f32 launches (expected "
+             f"{lt.fwd_launches(T)} and 0), gifo {fk[0].dtype}")
+    fp = lt.lstm_fwd_residuals_plain(*fa, compute_dtype=bf)
+    f32 = lt.lstm_fwd_residuals_plain(*fa)
+    fd = lt.lstm_fwd_residuals_plain(*f64(fa), compute_dtype=bf)
+    worst = 0.0
+    for what, a, b, c, d in zip(("K1 gifo", "K1 c", "K1 r"), fk, fp, f32,
+                                fd):
+        worst = bf16_compare(what, a, b, c, d, worst)
+    del fd
+    ba = (params, x_tm, state.c, state.r)
+    bk = lt.lstm_bwd_cuda(*ba, *fp, mask, ik, g_r, gcT, need_dx,
+                          compute_dtype=bf)
+    torch.cuda.synchronize()
+    if (lt.BWD_BF16_LAUNCHES, lt.BWD_LAUNCHES) != \
+            (lt.bwd_launches(T, need_dx), 0):
+        fail(f"{name}: K2 bf16 made {lt.BWD_BF16_LAUNCHES} bf16 and "
+             f"{lt.BWD_LAUNCHES} f32 launches")
+    bp = lt.lstm_bwd_plain(*ba, *fp, mask, ik, g_r, gcT, need_dx,
+                           compute_dtype=bf)
+    b32 = lt.lstm_bwd_plain(*ba, *f32, mask, ik, g_r, gcT, need_dx)
+    bd = lt.lstm_bwd_plain(*f64((*ba, *fp, mask, ik, g_r, gcT)), need_dx,
+                           compute_dtype=bf)
+    for f, a, b, c, d in zip(type(params)._fields, bk[0], bp[0], b32[0],
+                             bd[0]):
+        worst = bf16_compare(f"K2 d{f}", a, b, c, d, worst)
+    worst = bf16_compare("K2 dc0", bk[2], bp[2], b32[2], bd[2], worst)
+    worst = bf16_compare("K2 dr0", bk[3], bp[3], b32[3], bd[3], worst)
+    if need_dx:
+        worst = bf16_compare("K2 dx", bk[1], bp[1], b32[1], bd[1], worst)
+    elif bk[1] is not None:
+        fail("K2 bf16 computed dx although need_input_grad is false")
+    del f32, b32, bd
+    if not timed:
+        return worst, None
+    rec = {}
+    for key, kfn, pfn, bnd in (
+            ("K1", lambda: lt.lstm_fwd_residuals_cuda(*fa, compute_dtype=bf),
+             lambda: lt.lstm_fwd_residuals_plain(*fa, compute_dtype=bf),
+             k1_bf16_bound(T, S, I, C, R, mask is not None)),
+            ("K2", lambda: lt.lstm_bwd_cuda(*ba, *fp, mask, ik, g_r, gcT,
+                                            need_dx, compute_dtype=bf),
+             lambda: lt.lstm_bwd_plain(*ba, *fp, mask, ik, g_r, gcT,
+                                       need_dx, compute_dtype=bf),
+             k2_bf16_bound(T, S, I, C, R, mask is not None, need_dx))):
+        k_ms = cuda_ms(kfn)
+        p_ms = cuda_ms(pfn, reps=3)
+        log(f"  [{name}] {key} bf16: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; the products "
+            f"at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s, the bytes at "
+            f"{PEAK_BYTES_PER_S / 1e12:g} TB/s); library: n/a")
+        rec[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                    "bound_by": bnd[1]}
+    # context: cuBLAS bf16 on K1's three products and K2's four at these
+    # shapes (random operands; the port never calls these)
+    N = T * S
+    w16 = [p.to(bf) for p in (params.w_gifo_x, params.w_gifo_r,
+                              params.w_r_m)]
+    xs2, r_c, m_c = (torch.randn(n, k, device="cuda", dtype=bf)
+                     for n, k in ((N, I), (S, R), (S, C)))
+    k1_ctx = {"x Wx^T": cuda_ms(lambda: xs2 @ w16[0].T),
+              f"r Wr^T x{T}": cuda_ms(lambda: [r_c @ w16[1].T
+                                               for _ in range(T)]),
+              f"m Wrm^T x{T}": cuda_ms(lambda: [m_c @ w16[2].T
+                                                for _ in range(T)])}
+    dg, ho, rp, xs, drt = (torch.randn(N, n, device="cuda", dtype=bf)
+                           for n in (4 * C, C, R, I, R))
+    k2_ctx = {f"dm x{T}": cuda_ms(
+                  lambda: [drt[:S] @ w16[2] for _ in range(T)]),
+              f"dr x{T}": cuda_ms(lambda: [dg[:S] @ w16[1]
+                                           for _ in range(T)]),
+              "dWr": cuda_ms(lambda: dg.T @ rp),
+              "dWrm": cuda_ms(lambda: drt.T @ ho),
+              "dWx": cuda_ms(lambda: dg.T @ xs)}
+    if need_dx:
+        k2_ctx["dx"] = cuda_ms(lambda: dg @ w16[0])
+    for key, ctx in (("K1", k1_ctx), ("K2", k2_ctx)):
+        log(f"  [{name}] {key} context (cuBLAS bf16, not used by the "
+            f"port): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ctx.items())
+            + f"; sum {sum(ctx.values()):.3f} ms")
+        rec[key]["cublas_bf16_products_ms"] = ctx
+    del xs2, r_c, m_c, dg, ho, rp, xs, drt
+    return worst, rec
+
+
+def xent_bf16_case(name, N, R, K, Km, seed, mask_p=0.8, timed=False):
+    """K3 and K4 in bf16 against their bf16 plain versions; returns
+    (worst abs error, timing record or None)."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import xent_affine as xa
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn(N, R, generator=g)
+    w = torch.randn(K, R, generator=g) * 0.04
+    b = torch.randn(K, generator=g) * 0.1
+    ids = torch.randint(0, K, (N, Km), generator=g).to(torch.int32)
+    tw = torch.rand(N, Km, generator=g)
+    mask = (torch.rand(N, generator=g) < mask_p).float()
+    r, w, b, ids, tw, mask = (t.cuda() for t in (r, w, b, ids, tw, mask))
+    log(f"  [{name}] N={N} R={R} K={K} Km={Km}")
+    xa.reset_counts()
+    fk = xa.xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=bf)
+    fp = xa.xent_fwd_plain(r, w, b, ids, tw, compute_dtype=bf)
+    f32 = xa.xent_fwd_plain(r, w, b, ids, tw)
+    fd = xa.xent_fwd_plain(*f64((r, w, b, ids, tw)), compute_dtype=bf)
+    torch.cuda.synchronize()
+    if (xa.FWD_BF16_LAUNCHES, xa.FWD_LAUNCHES) != (2, 0):
+        fail(f"{name}: K3 bf16 launches {xa.FWD_BF16_LAUNCHES}, f32 "
+             f"{xa.FWD_LAUNCHES}")
+    worst = 0.0
+    for what, a, c, d, e in zip(("K3 lse", "K3 picked", "K3 max"), fk[:3],
+                                fp[:3], f32[:3], fd[:3]):
+        worst = bf16_compare(what, a, c, d, e, worst)
+    diff = (fk[3] != fp[3]).nonzero().flatten()
+    if diff.numel():
+        z = (r[diff].to(bf).float() @ w.to(bf).float().T) + b
+        picked_z = z.gather(1, fk[3][diff].long()[:, None])[:, 0]
+        tol = TRAIN_TOL * (1.0 + fp[2][diff].abs())
+        if not bool((picked_z >= fp[2][diff] - tol).all()):
+            fail(f"{name}: K3 bf16 argmax differs beyond near-ties")
+    log(f"    K3 argmax: {diff.numel()} of {N} rows differ (near-ties only)")
+    scale, wtot = mask, tw.sum(-1)
+    bargs = (r, w, b, ids, tw, fp[0], scale, wtot)
+    bk = xa.xent_bwd_cuda(*bargs, compute_dtype=bf)
+    bp = xa.xent_bwd_plain(*bargs, compute_dtype=bf)
+    b32 = xa.xent_bwd_plain(r, w, b, ids, tw, f32[0], scale, wtot)
+    bd = xa.xent_bwd_plain(*f64(bargs), compute_dtype=bf)
+    torch.cuda.synchronize()
+    if (xa.BWD_BF16_LAUNCHES, xa.BWD_LAUNCHES) != (3, 0):
+        fail(f"{name}: K4 bf16 launches {xa.BWD_BF16_LAUNCHES}, f32 "
+             f"{xa.BWD_LAUNCHES}")
+    for what, a, c, d, e in zip(("K4 dr", "K4 dW", "K4 db"), bk, bp, b32,
+                                bd):
+        worst = bf16_compare(what, a, c, d, e, worst)
+    del fd, bd
+    if bool(bk[0][mask == 0].any()):
+        fail(f"{name}: masked rows contributed to dr in bf16")
+    if not timed:
+        return worst, None
+    rec = {}
+    for key, kfn, pfn, products in (
+            ("K3", lambda: xa.xent_fwd_cuda(r, w, b, ids, tw,
+                                            compute_dtype=bf),
+             lambda: xa.xent_fwd_plain(r, w, b, ids, tw, compute_dtype=bf),
+             1),
+            ("K4", lambda: xa.xent_bwd_cuda(*bargs, compute_dtype=bf),
+             lambda: xa.xent_bwd_plain(*bargs, compute_dtype=bf), 3)):
+        k_ms = cuda_ms(kfn)
+        p_ms = cuda_ms(pfn)
+        # the compulsory bytes are k3_bound's / k4_bound's: the bf16
+        # kernels read and write the f32 tensors the f32 ones do
+        nbytes = 4.0 * ((N * R + K * R + K + 2 * N * Km + 4 * N)
+                        if key == "K3" else
+                        (2 * N * R + 2 * K * R + 2 * K + 2 * N * Km
+                         + 3 * N))
+        bnd = bf16_bound(products * 2.0 * N * K * R, nbytes)
+        log(f"  [{name}] {key} bf16: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"{products} x 2NKR at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s); "
+            f"library: n/a")
+        rec[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                    "bound_by": bnd[1]}
+    r16, w16 = r.to(bf), w.to(bf)
+    dz16 = torch.randn(N, K, device="cuda", dtype=bf)
+    ctx = {"r @ W.T": cuda_ms(lambda: r16 @ w16.T),
+           "dz @ W": cuda_ms(lambda: dz16 @ w16),
+           "dz.T @ r": cuda_ms(lambda: dz16.T @ r16)}
+    log(f"  [{name}] context (cuBLAS bf16, not used by the port): " +
+        ", ".join(f"{k} {v:.3f} ms" for k, v in ctx.items()))
+    rec["K3"]["cublas_bf16_products_ms"] = {"r @ W.T": ctx["r @ W.T"]}
+    rec["K4"]["cublas_bf16_products_ms"] = ctx
+    del dz16
+    return worst, rec
+
+
+def phase_bf16_kernels():
+    """K1-K5's bf16 variants vs their bf16 plain versions on the card.
+    Returns {kernel: record} at the bf16 main path's shapes (the flagship
+    training step; K5 at the cross-validation shape S=256, T=20)."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import lstm_scan
+    bf = torch.bfloat16
+    S, T, I, C, R, K = TRAIN_S, TRAIN_T, 40, 800, 512, 8000
+    recs, worst = {}, {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    log(f"  design: K1-K4 run every product on tc_gemm.cuh's bf16 mode "
+        f"(operands rounded to bf16 in registers, mma.sync m16n8k16 bf16 "
+        f"with f32 accumulation), K1 writes gifo in bf16, K2 reads it; K5 "
+        f"holds its weight slices in shared memory as bf16; each held to "
+        f"{BF16_SHARE:g} x the bf16-vs-f32 distance (RMS) of its plain "
+        f"version")
+    for i, (name, dims, keep, dx, timed) in enumerate([
+            ("flagship, main path (no dropout, no dx)", (S, T, I, C, R),
+             None, False, True),
+            ("deep layer 2, I=512, dx", (S, T, 512, C, R), None, True,
+             "deep"),
+            ("flagship, keep 0.8, dx", (S, T, I, C, R), 0.8, True, False),
+            ("flagship width, T=2, keep 0.8, dx (no long recurrence)",
+             (S, 2, I, C, R), 0.8, True, False),
+            ("ragged S=3 T=2 I=37 C=200 R=130 (4-byte copies; a flip "
+             "carried over T=20 would move a third of S=3's streams), keep "
+             "0.8, dx", (3, 2, 37, 200, 130), 0.8, True, False)]):
+        w, rec = lstm_train_bf16_case(name, *dims, keep, dx, 140 + i,
+                                      timed=bool(timed))
+        worst["K1"] = worst["K2"] = max(worst["K1"], w)
+        if rec and timed is True:
+            recs.update(rec)
+        elif rec:
+            for k in ("K1", "K2"):
+                recs[k].update({f"i512_{f}": rec[k][f] for f in
+                                ("ms", "plain_ms", "bound_ms")})
+    for i, (name, dims, extra, timed) in enumerate([
+            ("flagship, main path", (S * T, R, K, 1), {}, True),
+            ("deep config K=16624", (S * T, R, DEEP_K, 1), {}, "deep"),
+            ("ragged N=1001 R=136 K=1003 Km=2, half masked",
+             (1001, 136, 1003, 2), {"mask_p": 0.5}, False),
+            ("ragged N=1001 R=130 K=1000 Km=3 (4-byte copies)",
+             (1001, 130, 1000, 3), {}, False)]):
+        w, rec = xent_bf16_case(name, *dims, 160 + i, timed=bool(timed),
+                                **extra)
+        worst["K3"] = worst["K4"] = max(worst["K3"], w)
+        if rec and timed is True:
+            recs.update(rec)
+        elif rec:
+            for k in ("K3", "K4"):
+                recs[k].update({f"k16624_{f}": rec[k][f] for f in
+                                ("ms", "plain_ms", "bound_ms")})
+    times = {}
+    for i, (name, dims, resident, timed) in enumerate([
+            ("S=8 T=1000 I=40 (serving shape)", (8, 1000, 40, 800, 512),
+             True, True),
+            ("S=256 T=20 I=40 (the cross-validation pass)",
+             (256, 20, 40, 800, 512), True, True),
+            ("S=8 T=1000 I=512", (8, 1000, 512, 800, 512), True, True),
+            ("S=256 T=20 I=512", (256, 20, 512, 800, 512), True, True),
+            ("S=8 T=16 I=1024 (f32 weights leave shared memory, bf16 stay)",
+             (8, 16, 1024, 800, 512), True, False),
+            ("S=8 T=16 I=2400 (bf16 weights leave shared memory)",
+             (8, 16, 2400, 800, 512), False, False),
+            ("S=256 T=2 I=40 (no long recurrence)", (256, 2, 40, 800, 512),
+             True, False),
+            ("ragged S=3 T=2 I=37 C=200 R=130 (4-byte copies)",
+             (3, 2, 37, 200, 130), True, False)]):
+        params, x, state = lstm_case(*dims, seed=180 + i)
+        plan = li.device_plan(dims[0], *dims[2:], bf16=True)
+        log(f"  [K5 bf16, {name}] plan {plan}")
+        if plan["resident"] != int(resident):
+            fail(f"K5 bf16 {name}: the plan does not keep the weights "
+                 f"{'resident' if resident else 'in device memory'}")
+
+        def kernel():
+            return li.lstm_infer(params, x, state, 50.0, compute_dtype=bf)
+
+        li.reset_counts()
+        with torch.inference_mode():
+            out_k, fin_k = kernel()
+            out_p, fin_p = lstm_scan(params, x, state, 50.0,
+                                     compute_dtype=bf)
+            out_32, fin_32 = lstm_scan(params, x, state, 50.0)
+            out_64, fin_64 = lstm_scan(*f64((params, x, state)), 50.0,
+                                       compute_dtype=bf)
+            torch.cuda.synchronize()
+        if (li.BF16_LAUNCHES, li.LAUNCHES, li.PLAIN_CALLS) != (1, 0, 0):
+            fail(f"K5 bf16 {name}: {li.BF16_LAUNCHES} bf16, {li.LAUNCHES} "
+                 f"f32 launches, {li.PLAIN_CALLS} plain calls")
+        for what, a, b, c, d in (("r", out_k, out_p, out_32, out_64),
+                                 ("final c", fin_k.c, fin_p.c, fin_32.c,
+                                  fin_64.c)):
+            worst["K5"] = bf16_compare(f"K5 {what}", a, b, c, d,
+                                       worst["K5"])
+        if not timed:
+            continue
+        with torch.inference_mode():
+            k_ms = cuda_ms(kernel)
+            p_ms = cuda_ms(lambda: lstm_scan(params, x, state, 50.0,
+                                             compute_dtype=bf), reps=3)
+        Sx, Tx, Ix, Cx, Rx = dims
+        f32b = lstm_bound_ms(*dims)
+        ops = 2.0 * Tx * Sx * (4 * Cx * (Ix + Rx) + Cx * Rx)
+        nbytes = 4.0 * (Tx * Sx * Ix + (Ix + Rx) * 4 * Cx + 7 * Cx
+                        + Cx * Rx + Sx * Cx + Sx * Rx + Tx * Sx * Rx
+                        + Sx * Cx)
+        bnd = bf16_bound(ops, nbytes)
+        log(f"  [K5 bf16, {name}] kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
+            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}; the products at "
+            f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s; the f32 CUDA-core bound "
+            f"{f32b[0]:.4f} ms); library: n/a")
+        times[dims] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                       "bound_by": bnd[1]}
+    rec = dict(times[(256, 20, 40, 800, 512)])
+    for dims, tag in (((8, 1000, 40, 800, 512), "s8_t1000"),
+                      ((8, 1000, 512, 800, 512), "s8_t1000_i512"),
+                      ((256, 20, 512, 800, 512), "s256_t20_i512")):
+        rec.update({f"{tag}_{k}": v for k, v in times[dims].items()
+                    if k != "bound_by"})
+    recs["K5"] = rec
+    for k in recs:
+        recs[k]["max_abs_err"] = worst[k]
+    return recs
+
+
 def stack_case(S, T, I, C, R, seed, param_scale=0.04, x_scale=1.0,
                device="cuda"):
     """Two stack-compatible layers, x [T, S, I] and nonzero initial
@@ -1166,19 +1625,25 @@ BENCH_GROUPS = (1, 4, 16)
 BENCH_STEPS = 32
 
 
-def kernel_counts_in_trace(path: str) -> dict:
+def kernel_counts_in_trace(path: str, bf16: bool = False) -> dict:
     """Kernel events of a Chrome trace, counted by entry point (a name
     matches the first entry point whose key it contains; K1's keys come
-    before K2's generic contract)."""
+    before K2's generic contract). A kernel templated on the precision
+    carries it in its name (tc::F32 or tc::Bf16, csrc/precision.cuh) and
+    counts under "<entry>" or "<entry>_bf16"; the few that are not (the
+    gate interleave, the column and partial sums, K3's merge) count
+    under the run's precision, bf16 with `bf16`."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    out = {k: 0 for k in KERNEL_NAMES}
+    out = {k + sfx: 0 for k in KERNEL_NAMES for sfx in ("", "_bf16")}
     for e in events:
         if e.get("cat") != "kernel":
             continue
+        name = e.get("name", "")
         for k, keys in KERNEL_NAMES.items():
-            if any(key in e.get("name", "") for key in keys):
-                out[k] += 1
+            if any(key in name for key in keys):
+                is16 = "tc::Bf16" in name or (bf16 and "tc::F32" not in name)
+                out[k + ("_bf16" if is16 else "")] += 1
                 break
     return out
 
@@ -1194,12 +1659,14 @@ def params_rel_diff(path_a: str, path_b: str) -> float:
 
 
 def grouped_bench(model: str, batches: list, group: int,
-                  steps: int = BENCH_STEPS) -> dict:
+                  steps: int = BENCH_STEPS, bf16: bool = False,
+                  rows: int = 0) -> dict:
     """`steps` warm steps of `group` per call (1 = the plain step), each
     call uploading its batches from host memory that was stacked and
     pinned before the timing (the epoch loop does that on its staging
     thread, for both paths); then the idle share of two calls from the
-    profiler."""
+    profiler (with its top `rows` kernels). `bf16`: the net's matmul
+    dtype is bfloat16 (--bf16 true)."""
     import torch
     from kaldi_lstm_tpu_torch.models import Nnet
     from kaldi_lstm_tpu_torch.train.optim import init_momentum
@@ -1213,6 +1680,8 @@ def grouped_bench(model: str, batches: list, group: int,
         make_train_step,
     )
     nnet, params = Nnet.read(model, "cuda")
+    if bf16:
+        nnet.set_matmul_dtype(torch.bfloat16)
     opts = TrainOptions(learn_rate=TRAIN_LR, momentum=0.9)
     S = batches[0].feats.shape[0]
     st = {"p": params, "o": init_momentum(params),
@@ -1247,7 +1716,8 @@ def grouped_bench(model: str, batches: list, group: int,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / (calls_n * group)
     prof = profile(lambda: [call(k) for k in range(2)],
-                   f"two calls of group {group} (steady)", rows=0)
+                   f"two calls of group {group}{', bf16' if bf16 else ''} "
+                   f"(steady)", rows=rows)
     valid = np.mean([float(b.mask.sum()) for b in batches])
     return {"ms": 1e3 * dt, "frames_s": S * TRAIN_T / dt,
             "valid_frames_s": valid / dt,
@@ -1365,17 +1835,119 @@ def phase_grouped(work: str, p5: dict) -> None:
                 or "[diff at input of LstmProjectedStreams]" in line):
             log(f"    {line.strip()}")
 
-    # steady time per step at group 1, 4 and 16
+
+
+def phase_bf16_path(work: str, p5: dict) -> dict:
+    """Phase 5c: `train_lstm_streams --bf16 true` on phase 5's corpus and
+    model, an epoch and its cross-validation pass at --step-group 1, 4
+    and 16 (the recipes' default), each with the counts zeroed just
+    before and read just after; returns the group-1 run's counts."""
+    import torch
+    import kaldi_lstm_tpu_torch.train.trainer as trainer
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
+    from kaldi_lstm_tpu_torch.tools import train_lstm_streams
+    feats, post, common = p5["feats"], p5["post"], p5["common"]
+    steps = len(p5["batches"])
+    T = TRAIN_T
+    train_pred = {"lstmp_train_fwd_bf16": fwd_launches(T) * steps,
+                  "lstmp_train_bwd_bf16": bwd_launches(T, False) * steps,
+                  "xent_affine_fwd_bf16": 2 * steps,
+                  "xent_affine_bwd_bf16": 3 * steps}
+    predicted = dict(train_pred, lstmp_infer_bf16=steps)
+    predicted["xent_affine_fwd_bf16"] += 2 * steps
+    f32_keys = ("lstmp_train_fwd", "lstmp_train_bwd", "xent_affine_fwd",
+                "xent_affine_bwd", "lstmp_infer")
+    log(f"  prediction: the epoch's {steps} steps launch only the bf16 "
+        f"entry points, as many launches as phase 5's f32 ones, and its "
+        f"CV pass {steps} K5 and {2 * steps} K3 bf16 launches; 0 f32 "
+        f"launches of K1-K5 and 0 plain calls at every group; the grouped "
+        f"models byte-identical to group 1's")
+    runs = {}
     for group in BENCH_GROUPS:
-        r = grouped_bench(p5["model_in"], p5["batches"], group)
-        cap = ("" if r["capture_ms"] is None else
-               f", capture {r['capture_ms']:.1f} ms, pool "
-               f"{r['pool_mb']:.1f} MB")
-        idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
-        log(f"  group {group:2d}: {r['ms']:.3f} ms per step of "
-            f"{TRAIN_S}x{TRAIN_T} over {BENCH_STEPS} steps -> "
-            f"{r['frames_s']:.1f} frames/s ({r['valid_frames_s']:.1f} "
-            f"valid), idle share {idle}{cap}")
+        out = os.path.join(work, f"flagship.iter1.bf16.g{group}")
+        prof_dir = os.path.join(work, f"prof_bf16_g{group}")
+        res = {}
+
+        def run():
+            rc, res["train"] = train_lstm_streams.run_main(
+                [feats, post, p5["model_in"], out,
+                 f"--learn-rate={TRAIN_LR}", "--momentum=0.9", "--bf16",
+                 "true", f"--step-group={group}", "--profile-dir",
+                 prof_dir] + common)
+            if rc != 0:
+                return rc
+            rc, res["cv"] = train_lstm_streams.run_main(
+                [feats, post, out, "--cross-validate=true", "--bf16",
+                 "true", f"--step-group={group}"] + common)
+            return rc
+
+        trainer.GRAPH_REPLAYS = 0
+        got, wall = counted(f"train_lstm_streams --bf16 true --step-group "
+                            f"{group}: the epoch, then its CV pass",
+                            predicted, run)
+        f32 = {k: got[k] for k in f32_keys}
+        log(f"    f32 launches of K1-K5: {f32}; graph replays "
+            f"{trainer.GRAPH_REPLAYS}")
+        if any(f32.values()):
+            fail(f"the bf16 run at group {group} launched f32 kernels")
+        traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+        if len(traces) != 1:
+            fail(f"--profile-dir wrote {traces}, not one trace file")
+        in_trace = kernel_counts_in_trace(os.path.join(prof_dir, traces[0]),
+                                          bf16=True)
+        seen = {k: v for k, v in in_trace.items() if v}
+        log(f"    the training epoch's trace, kernel events by entry "
+            f"point: {seen}")
+        for k, v in train_pred.items():
+            if in_trace[k] != v:
+                fail(f"the profiler saw {in_trace[k]} {k} kernels, the "
+                     f"counters {v}")
+        if any(in_trace[k] for k in f32_keys):
+            fail(f"the bf16 epoch's trace holds f32 kernels: {seen}")
+        cv = res["cv"].avg_loss()
+        if not np.isfinite(cv):
+            fail(f"the bf16 CV AvgLoss is {cv}")
+        log(f"    {res['train'].report().splitlines()[0]}; CV AvgLoss "
+            f"{cv!r} (f32, phase 5: {p5['cv'].avg_loss()!r})")
+        runs[group] = (out, got, res)
+    with open(runs[1][0], "rb") as f:
+        base = f.read()
+    with open(p5["model_out"], "rb") as f:
+        if f.read() == base:
+            fail("the bf16 model equals the f32 one byte for byte: bf16 "
+                 "did not run")
+    log(f"  bf16 vs f32 model (phase 5): largest |a-b|/(1+|b|) "
+        f"{params_rel_diff(runs[1][0], p5['model_out']):.3e}")
+    for group in BENCH_GROUPS[1:]:
+        with open(runs[group][0], "rb") as f:
+            if f.read() != base:
+                fail(f"the bf16 model at group {group} differs from group "
+                     f"1's: largest |a-b|/(1+|b|) "
+                     f"{params_rel_diff(runs[group][0], runs[1][0]):.3e}")
+        if runs[group][2]["cv"].report() != runs[1][2]["cv"].report():
+            fail(f"the bf16 CV pass at group {group} differs from group "
+                 f"1's")
+    log(f"  bf16 models at group {', '.join(map(str, BENCH_GROUPS[1:]))}: "
+        f"byte-identical to group 1's; CV reports identical")
+    # steady time per step at group 1, 4 and 16, f32 and bf16 in turns
+    for group in BENCH_GROUPS:
+        for bf16 in (False, True):
+            r = grouped_bench(p5["model_in"], p5["batches"], group,
+                              bf16=bf16, rows=12 if group == 1 else 0)
+            cap = ("" if r["capture_ms"] is None else
+                   f", capture {r['capture_ms']:.1f} ms, pool "
+                   f"{r['pool_mb']:.1f} MB")
+            idle = "not measured" if r["idle"] is None \
+                else f"{r['idle']:.3f}"
+            log(f"  group {group:2d} {'bf16' if bf16 else 'f32 '}: "
+                f"{r['ms']:.3f} ms per step of {TRAIN_S}x{TRAIN_T} over "
+                f"{BENCH_STEPS} steps -> {r['frames_s']:.1f} frames/s "
+                f"({r['valid_frames_s']:.1f} valid), idle share {idle}"
+                f"{cap}")
+    return runs[1][1]
 
 
 def recipe_prediction(layers: int, steps: int) -> dict:
@@ -1638,12 +2210,15 @@ def phase_deep(work: str):
     profile(lambda: run_steps(placed[:1]), "one deep training step")
 
     # 8. the deep step grouped by GROUP (CUDA-graph replays)
-    r = grouped_bench(f"{exp}/nnet.init", batches(TRAIN_S), GROUP)
-    idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
-    log(f"  deep step at group {GROUP}: {r['ms']:.3f} ms per step of "
-        f"{TRAIN_S}x{TRAIN_T} over {BENCH_STEPS} steps -> "
-        f"{r['frames_s']:.1f} frames/s, idle share {idle}, capture "
-        f"{r['capture_ms']:.1f} ms, pool {r['pool_mb']:.1f} MB")
+    for bf16 in (False, True):
+        r = grouped_bench(f"{exp}/nnet.init", batches(TRAIN_S), GROUP,
+                          bf16=bf16)
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+        log(f"  deep step at group {GROUP}{', bf16' if bf16 else ''}: "
+            f"{r['ms']:.3f} ms per step of {TRAIN_S}x{TRAIN_T} over "
+            f"{BENCH_STEPS} steps -> {r['frames_s']:.1f} frames/s, idle "
+            f"share {idle}, capture {r['capture_ms']:.1f} ms, pool "
+            f"{r['pool_mb']:.1f} MB")
 
 
 def phase_main_path(work: str):
@@ -1863,6 +2438,9 @@ def main() -> int:
         "versions, and the wavefront bench")
     stack_recs = phase_stack_kernels()
 
+    log("phase 3d: the bf16 variants of K1-K5 vs their bf16 plain versions")
+    bf16_recs = phase_bf16_kernels()
+
     log("phase 4: serving path (nnet_forward, full-width standard net)")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
         launches = phase_main_path(work)
@@ -1875,6 +2453,10 @@ def main() -> int:
             f"--step-group {GROUP}: CUDA-graph replays), full-width "
             f"flagship")
         phase_grouped(work, p5)
+        log("phase 5c: the bf16 training path (train_lstm_streams --bf16 "
+            "true, an epoch and its CV pass at --step-group 1, 4, 16), "
+            "full-width flagship")
+        bf16_launches = phase_bf16_path(work, p5)
 
     log("phase 6: deep path (2 x LSTMP -> 16624) through the layer-stacking "
         "recipe, full width")
@@ -1925,6 +2507,27 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    for key, name, source, replaces in (
+            ("K1", "lstmp_train_fwd_bf16", "lstmp_train.cu",
+             "kaldi_lstm_tpu/ops/lstm_pallas.py:120 (_fwd_kernel)"),
+            ("K2", "lstmp_train_bwd_bf16", "lstmp_train.cu",
+             "kaldi_lstm_tpu/ops/lstm_pallas.py:337 (_bwd_kernel)"),
+            ("K3", "xent_affine_fwd_bf16", "xent_affine.cu",
+             "kaldi_lstm_tpu/ops/xent_pallas.py:51 (_fwd_kernel)"),
+            ("K4", "xent_affine_bwd_bf16", "xent_affine.cu",
+             "kaldi_lstm_tpu/ops/xent_pallas.py:148 (_bwd_kernel)"),
+            ("K5", "lstmp_infer_bf16", "lstmp_infer.cu",
+             "kaldi_lstm_tpu/ops/lstm_pallas.py:243 (_infer_kernel)")):
+        r = bf16_recs[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kaldi_lstm_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": bf16_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

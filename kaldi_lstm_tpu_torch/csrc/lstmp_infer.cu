@@ -1,5 +1,6 @@
 // LSTMP inference forward (projected LSTM with peepholes and cell clip),
-// float32 throughout with float32 accumulation: one persistent,
+// float32 throughout with float32 accumulation (lstmp_infer_f32), or with
+// bf16 weights and operands (lstmp_infer_bf16, below): one persistent,
 // weight-resident cooperative launch per call.
 //
 // Replaces kaldi_lstm_tpu/ops/lstm_pallas.py::_infer_kernel (the TPU
@@ -67,6 +68,21 @@
 // reads the 565 KB of [x | r] and the 819 KB of m) and the f32 FMA rate
 // bound it.
 //
+// bf16 (lstmp_infer_bf16, the --bf16 cross-validation pass; precision.cuh):
+// the kaldi_lstm_tpu/ops/lstm_pallas.py primal under set_matmul_dtype
+// (bfloat16) casts x, Wx, r_{t-1}, Wr, tanh(c) o and Wrm before its dots.
+// Here the CTA's weight slices are held in shared memory as bf16 (8 bytes
+// per cell's four gates, 8 per quad of projection columns), which halves
+// them: 8.7 -> 4.4 MB at I=40, 14.7 -> 7.4 MB at I=512. Each staged value
+// of [x_t | r_{t-1}] and of m is rounded to bf16 as it is read (rounding
+// each landed chunk once in place, behind one more CTA barrier a chunk,
+// measured slower), and the sums stay the f32 FMAs above (a bf16 x bf16
+// product is exact in f32).
+// At C=800, R=512 on 132 SMs the bf16 slices stay in shared memory up to
+// I = 2350 (f32: I = 862); from I = 2351 they are read from device memory
+// (f32 there, rounded at use). The plan, the cooperative launch and the
+// barrier are the f32 kernel's.
+//
 // Built with nvcc into a shared library with plain C entry points, loaded
 // by kaldi_lstm_tpu_torch/ops/lstm_infer.py through ctypes; that module's
 // `k5_plan` and `lstm_infer_sliced_plain` mirror the plan and the sums.
@@ -75,6 +91,8 @@
 #include <stddef.h>
 
 #include <algorithm>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -149,8 +167,9 @@ __device__ __forceinline__ int k_split(int units) {
 // ([stream][k], the next chunk's cp.async in flight while the current one
 // is summed); the sums of a warp's lanes are added by a fixed xor
 // butterfly, those of a unit's warps (ksn > 32) in warp order through
-// shared memory. Uniform over the CTA.
-template <bool VEC, class Src, class LoadW, class Epi>
+// shared memory. Under tc::Bf16 each staged A value is rounded to bf16 as
+// it is read. Uniform over the CTA.
+template <bool VEC, class P, class Src, class LoadW, class Epi>
 __device__ __forceinline__ void block_product(float* stage, int S, int K,
                                               int nquad, Src src,
                                               LoadW load_w, Epi epi) {
@@ -232,7 +251,7 @@ __device__ __forceinline__ void block_product(float* stage, int S, int K,
             load_w(k0 + k, cb0 + col, w);
             #pragma unroll
             for (int i = 0; i < 8; ++i) {
-              const float a = arow[i * kc + k];
+              const float a = tc::at_use<P>(arow[i * kc + k]);
               #pragma unroll
               for (int g = 0; g < 4; ++g) acc[i][g] = fmaf(a, w[g], acc[i][g]);
             }
@@ -309,17 +328,27 @@ __device__ __forceinline__ void block_product(float* stage, int S, int K,
   }
 }
 
-template <bool RESIDENT, bool VEC>
+// The bf16 pair of a 32-bit word as floats: element 0 is the low half.
+__device__ __forceinline__ float bf16_lo(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+template <bool RESIDENT, bool VEC, class P>
 __global__ void __launch_bounds__(kThreads, 1)
 lstmp_infer_kernel(Params p) {
+  using W = typename P::Store;   // resident weight element: f32 or bf16
   extern __shared__ float4 smem4[];
   const int C = p.C, R = p.R, S = p.S, I = p.I;
   float* stage = reinterpret_cast<float*>(smem4);
   float* cst = stage + kStageFloats;                      // [7][ncell]
   float* cs = cst + (p.cst_smem ? round4(7 * (size_t)p.ncell) : 0);
-  float* wg = cs + (p.c_smem ? round4((size_t)S * p.ncell) : 0);
+  W* wg = reinterpret_cast<W*>(
+      cs + (p.c_smem ? round4((size_t)S * p.ncell) : 0));
   const int K = p.I + p.R;                                // wg: [K][wld]
-  float* wq = wg + (size_t)K * p.wld;                     // [C][qld]
+  W* wq = wg + (size_t)K * p.wld;                         // [C][qld]
   const size_t C4 = 4 * (size_t)C;
   const int j0 = blockIdx.x * p.ncell;
   const int nc = max(0, min(p.ncell, C - j0));
@@ -358,39 +387,49 @@ lstmp_infer_kernel(Params p) {
     for (int e = threadIdx.x; e < K * nc * 4; e += kThreads) {
       const int k = e / (nc * 4), rem = e % (nc * 4);
       const int c = rem / 4, g = rem % 4;
-      wg[(size_t)k * p.wld + 4 * c + g] =
-          p.w_cat[(size_t)k * C4 + (size_t)g * C + j0 + c];
+      tc::store(wg + (size_t)k * p.wld + 4 * c + g,
+                p.w_cat[(size_t)k * C4 + (size_t)g * C + j0 + c]);
     }
     // the last quad's columns past nqc are zero
     for (int e = threadIdx.x; e < C * 4 * nquad; e += kThreads) {
       const int k = e / (4 * nquad), q = e % (4 * nquad);
-      wq[(size_t)k * p.qld + q] =
-          q < nqc ? p.wrm_t[(size_t)k * R + q0 + q] : 0.f;
+      tc::store(wq + (size_t)k * p.qld + q,
+                q < nqc ? p.wrm_t[(size_t)k * R + q0 + q] : 0.f);
     }
     // (block_product synchronises before its first read)
   }
 
+  // four resident weights at ws: one 16-byte (f32) or 8-byte (bf16) load
+  auto load4 = [](const W* ws, float (&w)[4]) {
+    if constexpr (P::kBf16) {
+      const uint2 v = *reinterpret_cast<const uint2*>(ws);
+      w[0] = bf16_lo(v.x); w[1] = bf16_hi(v.x);
+      w[2] = bf16_lo(v.y); w[3] = bf16_hi(v.y);
+    } else {
+      const float4 v = *reinterpret_cast<const float4*>(ws);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    }
+  };
   auto load_wg = [&](int k, int c, float (&w)[4]) {
     if (RESIDENT) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(wg + (size_t)k * p.wld + 4 * c);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      load4(wg + (size_t)k * p.wld + 4 * c, w);
     } else {
       const float* row = p.w_cat + (size_t)k * C4 + j0 + c;
       #pragma unroll
-      for (int g = 0; g < 4; ++g) w[g] = __ldg(row + (size_t)g * C);
+      for (int g = 0; g < 4; ++g) {
+        w[g] = tc::at_use<P>(__ldg(row + (size_t)g * C));
+      }
     }
   };
   auto load_wq = [&](int k, int quad, float (&w)[4]) {
     if (RESIDENT) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          wq + (size_t)k * p.qld + 4 * quad);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      load4(wq + (size_t)k * p.qld + 4 * quad, w);
     } else {
       #pragma unroll
       for (int g = 0; g < 4; ++g) {
         const int q = 4 * quad + g;
-        w[g] = q < nqc ? __ldg(p.wrm_t + (size_t)k * R + q0 + q) : 0.f;
+        w[g] = q < nqc ? tc::at_use<P>(__ldg(p.wrm_t + (size_t)k * R + q0 + q))
+                       : 0.f;
       }
     }
   };
@@ -422,7 +461,7 @@ lstmp_infer_kernel(Params p) {
     float* r_t = p.r_out + (size_t)t * r_step;
 
     if (nc > 0) {
-      block_product<VEC>(
+      block_product<VEC, P>(
           stage, S, K, nc,
           [&](int s, int k) {
             return k < I ? x_t + (size_t)s * I + k
@@ -452,7 +491,7 @@ lstmp_infer_kernel(Params p) {
     }
     grid_sync();
     if (nquad > 0) {
-      block_product<VEC>(
+      block_product<VEC, P>(
           stage, S, C, nquad,
           [&](int s, int k) { return p.m + (size_t)s * C + k; },
           load_wq,
@@ -478,8 +517,9 @@ struct Plan {
 };
 
 // One CTA per SM at most: cells and projection columns are dealt out in
-// equal slices of ceil(C / SMs) and ceil(R / SMs).
-cudaError_t make_plan(int S, int I, int C, int R, Plan* pl) {
+// equal slices of ceil(C / SMs) and ceil(R / SMs). bf16: the weight
+// slices take 2 bytes an element in shared memory.
+cudaError_t make_plan(int S, int I, int C, int R, bool bf16, Plan* pl) {
   if (S <= 0 || I <= 0 || C <= 0 || R <= 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -497,9 +537,10 @@ cudaError_t make_plan(int S, int I, int C, int R, Plan* pl) {
   pl->nq = (R + sms - 1) / sms;
   pl->grid = std::max((C + pl->ncell - 1) / pl->ncell,
                       (R + pl->nq - 1) / pl->nq);
-  // strides (4 per cell or per quad of projection columns, an odd number
-  // of quads) that keep the float4 weight reads of neighbouring k on
-  // distinct banks
+  // strides in elements (4 per cell or per quad of projection columns, an
+  // odd number of quads) that keep the weight reads of neighbouring k on
+  // distinct banks: 16 bytes (f32) or 8 bytes (bf16) a read, an odd
+  // multiple of it a row
   const int nquad = (pl->nq + 3) / 4;
   pl->wld = 4 * pl->ncell + (pl->ncell % 2 == 0 ? 4 : 0);
   pl->qld = 4 * nquad + (nquad % 2 == 0 ? 4 : 0);
@@ -508,7 +549,8 @@ cudaError_t make_plan(int S, int I, int C, int R, Plan* pl) {
   // cells' c state (laid out as stage | bias, peepholes | c | weights)
   const size_t room = static_cast<size_t>(optin) / sizeof(float);
   const size_t cst = round4(7 * (size_t)pl->ncell);
-  const size_t weights = (size_t)(I + R) * pl->wld + (size_t)C * pl->qld;
+  const size_t welems = (size_t)(I + R) * pl->wld + (size_t)C * pl->qld;
+  const size_t weights = bf16 ? round4((welems + 1) / 2) : welems;
   const size_t cstate = round4((size_t)S * pl->ncell);
   size_t used = kStageFloats;
   pl->cst_smem = used + cst <= room;
@@ -521,52 +563,27 @@ cudaError_t make_plan(int S, int I, int C, int R, Plan* pl) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The launch plan for these widths on the current device: out[0..9] =
-// grid, cells per CTA, projection columns per CTA, gate-slice stride,
-// projection-slice stride, dynamic shared memory bytes, weights resident
-// (1) or read from device memory (0), SM count, the cells' bias and
-// peepholes in shared memory (1) or not, their c state in shared memory
-// (1) or not. Returns a CUDA error code.
-extern "C" int lstmp_infer_plan(int S, int I, int C, int R, int* out) {
-  Plan pl;
-  const cudaError_t err = make_plan(S, I, C, R, &pl);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int v[10] = {pl.grid, pl.ncell, pl.nq, pl.wld, pl.qld, pl.smem,
-                     pl.resident, pl.sms, pl.cst_smem, pl.c_smem};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
-  return 0;
-}
-
-// Runs the T-step recurrence on `stream` as one cooperative launch: no
-// synchronisation, no allocation. x [T, S, I] time-major; c holds c0 on
-// entry and the final c on return; m is [S, C] scratch; r_out [T, S, R];
-// bar is one unsigned of scratch for the grid barrier, zeroed on `stream`
-// here before the launch (a call's own: concurrent calls need their own).
-// Returns a CUDA error code (0 on success): a grid that cannot be
-// co-resident is refused, never run.
-extern "C" int lstmp_infer_f32(const float* x, const float* w_cat,
-                               const float* bias, const float* peep,
-                               const float* wrm_t, const float* r0,
-                               float* c, float* m, float* r_out,
-                               unsigned* bar, int T, int S, int I, int C,
-                               int R, float cell_clip, void* stream) {
+template <class P>
+int infer(const float* x, const float* w_cat, const float* bias,
+          const float* peep, const float* wrm_t, const float* r0, float* c,
+          float* m, float* r_out, unsigned* bar, int T, int S, int I, int C,
+          int R, float cell_clip, void* stream) {
   if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  cudaError_t err = make_plan(S, I, C, R, &pl);
+  cudaError_t err = make_plan(S, I, C, R, P::kBf16, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte staging copies need every row of x, r and m 16-byte aligned
   const bool vec = I % 4 == 0 && R % 4 == 0 && C % 4 == 0;
   const void* kernel =
       pl.resident
-          ? (vec ? reinterpret_cast<const void*>(lstmp_infer_kernel<true, true>)
+          ? (vec ? reinterpret_cast<const void*>(
+                       lstmp_infer_kernel<true, true, P>)
                  : reinterpret_cast<const void*>(
-                       lstmp_infer_kernel<true, false>))
+                       lstmp_infer_kernel<true, false, P>))
           : (vec ? reinterpret_cast<const void*>(
-                       lstmp_infer_kernel<false, true>)
+                       lstmp_infer_kernel<false, true, P>)
                  : reinterpret_cast<const void*>(
-                       lstmp_infer_kernel<false, false>));
+                       lstmp_infer_kernel<false, false, P>));
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              pl.smem);
@@ -602,4 +619,55 @@ extern "C" int lstmp_infer_f32(const float* x, const float* w_cat,
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The launch plan for these widths on the current device, for the f32
+// kernel (bf16 = 0) or the bf16 one (bf16 = 1): out[0..9] =
+// grid, cells per CTA, projection columns per CTA, gate-slice stride,
+// projection-slice stride, dynamic shared memory bytes, weights resident
+// (1) or read from device memory (0), SM count, the cells' bias and
+// peepholes in shared memory (1) or not, their c state in shared memory
+// (1) or not. Returns a CUDA error code.
+extern "C" int lstmp_infer_plan(int S, int I, int C, int R, int bf16,
+                                int* out) {
+  Plan pl;
+  const cudaError_t err = make_plan(S, I, C, R, bf16 != 0, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[10] = {pl.grid, pl.ncell, pl.nq, pl.wld, pl.qld, pl.smem,
+                     pl.resident, pl.sms, pl.cst_smem, pl.c_smem};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Runs the T-step recurrence on `stream` as one cooperative launch: no
+// synchronisation, no allocation. x [T, S, I] time-major; c holds c0 on
+// entry and the final c on return; m is [S, C] scratch; r_out [T, S, R];
+// bar is one unsigned of scratch for the grid barrier, zeroed on `stream`
+// here before the launch (a call's own: concurrent calls need their own).
+// Returns a CUDA error code (0 on success): a grid that cannot be
+// co-resident is refused, never run.
+extern "C" int lstmp_infer_f32(const float* x, const float* w_cat,
+                               const float* bias, const float* peep,
+                               const float* wrm_t, const float* r0,
+                               float* c, float* m, float* r_out,
+                               unsigned* bar, int T, int S, int I, int C,
+                               int R, float cell_clip, void* stream) {
+  return infer<tc::F32>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
+                      T, S, I, C, R, cell_clip, stream);
+}
+
+// K5 in bf16 (the --bf16 cross-validation pass): the arguments of
+// lstmp_infer_f32; the weights are held in shared memory as bf16 and every
+// operand of a product is rounded to bf16 at use, the sums, the state and
+// the outputs stay f32.
+extern "C" int lstmp_infer_bf16(const float* x, const float* w_cat,
+                                const float* bias, const float* peep,
+                                const float* wrm_t, const float* r0,
+                                float* c, float* m, float* r_out,
+                                unsigned* bar, int T, int S, int I, int C,
+                                int R, float cell_clip, void* stream) {
+  return infer<tc::Bf16>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
+                       T, S, I, C, R, cell_clip, stream);
 }

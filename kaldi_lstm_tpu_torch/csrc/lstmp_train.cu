@@ -1,5 +1,6 @@
-// LSTMP training forward with residuals (K1) and its BPTT backward (K2),
-// float32 throughout with float32 accumulation.
+// LSTMP training forward with residuals (K1) and its BPTT backward (K2):
+// float32 throughout with float32 accumulation (the _f32 entry points),
+// or with bf16 products (the _bf16 entry points, below).
 //
 // K1 replaces kaldi_lstm_tpu/ops/lstm_pallas.py::_fwd_kernel. Over T steps
 // (gate order g, i, f, o; Kaldi weight orientation):
@@ -90,6 +91,19 @@
 // bwd_cell's dm product (2 N R C = 4.2 GFLOP) and the serial chain of 2T
 // launches.
 //
+// bf16 (the _bf16 entry points; precision.cuh): the same launches, with
+// every product on tc_gemm.cuh's bf16 mode, which rounds x, Wx, r_{t-1},
+// Wr, m = tanh(c) o and Wrm (K1), and dgifo, Wr, dxw, x, Wx, r_prev,
+// dr_total and h o (K2) to bf16 as each fragment is built, where
+// kaldi_lstm_tpu/ops/lstm_pallas.py casts them before its dots; K1 writes
+// the gate residual gifo in bf16 (half the bytes), which K2 reads; K2's
+// dm product on the CUDA cores rounds dr_total and Wrm at use. The gate
+// math, c, r, dgifo, dbias and the peephole sums stay f32. At the
+// flagship shape the products' bound drops to 0.023 ms (K1, 22.3 GFLOP at
+// 989 TFLOP/s) and 0.040 ms plus dm's 0.063 ms on the CUDA cores (K2).
+// The tiles, the f32 staging and the launch schedule are the f32
+// kernels'; bf16 operands in shared memory and wgmma are later work.
+//
 // Built with nvcc into a shared library with a plain C entry point per
 // kernel, loaded by kaldi_lstm_tpu_torch/ops/lstm_train.py through ctypes.
 
@@ -118,8 +132,8 @@ __device__ __forceinline__ float sigmoid_f(float v) {
 constexpr int kGateBN = 64;                // columns of a gate tile
 constexpr int kGateCells = kGateBN / 4;    // cells per gate tile
 
-template <int BM, int BN, bool AK, bool BK>
-using TileGemm = tc::Gemm<BM, BN, 2, 2, AK, BK>;
+template <int BM, int BN, bool AK, bool BK, class P = tc::F32>
+using TileGemm = tc::Gemm<BM, BN, 2, 2, AK, BK, P>;
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -157,10 +171,10 @@ struct XwArgs {
   int N, I, C4;
 };
 
-template <bool VA, bool VB>
+template <bool VA, bool VB, class P>
 __global__ void __launch_bounds__(TileGemm<64, 64, true, true>::kThreads)
 xw_tc_kernel(XwArgs a) {
-  using G = TileGemm<64, 64, true, true>;
+  using G = TileGemm<64, 64, true, true, P>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
@@ -205,24 +219,26 @@ xw_tc_kernel(XwArgs a) {
 // o on the clipped c, and writes gifo_t [S, 4C] in g|i|f|o blocks,
 // c_t [S, C] and m [S, C] = tanh(c_t) o. The pairs' xw_t, c_{t-1} and
 // peepholes do not depend on the product: they are loaded into
-// registers before the mainloop, which hides their latency.
+// registers before the mainloop, which hides their latency. gifo_t is
+// written in P's Store type (bf16 under tc::Bf16).
+template <class P>
 struct GateArgs {
   const float* r_prev;    // [S, R]
   const float* wr_perm;   // [4 Cp, R]
   const float* xw_t;      // [S, 4C]
   const float* c_prev;    // [S, C]
   const float* peep;      // [3, C]: i, f, o
-  float* gifo_t;
+  typename P::Store* gifo_t;
   float* c_t;
   float* m;
   int S, R, C, Cp;
   float cell_clip;
 };
 
-template <int BM, bool VA, bool VB>
+template <int BM, bool VA, bool VB, class P>
 __global__ void __launch_bounds__(TileGemm<BM, kGateBN, true, true>::kThreads)
-gates_tc_kernel(GateArgs a) {
-  using G = TileGemm<BM, kGateBN, true, true>;
+gates_tc_kernel(GateArgs<P> a) {
+  using G = TileGemm<BM, kGateBN, true, true, P>;
   constexpr int kRows = G::kThreads / kGateCells;   // tile rows a round
   constexpr int kPairs = BM / kRows;                // pairs per thread
   extern __shared__ float4 smem4[];
@@ -307,11 +323,11 @@ gates_tc_kernel(GateArgs a) {
                              : (cn > a.cell_clip ? a.cell_clip : cn);
     }
     const float o = sigmoid_f(xq[p][3] + row[3 * kGateCells] + cn * po);
-    float* gr = a.gifo_t + (size_t)s * C4 + cell;
-    gr[0] = g;
-    gr[a.C] = i;
-    gr[2 * (size_t)a.C] = f;
-    gr[3 * (size_t)a.C] = o;
+    typename P::Store* gr = a.gifo_t + (size_t)s * C4 + cell;
+    tc::store(gr, g);
+    tc::store(gr + a.C, i);
+    tc::store(gr + 2 * (size_t)a.C, f);
+    tc::store(gr + 3 * (size_t)a.C, o);
     a.c_t[idx] = cn;
     a.m[idx] = tanhf(cn) * o;
   }
@@ -328,11 +344,13 @@ gates_tc_kernel(GateArgs a) {
 // int8 or null; dc [S, C] in: gradient into c_t from step t+1, out: into
 // c_{t-1}. Out: dgifo_t [S, 4C] pre-activation gradients, drt_t [S, R]
 // dr_total, ho_t [S, C] = tanh(c_t) o, and with a mask dxw_t [S, 4C] =
-// dgifo_t * mask_t * inv_keep.
+// dgifo_t * mask_t * inv_keep. gifo_t is in P's Store type; under
+// tc::Bf16 the dm product reads dr_total and wrm rounded to bf16.
+template <class P>
 __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
                                 const float* __restrict__ drp, int ndrp,
                                 const float* __restrict__ wrm,
-                                const float* __restrict__ gifo_t,
+                                const typename P::Store* __restrict__ gifo_t,
                                 const float* __restrict__ c_t,
                                 const float* __restrict__ c_prev,
                                 const float* __restrict__ peep,
@@ -369,14 +387,14 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
         v = g_r_t[o] + dr;
         if (blockIdx.x == 0) drt_t[o] = v;   // one writer per row
       }
-      rows[ss][kk] = v;
+      rows[ss][kk] = tc::at_use<P>(v);
     }
     __syncthreads();
     if (active) {
       const float* w = wrm + (size_t)k0 * C + j;
       #pragma unroll 4
       for (int kk = 0; kk < kn; ++kk) {
-        dm = fmaf(rows[sl][kk], *w, dm);
+        dm = fmaf(rows[sl][kk], tc::at_use<P>(*w), dm);
         w += C;
       }
     }
@@ -385,11 +403,11 @@ __global__ void bwd_cell_kernel(const float* __restrict__ g_r_t,
   if (!active) return;
 
   const size_t idx = (size_t)s * C + j;
-  const float* gr = gifo_t + (size_t)s * C4;
-  const float g = gr[j];
-  const float i = gr[C + j];
-  const float f = gr[2 * (size_t)C + j];
-  const float o = gr[3 * (size_t)C + j];
+  const typename P::Store* gr = gifo_t + (size_t)s * C4;
+  const float g = tc::to_f32(gr[j]);
+  const float i = tc::to_f32(gr[C + j]);
+  const float f = tc::to_f32(gr[2 * (size_t)C + j]);
+  const float o = tc::to_f32(gr[3 * (size_t)C + j]);
   const float c = c_t[idx];
   const float cp = c_prev[idx];
   const float h = tanhf(c);
@@ -455,10 +473,10 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int rows,
   }
 }
 
-template <int BM, int BN, bool AK, bool BK, bool VA, bool VB>
+template <int BM, int BN, bool AK, bool BK, bool VA, bool VB, class P>
 __global__ void __launch_bounds__(TileGemm<BM, BN, AK, BK>::kThreads)
 contract_tc_kernel(Contract c) {
-  using G = TileGemm<BM, BN, AK, BK>;
+  using G = TileGemm<BM, BN, AK, BK, P>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
@@ -485,21 +503,22 @@ contract_tc_kernel(Contract c) {
 
 // out = A B over `splits` consecutive ranges of k: out holds `splits`
 // partial products [splits][M][N] (the product itself when splits = 1).
-template <bool AK, bool BK, int BM = 64, int BN = 64>
+template <class P, bool AK, bool BK, int BM = 64, int BN = 64>
 cudaError_t contract(cudaStream_t st, const float* a, int lda,
                      const float* b, int ldb, float* out, int M, int N,
                      int K, int splits) {
-  using G = TileGemm<BM, BN, AK, BK>;
+  using G = TileGemm<BM, BN, AK, BK, P>;
   splits = std::max(1, splits);
   const int ksteps = (K + tc::kBK - 1) / tc::kBK;
   const int per = (ksteps + splits - 1) / splits;
   const Contract c{a, lda, b, ldb, out, M, N, K, per * tc::kBK};
   const bool va = lda % 4 == 0 && aligned16(a);
   const bool vb = ldb % 4 == 0 && aligned16(b);
-  auto kernel = va ? (vb ? contract_tc_kernel<BM, BN, AK, BK, true, true>
-                         : contract_tc_kernel<BM, BN, AK, BK, true, false>)
-                   : (vb ? contract_tc_kernel<BM, BN, AK, BK, false, true>
-                         : contract_tc_kernel<BM, BN, AK, BK, false, false>);
+  auto kernel =
+      va ? (vb ? contract_tc_kernel<BM, BN, AK, BK, true, true, P>
+               : contract_tc_kernel<BM, BN, AK, BK, true, false, P>)
+         : (vb ? contract_tc_kernel<BM, BN, AK, BK, false, true, P>
+               : contract_tc_kernel<BM, BN, AK, BK, false, false, P>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -589,10 +608,10 @@ __global__ void col_reduce_kernel(const float* __restrict__ dgifo,
 
 // Launch helpers: each picks the 16-byte-copy variant where both operands
 // allow it, raises the dynamic shared-memory limit, launches on `st`.
-template <bool VA, bool VB>
+template <bool VA, bool VB, class P>
 cudaError_t launch_xw(cudaStream_t st, const XwArgs& a) {
-  using G = TileGemm<64, 64, true, true>;
-  auto kernel = xw_tc_kernel<VA, VB>;
+  using G = TileGemm<64, 64, true, true, P>;
+  auto kernel = xw_tc_kernel<VA, VB, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -601,21 +620,175 @@ cudaError_t launch_xw(cudaStream_t st, const XwArgs& a) {
   return cudaGetLastError();
 }
 
-template <int BM>
-cudaError_t launch_gates(cudaStream_t st, const GateArgs& a) {
-  using G = TileGemm<BM, kGateBN, true, true>;
+template <int BM, class P>
+cudaError_t launch_gates(cudaStream_t st, const GateArgs<P>& a) {
+  using G = TileGemm<BM, kGateBN, true, true, P>;
   const bool va = a.R % 4 == 0 && aligned16(a.r_prev);
   const bool vb = a.R % 4 == 0 && aligned16(a.wr_perm);
-  auto kernel = va ? (vb ? gates_tc_kernel<BM, true, true>
-                         : gates_tc_kernel<BM, true, false>)
-                   : (vb ? gates_tc_kernel<BM, false, true>
-                         : gates_tc_kernel<BM, false, false>);
+  auto kernel = va ? (vb ? gates_tc_kernel<BM, true, true, P>
+                         : gates_tc_kernel<BM, true, false, P>)
+                   : (vb ? gates_tc_kernel<BM, false, true, P>
+                         : gates_tc_kernel<BM, false, false, P>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BM - 1) / BM, a.Cp / kGateCells);
   kernel<<<grid, G::kThreads, G::kSmemBytes, st>>>(a);
   return cudaGetLastError();
+}
+
+// K1 (see lstmp_train_fwd_f32 below) under precision P.
+template <class P>
+int train_fwd(const float* x, const float* w_gifo_x, const float* w_gifo_r,
+              const float* bias, const float* peep, const float* w_r_m,
+              const float* c0, const float* r0, const int8_t* mask,
+              float inv_keep, typename P::Store* gifo, float* c_out,
+              float* r_out, float* xw, float* wr_perm, float* m, int T,
+              int S, int I, int C, int R, float cell_clip, int gate_bm,
+              void* stream) {
+  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 ||
+      (gate_bm != 32 && gate_bm != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto gates = gate_bm == 64 ? launch_gates<64, P> : launch_gates<32, P>;
+  // r_t [S, R] = m [S, C] w_r_m^T: both operands K-major, 32 x 32 tiles
+  // (128 CTAs at S=256, R=512; 64 x 64 measured slower wherever tried)
+  auto proj = contract<P, true, true, 32, 32>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Cp = (C + kGateCells - 1) / kGateCells * kGateCells;
+  const int C4 = 4 * C;
+  const size_t perm = (size_t)4 * Cp * R;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((perm + 255) / 256, 1024));
+  interleave_gate_rows_kernel<<<blocks, 256, 0, st>>>(w_gifo_r, wr_perm, C,
+                                                      Cp, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const XwArgs xa{x, w_gifo_x, bias, mask, inv_keep, xw, T * S, I, C4};
+  const bool va = I % 4 == 0 && aligned16(x);
+  const bool vb = I % 4 == 0 && aligned16(w_gifo_x);
+  err = va ? (vb ? launch_xw<true, true, P>(st, xa)
+                 : launch_xw<true, false, P>(st, xa))
+           : (vb ? launch_xw<false, true, P>(st, xa)
+                 : launch_xw<false, false, P>(st, xa));
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t g_step = (size_t)S * C4;
+  const size_t c_step = (size_t)S * C;
+  const size_t r_step = (size_t)S * R;
+  for (int t = 0; t < T; ++t) {
+    const GateArgs<P> ga{t == 0 ? r0 : r_out + (t - 1) * r_step, wr_perm,
+                         xw + t * g_step,
+                         t == 0 ? c0 : c_out + (t - 1) * c_step, peep,
+                         gifo + t * g_step, c_out + t * c_step, m, S, R, C,
+                         Cp, cell_clip};
+    err = gates(st, ga);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = proj(st, m, C, w_r_m, C, r_out + t * r_step, S, R, C, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 (see lstmp_train_bwd_f32 below) under precision P.
+template <class P>
+int train_bwd(const float* x, const float* w_gifo_x, const float* w_gifo_r,
+              const float* w_r_m, const float* peep, const float* c0,
+              const float* r0, const typename P::Store* gifo,
+              const float* c_seq, const float* r_seq, const int8_t* mask,
+              float inv_keep, const float* g_r, float* dc, float* dr,
+              float* dgifo, float* drt, float* ho, float* dxw,
+              float* r_prev, float* drp, float* part_wx, float* part_wr,
+              float* part_wrm, float* part_dx, float* dx, float* dwx,
+              float* dwr, float* dwrm, float* dbias, float* dpeep, int T,
+              int S, int I, int C, int R, int sp_dr, int sp_wx, int sp_wr,
+              int sp_wrm, int sp_dx, void* stream) {
+  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 || sp_dr < 1 ||
+      sp_wx < 1 || sp_wr < 1 || sp_wrm < 1 || sp_dx < 1 ||
+      (mask != nullptr) != (dxw != nullptr) ||
+      (sp_wx > 1 && part_wx == nullptr) ||
+      (sp_wr > 1 && part_wr == nullptr) ||
+      (sp_wrm > 1 && part_wrm == nullptr) ||
+      (dx != nullptr && sp_dx > 1 && part_dx == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 block(kCells, kStreams);
+  const int sblocks = (S + kStreams - 1) / kStreams;
+  const dim3 grid_cell((C + kCells - 1) / kCells, sblocks);
+  const size_t C4 = 4 * (size_t)C;
+  const size_t g_step = (size_t)S * C4;
+  const size_t c_step = (size_t)S * C;
+  const size_t r_step = (size_t)S * R;
+  cudaError_t err;
+  for (int t = T - 1; t >= 0; --t) {
+    const float* c_prev = (t == 0) ? c0 : c_seq + (t - 1) * c_step;
+    bwd_cell_kernel<P><<<grid_cell, block, 0, st>>>(
+        g_r + t * r_step, drp, t == T - 1 ? 0 : sp_dr, w_r_m,
+        gifo + t * g_step, c_seq + t * c_step, c_prev, peep,
+        mask ? mask + t * g_step : nullptr, inv_keep, dc, dgifo + t * g_step,
+        drt + t * r_step, ho + t * c_step, dxw ? dxw + t * g_step : nullptr,
+        S, R, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // dr [S, R] = dgifo[t] [S, 4C] Wr [4C, R], split over 4C
+    err = contract<P, true, false>(st, dgifo + t * g_step, 4 * C, w_gifo_r,
+                                   R, drp, S, R, 4 * C, sp_dr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  const int N = T * S;
+  const float* dxw_or_dgifo = dxw ? dxw : dgifo;   // dropout: dx, dWx only
+  err = cudaMemcpyAsync(r_prev, r0, r_step * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess && T > 1) {
+    err = cudaMemcpyAsync(r_prev + r_step, r_seq,
+                          (T - 1) * r_step * sizeof(float),
+                          cudaMemcpyDeviceToDevice, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dWx [4C, I] = dxw^T x
+  err = contract<P, false, false>(st, dxw_or_dgifo, 4 * C, x, I,
+                                  sp_wx > 1 ? part_wx : dwx, 4 * C, I, N,
+                                  sp_wx);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dWr [4C, R] = dgifo^T r_prev
+  err = contract<P, false, false>(st, dgifo, 4 * C, r_prev, R,
+                                  sp_wr > 1 ? part_wr : dwr, 4 * C, R, N,
+                                  sp_wr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dWrm [R, C] = dr_total^T (h o)
+  err = contract<P, false, false>(st, drt, R, ho, C,
+                                  sp_wrm > 1 ? part_wrm : dwrm, R, C, N,
+                                  sp_wrm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  col_reduce_kernel<<<(7 * C + kRedCols - 1) / kRedCols,
+                      kRedCols * kRedRows, 0, st>>>(dgifo, c_seq, c0, dbias,
+                                                    dpeep, N, S, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dx != nullptr) {
+    // dx [N, I] = dxw Wx
+    err = contract<P, true, false>(st, dxw_or_dgifo, 4 * C, w_gifo_x, I,
+                                   sp_dx > 1 ? part_dx : dx, N, I, 4 * C,
+                                   sp_dx);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // the partials of every split product, and dr0 from the last step's
+  auto seg = [](const float* part, float* out, int parts, size_t count) {
+    return Seg{part, out, parts, parts > 1 ? static_cast<int>(count) : 0};
+  };
+  Segs segs{{seg(drp, dr, sp_dr, r_step), seg(part_wx, dwx, sp_wx, C4 * I),
+             seg(part_wr, dwr, sp_wr, C4 * R),
+             seg(part_wrm, dwrm, sp_wrm, (size_t)R * C),
+             seg(part_dx, dx, dx ? sp_dx : 1, (size_t)N * I)}};
+  segs.s[0].count = static_cast<int>(r_step);
+  int most = 0;
+  for (const Seg& sg : segs.s) most = std::max(most, sg.count);
+  const int blocks = std::min((most + 255) / 256, 1024);
+  reduce_parts_kernel<<<dim3(blocks, kSegs), 256, 0, st>>>(segs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -641,48 +814,29 @@ extern "C" int lstmp_train_fwd_f32(const float* x, const float* w_gifo_x,
                                    int T, int S, int I, int C, int R,
                                    float cell_clip, int gate_bm,
                                    void* stream) {
-  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 ||
-      (gate_bm != 32 && gate_bm != 64)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto gates = gate_bm == 64 ? launch_gates<64> : launch_gates<32>;
-  // r_t [S, R] = m [S, C] w_r_m^T: both operands K-major, 32 x 32 tiles
-  // (128 CTAs at S=256, R=512; 64 x 64 measured slower wherever tried)
-  auto proj = contract<true, true, 32, 32>;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Cp = (C + kGateCells - 1) / kGateCells * kGateCells;
-  const int C4 = 4 * C;
-  const size_t perm = (size_t)4 * Cp * R;
-  const int blocks = static_cast<int>(
-      std::min<size_t>((perm + 255) / 256, 1024));
-  interleave_gate_rows_kernel<<<blocks, 256, 0, st>>>(w_gifo_r, wr_perm, C,
-                                                      Cp, R);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return train_fwd<tc::F32>(x, w_gifo_x, w_gifo_r, bias, peep, w_r_m, c0,
+                            r0, mask, inv_keep, gifo, c_out, r_out, xw,
+                            wr_perm, m, T, S, I, C, R, cell_clip, gate_bm,
+                            stream);
+}
 
-  const XwArgs xa{x, w_gifo_x, bias, mask, inv_keep, xw, T * S, I, C4};
-  const bool va = I % 4 == 0 && aligned16(x);
-  const bool vb = I % 4 == 0 && aligned16(w_gifo_x);
-  err = va ? (vb ? launch_xw<true, true>(st, xa)
-                 : launch_xw<true, false>(st, xa))
-           : (vb ? launch_xw<false, true>(st, xa)
-                 : launch_xw<false, false>(st, xa));
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t g_step = (size_t)S * C4;
-  const size_t c_step = (size_t)S * C;
-  const size_t r_step = (size_t)S * R;
-  for (int t = 0; t < T; ++t) {
-    const GateArgs ga{t == 0 ? r0 : r_out + (t - 1) * r_step, wr_perm,
-                      xw + t * g_step, t == 0 ? c0 : c_out + (t - 1) * c_step,
-                      peep, gifo + t * g_step, c_out + t * c_step, m, S, R, C,
-                      Cp, cell_clip};
-    err = gates(st, ga);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = proj(st, m, C, w_r_m, C, r_out + t * r_step, S, R, C, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+// K1 in bf16 (the --bf16 path): the arguments of lstmp_train_fwd_f32, with
+// gifo [T, S, 4C] in bfloat16; every product rounds its operands to bf16
+// (tc_gemm.cuh's bf16 mode), c_out and r_out stay f32.
+extern "C" int lstmp_train_fwd_bf16(const float* x, const float* w_gifo_x,
+                                    const float* w_gifo_r, const float* bias,
+                                    const float* peep, const float* w_r_m,
+                                    const float* c0, const float* r0,
+                                    const int8_t* mask, float inv_keep,
+                                    __nv_bfloat16* gifo, float* c_out,
+                                    float* r_out, float* xw, float* wr_perm,
+                                    float* m, int T, int S, int I, int C,
+                                    int R, float cell_clip, int gate_bm,
+                                    void* stream) {
+  return train_fwd<tc::Bf16>(x, w_gifo_x, w_gifo_r, bias, peep, w_r_m, c0,
+                             r0, mask, inv_keep, gifo, c_out, r_out, xw,
+                             wr_perm, m, T, S, I, C, R, cell_clip, gate_bm,
+                             stream);
 }
 
 
@@ -712,89 +866,30 @@ extern "C" int lstmp_train_bwd_f32(
     float* dwrm, float* dbias, float* dpeep, int T, int S, int I, int C,
     int R, int sp_dr, int sp_wx, int sp_wr, int sp_wrm, int sp_dx,
     void* stream) {
-  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 || sp_dr < 1 ||
-      sp_wx < 1 || sp_wr < 1 || sp_wrm < 1 || sp_dx < 1 ||
-      (mask != nullptr) != (dxw != nullptr) ||
-      (sp_wx > 1 && part_wx == nullptr) ||
-      (sp_wr > 1 && part_wr == nullptr) ||
-      (sp_wrm > 1 && part_wrm == nullptr) ||
-      (dx != nullptr && sp_dx > 1 && part_dx == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kCells, kStreams);
-  const int sblocks = (S + kStreams - 1) / kStreams;
-  const dim3 grid_cell((C + kCells - 1) / kCells, sblocks);
-  const size_t C4 = 4 * (size_t)C;
-  const size_t g_step = (size_t)S * C4;
-  const size_t c_step = (size_t)S * C;
-  const size_t r_step = (size_t)S * R;
-  cudaError_t err;
-  for (int t = T - 1; t >= 0; --t) {
-    const float* c_prev = (t == 0) ? c0 : c_seq + (t - 1) * c_step;
-    bwd_cell_kernel<<<grid_cell, block, 0, st>>>(
-        g_r + t * r_step, drp, t == T - 1 ? 0 : sp_dr, w_r_m,
-        gifo + t * g_step, c_seq + t * c_step, c_prev, peep,
-        mask ? mask + t * g_step : nullptr, inv_keep, dc, dgifo + t * g_step,
-        drt + t * r_step, ho + t * c_step, dxw ? dxw + t * g_step : nullptr,
-        S, R, C);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // dr [S, R] = dgifo[t] [S, 4C] Wr [4C, R], split over 4C
-    err = contract<true, false>(st, dgifo + t * g_step, 4 * C, w_gifo_r, R,
-                                drp, S, R, 4 * C, sp_dr);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  return train_bwd<tc::F32>(
+      x, w_gifo_x, w_gifo_r, w_r_m, peep, c0, r0, gifo, c_seq, r_seq, mask,
+      inv_keep, g_r, dc, dr, dgifo, drt, ho, dxw, r_prev, drp, part_wx,
+      part_wr, part_wrm, part_dx, dx, dwx, dwr, dwrm, dbias, dpeep, T, S, I,
+      C, R, sp_dr, sp_wx, sp_wr, sp_wrm, sp_dx, stream);
+}
 
-  const int N = T * S;
-  const float* dxw_or_dgifo = dxw ? dxw : dgifo;   // dropout: dx, dWx only
-  err = cudaMemcpyAsync(r_prev, r0, r_step * sizeof(float),
-                        cudaMemcpyDeviceToDevice, st);
-  if (err == cudaSuccess && T > 1) {
-    err = cudaMemcpyAsync(r_prev + r_step, r_seq,
-                          (T - 1) * r_step * sizeof(float),
-                          cudaMemcpyDeviceToDevice, st);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dWx [4C, I] = dxw^T x
-  err = contract<false, false>(st, dxw_or_dgifo, 4 * C, x, I,
-                               sp_wx > 1 ? part_wx : dwx, 4 * C, I, N,
-                               sp_wx);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dWr [4C, R] = dgifo^T r_prev
-  err = contract<false, false>(st, dgifo, 4 * C, r_prev, R,
-                               sp_wr > 1 ? part_wr : dwr, 4 * C, R, N,
-                               sp_wr);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dWrm [R, C] = dr_total^T (h o)
-  err = contract<false, false>(st, drt, R, ho, C,
-                               sp_wrm > 1 ? part_wrm : dwrm, R, C, N,
-                               sp_wrm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  col_reduce_kernel<<<(7 * C + kRedCols - 1) / kRedCols,
-                      kRedCols * kRedRows, 0, st>>>(dgifo, c_seq, c0, dbias,
-                                                    dpeep, N, S, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dx != nullptr) {
-    // dx [N, I] = dxw Wx
-    err = contract<true, false>(st, dxw_or_dgifo, 4 * C, w_gifo_x, I,
-                                sp_dx > 1 ? part_dx : dx, N, I, 4 * C,
-                                sp_dx);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // the partials of every split product, and dr0 from the last step's
-  auto seg = [](const float* part, float* out, int parts, size_t count) {
-    return Seg{part, out, parts, parts > 1 ? static_cast<int>(count) : 0};
-  };
-  Segs segs{{seg(drp, dr, sp_dr, r_step), seg(part_wx, dwx, sp_wx, C4 * I),
-             seg(part_wr, dwr, sp_wr, C4 * R),
-             seg(part_wrm, dwrm, sp_wrm, (size_t)R * C),
-             seg(part_dx, dx, dx ? sp_dx : 1, (size_t)N * I)}};
-  segs.s[0].count = static_cast<int>(r_step);
-  int most = 0;
-  for (const Seg& sg : segs.s) most = std::max(most, sg.count);
-  const int blocks = std::min((most + 255) / 256, 1024);
-  reduce_parts_kernel<<<dim3(blocks, kSegs), 256, 0, st>>>(segs);
-  return static_cast<int>(cudaGetLastError());
+// K2 in bf16 (the --bf16 path): the arguments of lstmp_train_bwd_f32, with
+// gifo in bfloat16 as lstmp_train_fwd_bf16 wrote it; every product rounds
+// its operands to bf16, the gradients come out f32.
+extern "C" int lstmp_train_bwd_bf16(
+    const float* x, const float* w_gifo_x, const float* w_gifo_r,
+    const float* w_r_m, const float* peep, const float* c0, const float* r0,
+    const __nv_bfloat16* gifo, const float* c_seq, const float* r_seq,
+    const int8_t* mask, float inv_keep, const float* g_r, float* dc,
+    float* dr, float* dgifo, float* drt, float* ho, float* dxw,
+    float* r_prev, float* drp, float* part_wx, float* part_wr,
+    float* part_wrm, float* part_dx, float* dx, float* dwx, float* dwr,
+    float* dwrm, float* dbias, float* dpeep, int T, int S, int I, int C,
+    int R, int sp_dr, int sp_wx, int sp_wr, int sp_wrm, int sp_dx,
+    void* stream) {
+  return train_bwd<tc::Bf16>(
+      x, w_gifo_x, w_gifo_r, w_r_m, peep, c0, r0, gifo, c_seq, r_seq, mask,
+      inv_keep, g_r, dc, dr, dgifo, drt, ho, dxw, r_prev, drp, part_wx,
+      part_wr, part_wrm, part_dx, dx, dwx, dwr, dwrm, dbias, dpeep, T, S, I,
+      C, R, sp_dr, sp_wx, sp_wr, sp_wrm, sp_dx, stream);
 }

@@ -1,5 +1,6 @@
 // Fused senone affine + softmax + masked cross-entropy, forward (K3) and
-// backward (K4), float32 in and out, on Hopper's tensor cores.
+// backward (K4), float32 in and out, on Hopper's tensor cores: products
+// float32-accurate (the _f32 entry points) or in bf16 (the _bf16 ones).
 //
 // K3 replaces kaldi_lstm_tpu/ops/xent_pallas.py::_fwd_kernel (:51). For
 // frames r [N, R] and the output layer W [K, R] (Kaldi orientation), b [K]:
@@ -45,6 +46,15 @@
 // from a large bias, and their dr rows are exactly 0. Frames past N and
 // classes past K are masked in the kernels; nothing is padded.
 //
+// bf16 (the _bf16 entry points, the --bf16 path; precision.cuh): the same
+// launches with the logits, dr and dW products on tc_gemm.cuh's bf16 mode,
+// which rounds r and W (the logits), dz and W (dr) and dz and r (dW) to
+// bf16 as it builds each fragment, where kaldi_lstm_tpu/ops/xent_pallas.py
+// casts them before its dots. dz is computed and stored in f32, and db is
+// summed from the f32 dz tiles; lse, the picked logit, the max and its
+// index, and the -1e30 guards are as in f32. The bound of each product
+// drops to 2NKR at 989 TFLOP/s (0.042 ms at the flagship shape).
+//
 // Built with nvcc into a shared library with plain C entry points, loaded
 // by kaldi_lstm_tpu_torch/ops/xent_affine.py through ctypes.
 
@@ -64,9 +74,16 @@ constexpr int kNoIndex = 0x7fffffff;
 // 64 x 32, one CTA per SM (up to 255 registers a thread). dr: 128 x 64,
 // 4 warps, two CTAs per SM. (4 warps of 64 x 64, two 128 x 64 CTAs per
 // SM, or a 4-deep ring ran no faster on an H100.)
-using LogitsGemm = tc::Gemm<128, 128, 2, 4, true, true>;
-using DwGemm = tc::Gemm<128, 128, 2, 4, false, false>;
-using DrGemm = tc::Gemm<128, 64, 2, 2, true, false>;
+template <class P>
+using LogitsGemmP = tc::Gemm<128, 128, 2, 4, true, true, P>;
+template <class P>
+using DwGemmP = tc::Gemm<128, 128, 2, 4, false, false, P>;
+template <class P>
+using DrGemmP = tc::Gemm<128, 64, 2, 2, true, false, P>;
+// (the shapes, threads and shared memory do not depend on P)
+using LogitsGemm = LogitsGemmP<tc::F32>;
+using DwGemm = DwGemmP<tc::F32>;
+using DrGemm = DrGemmP<tc::F32>;
 using LAcc = LogitsGemm::Acc;
 constexpr int kMT = LogitsGemm::kMT;
 constexpr int kNT = LogitsGemm::kNT;
@@ -98,7 +115,7 @@ __device__ __forceinline__ void merge(float& v, int& i, float& s, float v2,
 }
 
 // K3, launch 1. grid (ceil(N / 128), ceil(K / chunk)), 256 threads.
-template <bool VEC>
+template <bool VEC, class P>
 __global__ void __launch_bounds__(LogitsGemm::kThreads)
 xent_fwd_chunk_kernel(const float* __restrict__ r,
                       const float* __restrict__ w,
@@ -198,8 +215,9 @@ xent_fwd_chunk_kernel(const float* __restrict__ r,
 
   const tc::Operand A{r, R, N, R};
   const tc::Operand B{w, R, K, R};
-  LogitsGemm::run<VEC, VEC>(smem, A, B, m0, c_begin, ntiles, epi,
-                            [](const float*, const float*) {});
+  LogitsGemmP<P>::template run<VEC, VEC>(smem, A, B, m0, c_begin, ntiles,
+                                         epi,
+                                         [](const float*, const float*) {});
 
   // merge the 4 lanes of a quad (they share rows), then the warps that
   // share rows, in a fixed order
@@ -286,7 +304,7 @@ __global__ void xent_fwd_combine_kernel(const float* part, int nch, int N,
 
 // K4, launch 1: the logits walk of K3 with a dz epilogue.
 // grid (ceil(N / 128), ceil(K / chunk)), 256 threads.
-template <bool VEC>
+template <bool VEC, class P>
 __global__ void __launch_bounds__(LogitsGemm::kThreads)
 xent_bwd_dz_kernel(const float* __restrict__ r, const float* __restrict__ w,
                    const float* __restrict__ b, const int* __restrict__ ids,
@@ -372,8 +390,9 @@ xent_bwd_dz_kernel(const float* __restrict__ r, const float* __restrict__ w,
 
   const tc::Operand A{r, R, N, R};
   const tc::Operand B{w, R, K, R};
-  LogitsGemm::run<VEC, VEC>(smem, A, B, m0, c_begin, ntiles, epi,
-                            [](const float*, const float*) {});
+  LogitsGemmP<P>::template run<VEC, VEC>(smem, A, B, m0, c_begin, ntiles,
+                                         epi,
+                                         [](const float*, const float*) {});
 }
 
 // Store a finished tile of out [rows, cols] (leading dimension ld).
@@ -403,7 +422,7 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, int ld,
 
 // K4, launch 2: dr [N, R] = dz [N, K] W [K, R].
 // grid (ceil(N / 128), ceil(R / 64)), 128 threads.
-template <bool VEC>
+template <bool VEC, class P>
 __global__ void __launch_bounds__(DrGemm::kThreads)
 xent_bwd_dr_kernel(const float* __restrict__ dz, int ldz,
                    const float* __restrict__ w, float* __restrict__ dr,
@@ -413,7 +432,7 @@ xent_bwd_dr_kernel(const float* __restrict__ dz, int ldz,
   const int m0 = blockIdx.x * DrGemm::kBM, n0 = blockIdx.y * DrGemm::kBN;
   const tc::Operand A{dz, ldz, N, K};
   const tc::Operand B{w, R, R, K};
-  DrGemm::run<true, VEC>(
+  DrGemmP<P>::template run<true, VEC>(
       smem, A, B, m0, n0, 1,
       [&](int, DrGemm::Acc& acc) {
         store_tile<DrGemm>(dr, R, N, R, m0, n0, acc);
@@ -424,7 +443,7 @@ xent_bwd_dr_kernel(const float* __restrict__ dz, int ldz,
 // K4, launch 3: dW [K, R] = dz^T r, and db [K] = sum_n dz in the CTAs of
 // the first column of tiles. grid (ceil(K / 128), ceil(R / 128)), 256
 // threads.
-template <bool VEC>
+template <bool VEC, class P>
 __global__ void __launch_bounds__(DwGemm::kThreads)
 xent_bwd_dw_kernel(const float* __restrict__ dz, int ldz,
                    const float* __restrict__ r, float* __restrict__ dw,
@@ -436,7 +455,7 @@ xent_bwd_dw_kernel(const float* __restrict__ dz, int ldz,
   float db_acc = 0.f;           // class m0 + threadIdx.x, frames in order
   const tc::Operand A{dz, ldz, K, N};
   const tc::Operand B{r, R, R, N};
-  DwGemm::run<true, VEC>(
+  DwGemmP<P>::template run<true, VEC>(
       smem, A, B, m0, n0, 1,
       [&](int, DwGemm::Acc& acc) {
         store_tile<DwGemm>(dw, R, K, R, m0, n0, acc);
@@ -463,6 +482,79 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
+template <class P>
+int xent_fwd(const float* r, const float* w, const float* b,
+             const int* ids, const float* tw, float* lse, float* picked,
+             float* amax, int* aidx, float* part, int N, int R, int K,
+             int Km, int chunk, void* stream) {
+  if (N <= 0 || R <= 0 || K <= 0 || Km <= 0 || chunk <= 0 ||
+      chunk % kBN != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nch = (K + chunk - 1) / chunk;
+  const dim3 grid((N + kBM - 1) / kBM, nch);
+  const int smem = LogitsGemm::kSmemBytes;
+  const bool vec = R % 4 == 0 && aligned16(r) && aligned16(w);
+  auto kernel = vec ? xent_fwd_chunk_kernel<true, P>
+                    : xent_fwd_chunk_kernel<false, P>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, LogitsGemm::kThreads, smem, st>>>(r, w, b, ids, tw, part,
+                                                   N, R, K, Km, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  xent_fwd_combine_kernel<<<(N + kCombineThreads - 1) / kCombineThreads,
+                            kCombineThreads, 0, st>>>(part, nch, N, lse,
+                                                      picked, amax, aidx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class P>
+int xent_bwd(const float* r, const float* w, const float* b,
+             const int* ids, const float* tw, const float* lse,
+             const float* scale, const float* wtot, float* dr, float* dw,
+             float* db, float* dz, int ldz, int N, int R, int K, int Km,
+             int chunk, void* stream) {
+  if (N <= 0 || R <= 0 || K <= 0 || Km <= 0 || chunk <= 0 ||
+      chunk % kBN != 0 || ldz < K || ldz % 4 != 0 || !aligned16(dz)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec_rw = R % 4 == 0 && aligned16(r) && aligned16(w);
+  const int smem_dz = LogitsGemm::kSmemBytes + 3 * kBM * sizeof(float);
+  auto dz_kernel = vec_rw ? xent_bwd_dz_kernel<true, P>
+                          : xent_bwd_dz_kernel<false, P>;
+  cudaError_t err = allow_smem(dz_kernel, smem_dz);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dz_kernel<<<dim3((N + kBM - 1) / kBM, (K + chunk - 1) / chunk),
+              LogitsGemm::kThreads, smem_dz, st>>>(
+      r, w, b, ids, tw, lse, scale, wtot, dz, ldz, N, R, K, Km, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const bool vec_w = R % 4 == 0 && aligned16(w);
+  auto dr_kernel = vec_w ? xent_bwd_dr_kernel<true, P>
+                         : xent_bwd_dr_kernel<false, P>;
+  err = allow_smem(dr_kernel, DrGemm::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dr_kernel<<<dim3((N + DrGemm::kBM - 1) / DrGemm::kBM,
+                   (R + DrGemm::kBN - 1) / DrGemm::kBN), DrGemm::kThreads,
+              DrGemm::kSmemBytes, st>>>(dz, ldz, w, dr, N, R, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const bool vec_r = R % 4 == 0 && aligned16(r);
+  auto dw_kernel = vec_r ? xent_bwd_dw_kernel<true, P>
+                         : xent_bwd_dw_kernel<false, P>;
+  err = allow_smem(dw_kernel, DwGemm::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw_kernel<<<dim3((K + DwGemm::kBM - 1) / DwGemm::kBM,
+                   (R + DwGemm::kBN - 1) / DwGemm::kBN), DwGemm::kThreads,
+              DwGemm::kSmemBytes, st>>>(dz, ldz, r, dw, db, N, R, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K3: two launches. r [N, R], w [K, R], b [K], ids/tw [N, Km]. part:
@@ -475,27 +567,20 @@ extern "C" int xent_affine_fwd_f32(const float* r, const float* w,
                                    float* picked, float* amax, int* aidx,
                                    float* part, int N, int R, int K, int Km,
                                    int chunk, void* stream) {
-  if (N <= 0 || R <= 0 || K <= 0 || Km <= 0 || chunk <= 0 ||
-      chunk % kBN != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nch = (K + chunk - 1) / chunk;
-  const dim3 grid((N + kBM - 1) / kBM, nch);
-  const int smem = LogitsGemm::kSmemBytes;
-  const bool vec = R % 4 == 0 && aligned16(r) && aligned16(w);
-  auto kernel = vec ? xent_fwd_chunk_kernel<true>
-                    : xent_fwd_chunk_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, LogitsGemm::kThreads, smem, st>>>(r, w, b, ids, tw, part,
-                                                   N, R, K, Km, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  xent_fwd_combine_kernel<<<(N + kCombineThreads - 1) / kCombineThreads,
-                            kCombineThreads, 0, st>>>(part, nch, N, lse,
-                                                      picked, amax, aidx);
-  return static_cast<int>(cudaGetLastError());
+  return xent_fwd<tc::F32>(r, w, b, ids, tw, lse, picked, amax, aidx,
+                            part, N, R, K, Km, chunk, stream);
+}
+
+// K3 in bf16 (the --bf16 path): the arguments of xent_affine_fwd_f32; the
+// logits product rounds r and w to bf16 and sums in f32.
+extern "C" int xent_affine_fwd_bf16(const float* r, const float* w,
+                                    const float* b, const int* ids,
+                                    const float* tw, float* lse,
+                                    float* picked, float* amax, int* aidx,
+                                    float* part, int N, int R, int K, int Km,
+                                    int chunk, void* stream) {
+  return xent_fwd<tc::Bf16>(r, w, b, ids, tw, lse, picked, amax, aidx,
+                            part, N, R, K, Km, chunk, stream);
 }
 
 // K4: three launches (dz, dr, dW/db). lse [N] from K3, scale [N] = loss
@@ -509,41 +594,20 @@ extern "C" int xent_affine_bwd_f32(const float* r, const float* w,
                                    float* dr, float* dw, float* db,
                                    float* dz, int ldz, int N, int R, int K,
                                    int Km, int chunk, void* stream) {
-  if (N <= 0 || R <= 0 || K <= 0 || Km <= 0 || chunk <= 0 ||
-      chunk % kBN != 0 || ldz < K || ldz % 4 != 0 || !aligned16(dz)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec_rw = R % 4 == 0 && aligned16(r) && aligned16(w);
-  const int smem_dz = LogitsGemm::kSmemBytes + 3 * kBM * sizeof(float);
-  auto dz_kernel = vec_rw ? xent_bwd_dz_kernel<true>
-                          : xent_bwd_dz_kernel<false>;
-  cudaError_t err = allow_smem(dz_kernel, smem_dz);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dz_kernel<<<dim3((N + kBM - 1) / kBM, (K + chunk - 1) / chunk),
-              LogitsGemm::kThreads, smem_dz, st>>>(
-      r, w, b, ids, tw, lse, scale, wtot, dz, ldz, N, R, K, Km, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return xent_bwd<tc::F32>(r, w, b, ids, tw, lse, scale, wtot, dr, dw,
+                            db, dz, ldz, N, R, K, Km, chunk, stream);
+}
 
-  const bool vec_w = R % 4 == 0 && aligned16(w);
-  auto dr_kernel = vec_w ? xent_bwd_dr_kernel<true>
-                         : xent_bwd_dr_kernel<false>;
-  err = allow_smem(dr_kernel, DrGemm::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dr_kernel<<<dim3((N + DrGemm::kBM - 1) / DrGemm::kBM,
-                   (R + DrGemm::kBN - 1) / DrGemm::kBN), DrGemm::kThreads,
-              DrGemm::kSmemBytes, st>>>(dz, ldz, w, dr, N, R, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const bool vec_r = R % 4 == 0 && aligned16(r);
-  auto dw_kernel = vec_r ? xent_bwd_dw_kernel<true>
-                         : xent_bwd_dw_kernel<false>;
-  err = allow_smem(dw_kernel, DwGemm::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dw_kernel<<<dim3((K + DwGemm::kBM - 1) / DwGemm::kBM,
-                   (R + DwGemm::kBN - 1) / DwGemm::kBN), DwGemm::kThreads,
-              DwGemm::kSmemBytes, st>>>(dz, ldz, r, dw, db, N, R, K);
-  return static_cast<int>(cudaGetLastError());
+// K4 in bf16 (the --bf16 path): the arguments of xent_affine_bwd_f32; the
+// logits, dr and dW products round their operands to bf16, db is summed
+// from the f32 dz.
+extern "C" int xent_affine_bwd_bf16(const float* r, const float* w,
+                                    const float* b, const int* ids,
+                                    const float* tw, const float* lse,
+                                    const float* scale, const float* wtot,
+                                    float* dr, float* dw, float* db,
+                                    float* dz, int ldz, int N, int R, int K,
+                                    int Km, int chunk, void* stream) {
+  return xent_bwd<tc::Bf16>(r, w, b, ids, tw, lse, scale, wtot, dr, dw,
+                            db, dz, ldz, N, R, K, Km, chunk, stream);
 }

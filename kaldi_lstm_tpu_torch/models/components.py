@@ -9,6 +9,13 @@ follows the Kaldi token format byte for byte, so each package reads the
 other's model files.
 
 Batch layout is stream-major [S, T, D].
+
+The matmul components (AffineTransform and the LSTMs) carry a
+``matmul_dtype``, the reference's ``set_matmul_dtype`` made a property
+of the net (``Nnet.set_matmul_dtype``) instead of a module global: None
+for float32 products, torch.bfloat16 for products whose operands are
+rounded to bf16 and summed in float32 (the ``--bf16`` training path).
+Each component passes it to its ops explicitly.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import (
     LstmState,
     init_lstm_params,
     lstm_scan,
+    rounded,
     zero_state,
 )
 from kaldi_lstm_tpu_torch.ops.lstm_infer import lstm_infer, needs_grad
@@ -385,11 +393,35 @@ class Dropout(Component):
         return {}
 
 
+class _RoundedAffine(torch.autograd.Function):
+    """y = x W^T + b over [N, in] rows with x and W rounded to
+    ``compute_dtype`` and the product in float32, differentiated as the
+    JAX package's autodiff differentiates its bf16 affine
+    (components.py, AffineTransform.apply): dx = round(g W_r) and dW =
+    round(g^T x_r), each an f32 product of the unrounded cotangent g with
+    the other rounded operand, rounded to the compute dtype (the
+    transpose of the forward's casts); db = sum of g over the rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, compute_dtype):
+        xr, wr = rounded(x, compute_dtype), rounded(w, compute_dtype)
+        ctx.save_for_backward(xr, wr)
+        ctx.compute_dtype = compute_dtype
+        return xr @ wr.T + b
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        dt = ctx.compute_dtype
+        return (rounded(g @ wr, dt), rounded(g.T @ xr, dt), g.sum(0), None)
+
+
 @register
 class AffineTransform(Component):
     """y = x W^T + b with W [out, in] (Kaldi orientation). The senone
     output layer is one plain matrix product (the JAX package leaves it
-    to XLA too)."""
+    to XLA too); with a ``matmul_dtype`` its operands are rounded to it
+    (``_RoundedAffine``)."""
 
     token = "<AffineTransform>"
     updatable = True
@@ -399,6 +431,7 @@ class AffineTransform(Component):
         self.learn_rate_coef = 1.0
         self.bias_learn_rate_coef = 1.0
         self.max_norm = 0.0
+        self.matmul_dtype = None
 
     def init_params(self, generator, device=None, param_stddev: float = 0.1,
                     bias_mean: float = 0.0, bias_range: float = 0.0):
@@ -410,8 +443,12 @@ class AffineTransform(Component):
         return {"linearity": w.to(device), "bias": b.to(device)}
 
     def apply(self, params, x, state=None):
-        return torch.nn.functional.linear(x, params["linearity"],
-                                          params["bias"]), state
+        w, b = params["linearity"], params["bias"]
+        if self.matmul_dtype is None:
+            return torch.nn.functional.linear(x, w, b), state
+        y = _RoundedAffine.apply(x.reshape(-1, x.shape[-1]), w, b,
+                                 self.matmul_dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1]), state
 
     def read_data(self, inp, device=None):
         while kio.peek_token(inp.stream) in ("<LearnRateCoef>",
@@ -486,6 +523,7 @@ class _LstmBase(Component):
         self.learn_rate_coef = 1.0
         # forward-connection (gate pre-activation) dropout rate
         self.dropout_rate = 0.0
+        self.matmul_dtype = None
 
     def _dropout_mask(self, rng, x):
         """Bool KEEP mask [*, *, 4C] (layout-shaped) drawn from the
@@ -506,8 +544,10 @@ class _LstmBase(Component):
         ``lstm_train`` (K1/K2 on CUDA), an inference call to
         ``lstm_infer`` (K5 on CUDA); each takes its plain version for a
         CPU tensor. ``advance_mask`` runs the eager scan on the CPU only.
+        Every path takes the component's ``matmul_dtype``.
         """
         keep = 1.0 - self.dropout_rate
+        dt = self.matmul_dtype
         if advance_mask is not None:
             if x.device.type == "cuda":
                 raise NotImplementedError(
@@ -516,6 +556,7 @@ class _LstmBase(Component):
             gate_mult = None if dropout_mask is None else \
                 dropout_mask.to(x.dtype) / keep
             return lstm_scan(params, x, state, self.cell_clip,
+                             compute_dtype=dt,
                              gate_dropout_mask=gate_mult,
                              time_major=time_major,
                              advance_mask=advance_mask)
@@ -523,9 +564,9 @@ class _LstmBase(Component):
             return lstm_train(params, x, state, self.cell_clip,
                               time_major=time_major,
                               gate_keep_mask=dropout_mask, keep_prob=keep,
-                              need_input_grad=input_grad)
+                              need_input_grad=input_grad, compute_dtype=dt)
         return lstm_infer(params, x, state, self.cell_clip,
-                          time_major=time_major)
+                          time_major=time_major, compute_dtype=dt)
 
     def init_params(self, generator, device=None) -> LstmParams:
         return init_lstm_params(generator, self.input_dim, self.cell_dim,

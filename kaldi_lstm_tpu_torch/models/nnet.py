@@ -18,6 +18,7 @@ import torch
 from kaldi_lstm_tpu_torch.io import kaldi_io as kio
 from kaldi_lstm_tpu_torch.models import components as comp
 from kaldi_lstm_tpu_torch.models.components import Component, Softmax
+from kaldi_lstm_tpu_torch.ops.lstm_infer import check_compute_dtype
 
 ParamsList = Any  # tuple of per-component params
 StatesList = Any  # tuple of per-component states (None if stateless)
@@ -42,6 +43,16 @@ class Nnet:
 
     def append(self, component: Component) -> None:
         self.components.append(component)
+
+    def set_matmul_dtype(self, dtype) -> None:
+        """Set every matmul component's ``matmul_dtype`` (the reference's
+        global ``set_matmul_dtype``, here a property of the net): None
+        for float32 products, torch.bfloat16 for bf16 operands with
+        float32 sums."""
+        check_compute_dtype(dtype, "set_matmul_dtype")
+        for c in self.components:
+            if hasattr(c, "matmul_dtype"):
+                c.matmul_dtype = dtype
 
     def __len__(self):
         return len(self.components)

@@ -12,14 +12,20 @@ from __future__ import annotations
 from kaldi_lstm_tpu_torch.ops import lstm_infer, lstm_stack, lstm_train
 from kaldi_lstm_tpu_torch.ops import xent_affine
 
-# name -> (module, global): launches under the kernel's entry-point name,
-# plain-version calls under "plain.<module>"
+# name -> (module, global): launches under the kernel's entry-point name
+# (the float32 entry points; the bf16 ones of the --bf16 path under
+# "<name>_bf16"), plain-version calls under "plain.<module>"
 _COUNTERS = {
     "lstmp_train_fwd": (lstm_train, "FWD_LAUNCHES"),
     "lstmp_train_bwd": (lstm_train, "BWD_LAUNCHES"),
     "xent_affine_fwd": (xent_affine, "FWD_LAUNCHES"),
     "xent_affine_bwd": (xent_affine, "BWD_LAUNCHES"),
     "lstmp_infer": (lstm_infer, "LAUNCHES"),
+    "lstmp_train_fwd_bf16": (lstm_train, "FWD_BF16_LAUNCHES"),
+    "lstmp_train_bwd_bf16": (lstm_train, "BWD_BF16_LAUNCHES"),
+    "xent_affine_fwd_bf16": (xent_affine, "FWD_BF16_LAUNCHES"),
+    "xent_affine_bwd_bf16": (xent_affine, "BWD_BF16_LAUNCHES"),
+    "lstmp_infer_bf16": (lstm_infer, "BF16_LAUNCHES"),
     "lstmp_stack_fwd2": (lstm_stack, "FWD2_LAUNCHES"),
     "lstmp_stack_infer2": (lstm_stack, "INFER2_LAUNCHES"),
     "plain.lstm_train": (lstm_train, "PLAIN_CALLS"),

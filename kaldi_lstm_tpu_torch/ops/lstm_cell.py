@@ -98,14 +98,20 @@ def _straight_through_clip(x: torch.Tensor, limit: float) -> torch.Tensor:
     return x + (torch.clamp(x, -limit, limit) - x).detach()
 
 
+def rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype`` (to nearest even) and back to
+    its own dtype, as a product with that compute dtype reads it; ``t``
+    itself when ``compute_dtype`` is None."""
+    if compute_dtype is None:
+        return t
+    return t.to(compute_dtype).to(t.dtype)
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
     """a @ w^T. With ``compute_dtype`` the inputs are rounded to it and
     the product is taken in float32 — matmul inputs in the compute dtype
     with float32 accumulation and a float32 result."""
-    if compute_dtype is not None:
-        a = a.to(compute_dtype).float()
-        w = w.to(compute_dtype).float()
-    return a @ w.T
+    return rounded(a, compute_dtype) @ rounded(w, compute_dtype).T
 
 
 def lstm_step(params: LstmParams, state: LstmState, xw_t: torch.Tensor,

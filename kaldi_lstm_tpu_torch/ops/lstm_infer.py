@@ -15,9 +15,18 @@ The launch is cooperative: the card refuses a grid that cannot be
 co-resident (the wrapper raises) instead of hanging at a grid barrier,
 and work that another process or stream holds on the SMs delays it.
 
-``LAUNCHES`` counts the CUDA kernel launches made (one per call);
-``PLAIN_CALLS`` counts the calls that took the plain version. A caller
-can zero both before a run and read them after it.
+bf16 (``compute_dtype=torch.bfloat16``, the ``--bf16`` cross-validation
+pass): the JAX package's primal under ``set_matmul_dtype(jnp.bfloat16)``
+rounds x, Wx, r_{t-1}, Wr, tanh(c) o and Wrm to bf16 before its dots and
+sums in float32. The ``lstmp_infer_bf16`` entry point holds the weight
+slices in shared memory as bf16 and rounds each staged operand at use;
+the plain versions (``lstm_cell.lstm_scan`` and
+``lstm_infer_sliced_plain``) round the same operands.
+
+``LAUNCHES`` counts the CUDA kernel launches of the float32 entry point
+(one per call), ``BF16_LAUNCHES`` those of the bf16 one; ``PLAIN_CALLS``
+counts the calls that took the plain version. A caller can zero them
+before a run and read them after it.
 
 ``k5_plan`` and ``lstm_infer_sliced_plain`` spell out in torch how the
 kernel deals the cells and projection columns to its CTAs and splits
@@ -31,9 +40,15 @@ import ctypes
 
 import torch
 
-from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState, lstm_scan
+from kaldi_lstm_tpu_torch.ops.lstm_cell import (
+    LstmParams,
+    LstmState,
+    lstm_scan,
+    rounded,
+)
 
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _MAX_STREAMS = 65535 * 8  # the limit the wrapper has always enforced
@@ -44,35 +59,52 @@ H100_SMS = 132
 
 
 def reset_counts() -> None:
-    global LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, BF16_LAUNCHES, PLAIN_CALLS
     LAUNCHES = 0
+    BF16_LAUNCHES = 0
     PLAIN_CALLS = 0
 
 
-def _entries():
+def check_compute_dtype(compute_dtype, op: str) -> bool:
+    """True for bf16 products (torch.bfloat16), False for float32 ones
+    (None); any other dtype raises."""
+    if compute_dtype is None:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise TypeError(f"{op}: compute_dtype must be None or torch.bfloat16, "
+                    f"got {compute_dtype}")
+
+
+def _entries(bf16: bool = False):
+    """The kernel's C entry point (float32 or bf16) and the planner."""
     from kaldi_lstm_tpu_torch.ops import _build
     lib = _build.load("lstmp_infer")
-    fn, plan = lib.lstmp_infer_f32, lib.lstmp_infer_plan
+    fn = lib.lstmp_infer_bf16 if bf16 else lib.lstmp_infer_f32
+    plan = lib.lstmp_infer_plan
     p, i = ctypes.c_void_p, ctypes.c_int
     if fn.argtypes is None:
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     if plan.argtypes is None:
-        plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = ctypes.c_int
     return fn, plan
 
 
-def device_plan(S: int, I: int, C: int, R: int, device=None) -> dict:
-    """The kernel's launch plan on the card for these widths: grid,
-    cells and projection columns per CTA, dynamic shared memory, whether
-    the weights are resident, the SM count, and whether the cells' bias
-    and peepholes and their c state sit in shared memory."""
+def device_plan(S: int, I: int, C: int, R: int, device=None,
+                bf16: bool = False) -> dict:
+    """The kernel's launch plan on the card for these widths (for the
+    bf16 entry point with ``bf16``, whose weight slices take half the
+    shared memory): grid, cells and projection columns per CTA, dynamic
+    shared memory, whether the weights are resident, the SM count, and
+    whether the cells' bias and peepholes and their c state sit in
+    shared memory."""
     _, plan = _entries()
     out = (ctypes.c_int * 10)()
     with torch.cuda.device(device):
-        err = plan(S, I, C, R, out)
+        err = plan(S, I, C, R, int(bf16), out)
     if err != 0:
         raise RuntimeError(f"lstm_infer: planning failed with CUDA error "
                            f"{err}")
@@ -132,23 +164,27 @@ def _sliced_product(a: torch.Tensor, w: torch.Tensor, nquad: int
 
 def lstm_infer_sliced_plain(params: LstmParams, x_tm: torch.Tensor,
                             c0: torch.Tensor, r0: torch.Tensor,
-                            cell_clip: float = 50.0, sms: int = H100_SMS
+                            cell_clip: float = 50.0, sms: int = H100_SMS,
+                            compute_dtype=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's decomposition in torch: per step, a gates phase in
     which each of the ``k5_plan`` CTAs computes its cells' four gates
     from [x_t | r_{t-1}] and its columns of [Wx^T; Wr^T], then (after
     the grid barrier) a projection phase in which each CTA computes its
     columns of r_t from all of m and its columns of Wrm^T; each CTA's
-    sums split as ``_sliced_product``. x [T, S, I]; returns (r [T, S,
-    R], final c)."""
+    sums split as ``_sliced_product``. With a ``compute_dtype`` the
+    operands of both products ([x_t | r_{t-1}], m and the weights) are
+    rounded to it. x [T, S, I]; returns (r [T, S, R], final c)."""
     T, S, _ = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     grid, ncell, nq = k5_plan(C, R, sms)
     w_cat, bias, peep, wrm_t = _kernel_operands(params)
+    w_cat = rounded(w_cat, compute_dtype)
+    wrm_t = rounded(wrm_t, compute_dtype)
     c, r = c0.clone(), r0
     r_out = x_tm.new_empty((T, S, R))
     for t in range(T):
-        a = torch.cat([x_tm[t], r], dim=1)
+        a = rounded(torch.cat([x_tm[t], r], dim=1), compute_dtype)
         m = torch.empty_like(c)
         for b in range(grid):
             j = torch.arange(min(C, b * ncell), min(C, (b + 1) * ncell))
@@ -167,6 +203,7 @@ def lstm_infer_sliced_plain(params: LstmParams, x_tm: torch.Tensor,
             o = torch.sigmoid(pre[..., 3] + cn * peep[2, j])
             c[:, j] = cn
             m[:, j] = torch.tanh(cn) * o
+        m = rounded(m, compute_dtype)
         for b in range(grid):
             q = torch.arange(min(R, b * nq), min(R, (b + 1) * nq))
             if len(q):
@@ -227,34 +264,41 @@ def _kernel_operands(params: LstmParams) -> tuple[torch.Tensor, ...]:
 
 
 def lstm_infer(params: LstmParams, x: torch.Tensor, state: LstmState,
-               cell_clip: float = 50.0, time_major: bool = False
-               ) -> tuple[torch.Tensor, LstmState]:
+               cell_clip: float = 50.0, time_major: bool = False,
+               compute_dtype=None) -> tuple[torch.Tensor, LstmState]:
     """Inference forward of one LSTMP layer over a [S, T, I] chunk
-    ([T, S, I] with ``time_major``) from the carried ``state``.
+    ([T, S, I] with ``time_major``) from the carried ``state``, with the
+    products' operands in ``compute_dtype`` (None or torch.bfloat16).
     Returns (r_out with x's layout, final state)."""
     global PLAIN_CALLS
+    check_compute_dtype(compute_dtype, "lstm_infer")
     if needs_grad(params, x, state):
         # the inference kernel keeps no residuals: a gradient needs the
         # training kernels (K1 forward, K2 backward)
         from kaldi_lstm_tpu_torch.ops.lstm_train import lstm_train
-        return lstm_train(params, x, state, cell_clip, time_major=time_major)
+        return lstm_train(params, x, state, cell_clip, time_major=time_major,
+                          compute_dtype=compute_dtype)
     if x.device.type == "cpu":
         PLAIN_CALLS += 1
-        return lstm_scan(params, x, state, cell_clip, time_major=time_major)
+        return lstm_scan(params, x, state, cell_clip,
+                         compute_dtype=compute_dtype, time_major=time_major)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_infer: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"lstm_infer: x must be 3-D, got {tuple(x.shape)}")
     x_tm = x if time_major else x.transpose(0, 1)
-    r_out, final = lstm_infer_cuda(params, x_tm, state, cell_clip)
+    r_out, final = lstm_infer_cuda(params, x_tm, state, cell_clip,
+                                   compute_dtype)
     return (r_out if time_major else r_out.transpose(0, 1)), final
 
 
 def lstm_infer_cuda(params: LstmParams, x_tm: torch.Tensor,
-                    state: LstmState, cell_clip: float = 50.0
-                    ) -> tuple[torch.Tensor, LstmState]:
-    """K5 on the card over x [T, S, I]: (r [T, S, R], final state)."""
-    global LAUNCHES
+                    state: LstmState, cell_clip: float = 50.0,
+                    compute_dtype=None) -> tuple[torch.Tensor, LstmState]:
+    """K5 on the card over x [T, S, I] (``lstmp_infer_bf16`` when
+    ``compute_dtype`` is torch.bfloat16): (r [T, S, R], final state)."""
+    global LAUNCHES, BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype, "lstm_infer")
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     dev = x_tm.device
@@ -271,7 +315,7 @@ def lstm_infer_cuda(params: LstmParams, x_tm: torch.Tensor,
     m = torch.empty((S, C), dtype=torch.float32, device=dev)
     r_out = torch.empty((T, S, R), dtype=torch.float32, device=dev)
     bar = torch.empty(1, dtype=torch.int32, device=dev)   # barrier count
-    fn, _ = _entries()
+    fn, _ = _entries(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_c.data_ptr(), w_cat.data_ptr(), bias.data_ptr(),
@@ -281,5 +325,8 @@ def lstm_infer_cuda(params: LstmParams, x_tm: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"lstm_infer: CUDA launch failed with error "
                            f"{err}")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return r_out, LstmState(c=c, r=r_out[T - 1])

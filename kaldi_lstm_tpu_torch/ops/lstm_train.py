@@ -38,10 +38,25 @@ of the per-step dr added in a fixed order, then the four frame-axis
 products from the materialised operands); the CPU tests hold it
 against the JAX package's Pallas kernel.
 
+bf16 (``compute_dtype=torch.bfloat16``, the ``--bf16`` training path):
+the JAX package's ``set_matmul_dtype(jnp.bfloat16)`` contract of
+``lstm_pallas.py`` (``_prepare``, ``_cell_forward``, ``_bwd_kernel``).
+Every product rounds its operands to bf16 and sums in float32: x, Wx,
+r_{t-1}, Wr, tanh(c) o and Wrm in K1; dr_total and Wrm (dm), dgifo and
+Wr (dr), dxw and x (dWx), dgifo and r_{t-1} (dWr), dr_total and h o
+(dWrm), dxw and Wx (dx) in K2. K1 stores the gate residual ``gifo`` in
+bf16, which K2 reads; the gate math, c, r, dbias and the peephole sums
+stay float32. On a CUDA tensor it launches the ``_bf16`` entry points;
+the plain versions take the same argument and round the same operands
+at the same points (``lstm_cell.rounded``), never a bf16 matmul, which
+would round its output too.
+
 Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
-launches (K1: ``fwd_launches``, 2 per step + 2; K2: ``bwd_launches``,
-2 per step + 5, + 1 with dx); ``PLAIN_CALLS`` counts the calls of either
-half that took the plain version. ``reset_counts`` zeroes all three.
+launches of the float32 entry points (K1: ``fwd_launches``, 2 per step
++ 2; K2: ``bwd_launches``, 2 per step + 5, + 1 with dx),
+``FWD_BF16_LAUNCHES`` and ``BWD_BF16_LAUNCHES`` those of the bf16 ones
+(the same numbers a call); ``PLAIN_CALLS`` counts the calls of either
+half that took the plain version. ``reset_counts`` zeroes them all.
 """
 
 from __future__ import annotations
@@ -50,29 +65,42 @@ import ctypes
 
 import torch
 
-from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
+from kaldi_lstm_tpu_torch.ops.lstm_cell import (
+    LstmParams,
+    LstmState,
+    rounded,
+)
 from kaldi_lstm_tpu_torch.ops.lstm_infer import (
     H100_SMS,
     _check,
+    check_compute_dtype,
     check_lstm_operands,
 )
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_BF16_LAUNCHES = 0
+BWD_BF16_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
 def reset_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, PLAIN_CALLS
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
+    global PLAIN_CALLS
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
+    FWD_BF16_LAUNCHES = 0
+    BWD_BF16_LAUNCHES = 0
     PLAIN_CALLS = 0
 
 
-def _entries():
+def _entries(bf16: bool = False):
+    """K1's and K2's C entry points: the float32 ones, or the bf16 ones."""
     from kaldi_lstm_tpu_torch.ops import _build
     lib = _build.load("lstmp_train")
-    fwd, bwd = lib.lstmp_train_fwd_f32, lib.lstmp_train_bwd_f32
+    tag = "bf16" if bf16 else "f32"
+    fwd = getattr(lib, f"lstmp_train_fwd_{tag}")
+    bwd = getattr(lib, f"lstmp_train_bwd_{tag}")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if fwd.argtypes is None:
         fwd.argtypes = [p] * 9 + [f] + [p] * 6 + [i] * 5 + [f, i, p]
@@ -195,24 +223,28 @@ def _peep(params: LstmParams) -> torch.Tensor:
 
 def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
               r0: torch.Tensor, keep_mask_tm: torch.Tensor | None,
-              inv_keep: float, cell_clip: float, recurrent
+              inv_keep: float, cell_clip: float, recurrent, compute_dtype
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's function with ``recurrent(r)`` [S, 4C] giving r_{t-1} Wr^T:
-    the hoisted xw = x Wx^T, times the keep-mask * inv_keep, + bias; per
-    step pre = xw_t + recurrent(r_{t-1}), the cell (the o peephole reads
-    the clipped c_t) and r_t = (tanh(c_t) o) Wrm^T."""
+    """K1's function with ``recurrent(r)`` [S, 4C] giving r_{t-1} Wr^T
+    (its operands rounded to ``compute_dtype``): the hoisted xw = x Wx^T,
+    times the keep-mask * inv_keep, + bias; per step pre = xw_t +
+    recurrent(r_{t-1}), the cell (the o peephole reads the clipped c_t)
+    and r_t = (tanh(c_t) o) Wrm^T. With a ``compute_dtype`` the products'
+    operands are rounded to it and gifo is stored in it."""
     T, S, I = x_tm.shape
     C = params.cell_dim
-    xw = (x_tm.reshape(T * S, I) @ params.w_gifo_x.T).reshape(T, S, 4 * C)
+    xw = (rounded(x_tm.reshape(T * S, I), compute_dtype)
+          @ rounded(params.w_gifo_x, compute_dtype).T).reshape(T, S, 4 * C)
     if keep_mask_tm is not None:
-        xw = xw * (keep_mask_tm.to(torch.float32) * inv_keep)
+        xw = xw * (keep_mask_tm.to(xw.dtype) * inv_keep)
     xw = xw + params.bias
-    gifo = xw.new_empty((T, S, 4 * C))
+    wrm_t = rounded(params.w_r_m, compute_dtype).T
+    gifo = xw.new_empty((T, S, 4 * C), dtype=compute_dtype or xw.dtype)
     c_seq = xw.new_empty((T, S, C))
     r_seq = xw.new_empty((T, S, params.recur_dim))
     c, r = c0, r0
     for t in range(T):
-        pre = xw[t] + recurrent(r)
+        pre = xw[t] + recurrent(rounded(r, compute_dtype))
         g = torch.tanh(pre[:, :C])
         i = torch.sigmoid(pre[:, C:2 * C] + c * params.peephole_i_c)
         f = torch.sigmoid(pre[:, 2 * C:3 * C] + c * params.peephole_f_c)
@@ -220,7 +252,7 @@ def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
         if cell_clip > 0:
             c = torch.clamp(c, -cell_clip, cell_clip)
         o = torch.sigmoid(pre[:, 3 * C:] + c * params.peephole_o_c)
-        r = (torch.tanh(c) * o) @ params.w_r_m.T
+        r = rounded(torch.tanh(c) * o, compute_dtype) @ wrm_t
         gifo[t] = torch.cat([g, i, f, o], dim=-1)
         c_seq[t] = c
         r_seq[t] = r
@@ -230,19 +262,23 @@ def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
 def lstm_fwd_residuals_plain(params: LstmParams, x_tm: torch.Tensor,
                              c0: torch.Tensor, r0: torch.Tensor,
                              keep_mask_tm: torch.Tensor | None = None,
-                             inv_keep: float = 1.0, cell_clip: float = 50.0
+                             inv_keep: float = 1.0, cell_clip: float = 50.0,
+                             compute_dtype=None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K1's outputs in torch ops: (gifo [T, S, 4C] gate activations,
-    c_seq [T, S, C] clipped cells, r_seq [T, S, R]) from x [T, S, I]."""
+    c_seq [T, S, C] clipped cells, r_seq [T, S, R]) from x [T, S, I].
+    gifo is bf16 when ``compute_dtype`` is torch.bfloat16."""
+    wr_t = rounded(params.w_gifo_r, compute_dtype).T
     return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
-                     cell_clip, lambda r: r @ params.w_gifo_r.T)
+                     cell_clip, lambda r: r @ wr_t, compute_dtype)
 
 
 def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
                       c0: torch.Tensor, r0: torch.Tensor,
                       keep_mask_tm: torch.Tensor | None = None,
-                      inv_keep: float = 1.0, cell_clip: float = 50.0
+                      inv_keep: float = 1.0, cell_clip: float = 50.0,
+                      compute_dtype=None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's decomposition in torch, the arguments and results of
     ``lstm_fwd_residuals_plain``: the hoisted xw with the mask and the
@@ -255,25 +291,36 @@ def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
     cols = gate_deinterleave(C).to(x_tm.device)
     wr_perm = torch.where((rows >= 0)[:, None],
                           params.w_gifo_r[rows.clamp_min(0)], 0.0)
+    wr_perm_t = rounded(wr_perm, compute_dtype).T
     return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
-                     cell_clip, lambda r: (r @ wr_perm.T)[:, cols])
+                     cell_clip, lambda r: (r @ wr_perm_t)[:, cols],
+                     compute_dtype)
 
 
 def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
                    c0: torch.Tensor, r0: torch.Tensor, gifo: torch.Tensor,
                    c_seq: torch.Tensor, r_seq: torch.Tensor,
                    keep_mask_tm: torch.Tensor | None, inv_keep: float,
-                   g_r: torch.Tensor, gcT: torch.Tensor, need_dx: bool
+                   g_r: torch.Tensor, gcT: torch.Tensor, need_dx: bool,
+                   compute_dtype=None
                    ) -> tuple[LstmParams, torch.Tensor | None,
                               torch.Tensor, torch.Tensor]:
     """K2 in torch ops: the reverse recurrence over the residuals, then
     the hoisted frame-axis contractions. ``g_r`` [T, S, R] is every r_t's
     cotangent (the final r's already added at T-1), ``gcT`` [S, C] the
-    final c's. Returns (dparams, dx [T, S, I] or None, dc0, dr0)."""
+    final c's. With a ``compute_dtype`` every product's operands are
+    rounded to it (gifo as K1 stored it, in that dtype). Returns
+    (dparams, dx [T, S, I] or None, dc0, dr0)."""
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     pi, pf, po = (params.peephole_i_c, params.peephole_f_c,
                   params.peephole_o_c)
+
+    def rd(t):
+        return rounded(t, compute_dtype)
+
+    wrm, wr, wx = rd(params.w_r_m), rd(params.w_gifo_r), rd(params.w_gifo_x)
+    gifo = gifo.to(c_seq.dtype)
     dc = gcT.clone()
     dr = gcT.new_zeros((S, R))
     dgifo = gifo.new_empty((T, S, 4 * C))
@@ -284,7 +331,7 @@ def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
         cp = c_seq[t - 1] if t > 0 else c0
         h = torch.tanh(c)
         dr_total = g_r[t] + dr
-        dm = dr_total @ params.w_r_m
+        dm = rd(dr_total) @ wrm
         dh = dm * o
         dc_from_h = dh * (1.0 - h * h)
         d_o = dm * h * o * (1.0 - o)
@@ -295,26 +342,26 @@ def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
         dgifo[t] = torch.cat([dg, di, df, d_o], dim=-1)
         drt[t] = dr_total
         dc = dc_total * f + di * pi + df * pf
-        dr = dgifo[t] @ params.w_gifo_r
+        dr = rd(dgifo[t]) @ wr
 
     N = T * S
     dg2 = dgifo.reshape(N, 4 * C)
     dxw = dg2 if keep_mask_tm is None else \
-        dg2 * (keep_mask_tm.reshape(N, 4 * C).to(torch.float32) * inv_keep)
+        dg2 * (keep_mask_tm.reshape(N, 4 * C).to(dg2.dtype) * inv_keep)
     r_prev = torch.cat([r0[None], r_seq[:-1]]).reshape(N, R)
     c_prev = torch.cat([c0[None], c_seq[:-1]]).reshape(N, C)
     c_all = c_seq.reshape(N, C)
     ho = torch.tanh(c_all) * gifo.reshape(N, 4 * C)[:, 3 * C:]
     dparams = LstmParams(
-        w_gifo_x=dxw.T @ x_tm.reshape(N, I),
-        w_gifo_r=dg2.T @ r_prev,
+        w_gifo_x=rd(dxw).T @ rd(x_tm.reshape(N, I)),
+        w_gifo_r=rd(dg2).T @ rd(r_prev),
         bias=dg2.sum(0),
         peephole_i_c=(dg2[:, C:2 * C] * c_prev).sum(0),
         peephole_f_c=(dg2[:, 2 * C:3 * C] * c_prev).sum(0),
         peephole_o_c=(dg2[:, 3 * C:] * c_all).sum(0),
-        w_r_m=drt.reshape(N, R).T @ ho,
+        w_r_m=rd(drt.reshape(N, R)).T @ rd(ho),
     )
-    dx = (dxw @ params.w_gifo_x).reshape(T, S, I) if need_dx else None
+    dx = (rd(dxw) @ wx).reshape(T, S, I) if need_dx else None
     return dparams, dx, dc, dr
 
 
@@ -324,7 +371,7 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
                          r_seq: torch.Tensor,
                          keep_mask_tm: torch.Tensor | None, inv_keep: float,
                          g_r: torch.Tensor, gcT: torch.Tensor, need_dx: bool,
-                         sms: int = H100_SMS
+                         sms: int = H100_SMS, compute_dtype=None
                          ) -> tuple[LstmParams, torch.Tensor | None,
                                     torch.Tensor, torch.Tensor]:
     """K2's decomposition in torch, the arguments and results of
@@ -332,13 +379,20 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
     (with a mask) dxw for every t, the per-step dr comes as ``bwd_plan``'s
     split-K partials that the next step adds in order, then the four
     frame-axis products run from the materialised operands (r_prev made
-    contiguous), each split as the kernel splits it."""
+    contiguous), each split as the kernel splits it. ``compute_dtype``
+    as for ``lstm_bwd_plain``."""
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     N = T * S
     sp = bwd_plan(T, S, I, C, R, sms)
     pi, pf, po = (params.peephole_i_c, params.peephole_f_c,
                   params.peephole_o_c)
+
+    def rd(t):
+        return rounded(t, compute_dtype)
+
+    wrm, wr, wx = rd(params.w_r_m), rd(params.w_gifo_r), rd(params.w_gifo_x)
+    gifo = gifo.to(c_seq.dtype)
     dc = gcT.clone()
     dr = gcT.new_zeros((S, R))
     dgifo = gifo.new_empty((T, S, 4 * C))
@@ -350,7 +404,7 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
         cp = c_seq[t - 1] if t > 0 else c0
         h = torch.tanh(c_seq[t])
         dr_total = g_r[t] + dr
-        dm = dr_total @ params.w_r_m
+        dm = rd(dr_total) @ wrm
         d_o = dm * h * o * (1.0 - o)
         dc_total = dc + dm * o * (1.0 - h * h) + d_o * po
         df = dc_total * cp * f * (1.0 - f)
@@ -360,25 +414,26 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
         drt[t] = dr_total
         ho[t] = h * o
         if dxw is not None:
-            dxw[t] = dgifo[t] * (keep_mask_tm[t].to(torch.float32) * inv_keep)
+            dxw[t] = dgifo[t] * (keep_mask_tm[t].to(dxw.dtype) * inv_keep)
         dc = dc_total * f + di * pi + df * pf
-        dr = _split_matmul(dgifo[t], params.w_gifo_r, sp["dr"])
+        dr = _split_matmul(rd(dgifo[t]), wr, sp["dr"])
 
     dg2 = dgifo.reshape(N, 4 * C)
     dxw2 = dg2 if dxw is None else dxw.reshape(N, 4 * C)
     r_prev = torch.cat([r0[None], r_seq[:-1]]).reshape(N, R)
     c_prev = torch.cat([c0[None], c_seq[:-1]]).reshape(N, C)
     dparams = LstmParams(
-        w_gifo_x=_split_matmul(dxw2.T, x_tm.reshape(N, I), sp["wx"]),
-        w_gifo_r=_split_matmul(dg2.T, r_prev, sp["wr"]),
+        w_gifo_x=_split_matmul(rd(dxw2).T, rd(x_tm.reshape(N, I)),
+                               sp["wx"]),
+        w_gifo_r=_split_matmul(rd(dg2).T, rd(r_prev), sp["wr"]),
         bias=dg2.sum(0),
         peephole_i_c=(dg2[:, C:2 * C] * c_prev).sum(0),
         peephole_f_c=(dg2[:, 2 * C:3 * C] * c_prev).sum(0),
         peephole_o_c=(dg2[:, 3 * C:] * c_seq.reshape(N, C)).sum(0),
-        w_r_m=_split_matmul(drt.reshape(N, R).T, ho.reshape(N, C),
+        w_r_m=_split_matmul(rd(drt.reshape(N, R)).T, rd(ho.reshape(N, C)),
                             sp["wrm"]),
     )
-    dx = _split_matmul(dxw2, params.w_gifo_x, sp["dx"]).reshape(T, S, I) \
+    dx = _split_matmul(rd(dxw2), wx, sp["dx"]).reshape(T, S, I) \
         if need_dx else None
     return dparams, dx, dc, dr
 
@@ -397,12 +452,15 @@ def _check_mask(mask: torch.Tensor | None, shape: tuple, dev) -> None:
 def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
                             c0: torch.Tensor, r0: torch.Tensor,
                             keep_mask_tm: torch.Tensor | None = None,
-                            inv_keep: float = 1.0, cell_clip: float = 50.0
+                            inv_keep: float = 1.0, cell_clip: float = 50.0,
+                            compute_dtype=None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """K1 on the card; same arguments and results as the plain version.
+    """K1 on the card (``lstmp_train_fwd_bf16`` when ``compute_dtype`` is
+    torch.bfloat16); same arguments and results as the plain version.
     ``keep_mask_tm`` is int8 [T, S, 4C], contiguous."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, FWD_BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype, "lstm_train")
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     dev = x_tm.device
@@ -417,13 +475,14 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
     x_c, wx, wr, bias, wrm, c0c, r0c = cont
     peep = _peep(params)
     f32 = dict(dtype=torch.float32, device=dev)
-    gifo = torch.empty((T, S, 4 * C), **f32)
+    gifo = torch.empty((T, S, 4 * C), device=dev,
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
     c_seq = torch.empty((T, S, C), **f32)
     r_seq = torch.empty((T, S, R), **f32)
     xw = torch.empty((T, S, 4 * C), **f32)
     wr_perm = torch.empty((4 * plan["padded_cells"], R), **f32)
     m = torch.empty((S, C), **f32)
-    fwd, _ = _entries()
+    fwd, _ = _entries(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fwd(x_c.data_ptr(), wx.data_ptr(), wr.data_ptr(),
@@ -436,7 +495,10 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"lstm_train: K1 launch failed with CUDA error "
                            f"{err}")
-    FWD_LAUNCHES += fwd_launches(T)
+    if bf16:
+        FWD_BF16_LAUNCHES += fwd_launches(T)
+    else:
+        FWD_LAUNCHES += fwd_launches(T)
     return gifo, c_seq, r_seq
 
 
@@ -444,18 +506,23 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
                   r0: torch.Tensor, gifo: torch.Tensor, c_seq: torch.Tensor,
                   r_seq: torch.Tensor, keep_mask_tm: torch.Tensor | None,
                   inv_keep: float, g_r: torch.Tensor, gcT: torch.Tensor,
-                  need_dx: bool) -> tuple[LstmParams, torch.Tensor | None,
-                                          torch.Tensor, torch.Tensor]:
-    """K2 on the card; same arguments and results as the plain version."""
-    global BWD_LAUNCHES
+                  need_dx: bool, compute_dtype=None
+                  ) -> tuple[LstmParams, torch.Tensor | None, torch.Tensor,
+                             torch.Tensor]:
+    """K2 on the card (``lstmp_train_bwd_bf16``, reading a bf16 gifo,
+    when ``compute_dtype`` is torch.bfloat16); same arguments and results
+    as the plain version."""
+    global BWD_LAUNCHES, BWD_BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype, "lstm_train")
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     dev = x_tm.device
     _check("x", x_tm, (T, S, I), dev, "lstm_train")
     check_lstm_operands(params, T, S, I, LstmState(c0, r0), dev,
                         "lstm_train")
-    for name, t, shape in (("gifo", gifo, (T, S, 4 * C)),
-                           ("c_seq", c_seq, (T, S, C)),
+    _check("gifo", gifo, (T, S, 4 * C), dev, "lstm_train",
+           torch.bfloat16 if bf16 else torch.float32)
+    for name, t, shape in (("c_seq", c_seq, (T, S, C)),
                            ("r_seq", r_seq, (T, S, R)),
                            ("g_r", g_r, (T, S, R)), ("gcT", gcT, (S, C))):
         _check(name, t, shape, dev, "lstm_train")
@@ -493,7 +560,7 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
     dbias = torch.empty((4 * C,), **f32)
     dpeep = torch.empty((3, C), **f32)
     x_c, wx, wr, wrm, c0c, r0c, gifo_c, c_c, r_c, g_r_c = cont
-    _, bwd = _entries()
+    _, bwd = _entries(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = bwd(x_c.data_ptr(), wx.data_ptr(), wr.data_ptr(),
@@ -508,7 +575,10 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"lstm_train: K2 launch failed with CUDA error "
                            f"{err}")
-    BWD_LAUNCHES += bwd_launches(T, need_dx)
+    if bf16:
+        BWD_BF16_LAUNCHES += bwd_launches(T, need_dx)
+    else:
+        BWD_LAUNCHES += bwd_launches(T, need_dx)
     dparams = LstmParams(w_gifo_x=dwx, w_gifo_r=dwr, bias=dbias,
                          peephole_i_c=dpeep[0], peephole_f_c=dpeep[1],
                          peephole_o_c=dpeep[2], w_r_m=dwrm)
@@ -549,15 +619,17 @@ class _LstmTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_tm, c0, r0, w_gifo_x, w_gifo_r, bias, peephole_i_c,
                 peephole_f_c, peephole_o_c, w_r_m, keep_mask_tm, cell_clip,
-                inv_keep, need_input_grad):
+                inv_keep, need_input_grad, compute_dtype):
         params = LstmParams(w_gifo_x, w_gifo_r, bias, peephole_i_c,
                             peephole_f_c, peephole_o_c, w_r_m)
         gifo, c_seq, r_seq = lstm_fwd_residuals(
-            params, x_tm, c0, r0, keep_mask_tm, inv_keep, cell_clip)
+            params, x_tm, c0, r0, keep_mask_tm, inv_keep, cell_clip,
+            compute_dtype)
         ctx.save_for_backward(x_tm, c0, r0, *params, keep_mask_tm, gifo,
                               c_seq, r_seq)
         ctx.inv_keep = inv_keep
         ctx.need_input_grad = need_input_grad
+        ctx.compute_dtype = compute_dtype
         T = x_tm.shape[0]
         return r_seq, c_seq[T - 1].clone(), r_seq[T - 1].clone()
 
@@ -572,15 +644,15 @@ class _LstmTrain(torch.autograd.Function):
         need_dx = ctx.need_input_grad and ctx.needs_input_grad[0]
         dparams, dx, dc0, dr0 = lstm_bwd(
             params, x_tm, c0, r0, gifo, c_seq, r_seq, keep_mask_tm,
-            ctx.inv_keep, g_r, g_c.contiguous(), need_dx)
-        return (dx, dc0, dr0, *dparams, None, None, None, None)
+            ctx.inv_keep, g_r, g_c.contiguous(), need_dx, ctx.compute_dtype)
+        return (dx, dc0, dr0, *dparams, None, None, None, None, None)
 
 
 def lstm_train(params: LstmParams, x: torch.Tensor, state: LstmState,
                cell_clip: float = 50.0, time_major: bool = False,
                gate_keep_mask: torch.Tensor | None = None,
-               keep_prob: float = 1.0, need_input_grad: bool = True
-               ) -> tuple[torch.Tensor, LstmState]:
+               keep_prob: float = 1.0, need_input_grad: bool = True,
+               compute_dtype=None) -> tuple[torch.Tensor, LstmState]:
     """One LSTMP layer over a [S, T, I] chunk ([T, S, I] with
     ``time_major``) from the carried ``state``, differentiable in the
     params, x and the state. Returns (r_out with x's layout, final
@@ -589,9 +661,12 @@ def lstm_train(params: LstmParams, x: torch.Tensor, state: LstmState,
     ``gate_keep_mask`` (bool, x's leading layout, last dim 4C) turns on
     inverted gate dropout on the input projection: kept pre-activations
     scale by 1/keep_prob. With ``need_input_grad=False`` the backward
-    computes no dx (the layer's input needs none, e.g. the features)."""
+    computes no dx (the layer's input needs none, e.g. the features).
+    ``compute_dtype`` (None or torch.bfloat16) is the products' operand
+    dtype (the module docstring's bf16 contract)."""
     if x.dim() != 3:
         raise ValueError(f"lstm_train: x must be 3-D, got {tuple(x.shape)}")
+    check_compute_dtype(compute_dtype, "lstm_train")
     T = x.shape[0] if time_major else x.shape[1]
     if T == 0:
         S = x.shape[1] if time_major else x.shape[0]
@@ -606,6 +681,6 @@ def lstm_train(params: LstmParams, x: torch.Tensor, state: LstmState,
     inv_keep = 1.0 if keep_prob >= 1.0 else 1.0 / keep_prob
     r_seq, c_T, r_T = _LstmTrain.apply(
         x_tm, state.c, state.r, *params, mask_tm, float(cell_clip),
-        inv_keep, bool(need_input_grad))
+        inv_keep, bool(need_input_grad), compute_dtype)
     out = r_seq if time_major else r_seq.transpose(0, 1)
     return out, LstmState(c=c_T, r=r_T)

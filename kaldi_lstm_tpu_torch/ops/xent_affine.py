@@ -17,10 +17,20 @@ K3's split over class chunks in torch, for the tests and chip_smoke.py.
 Shapes: r [N, R]; w [K, R] (Kaldi orientation); b [K]; ids/tw [N, Km]
 sparse targets; mask [N].
 
+bf16 (``compute_dtype=torch.bfloat16``, the ``--bf16`` path): the JAX
+package's ``xent_pallas.py`` under ``set_matmul_dtype(jnp.bfloat16)``
+rounds r and W to bf16 for the logits, and dz with W (dr) and with r
+(dW) in the backward, summing in float32; dz stays float32 and db is
+summed from it. On a CUDA tensor the ``_bf16`` entry points run those
+products on the tensor cores' bf16 mma; the plain versions round the
+same operands and compute in float32.
+
 Counters: ``FWD_LAUNCHES`` (K3: 2 per call, the class-chunk pass and
 the merge) and ``BWD_LAUNCHES`` (K4: 3 per call, dz, dr and dW/db)
-count the CUDA kernel launches, ``PLAIN_CALLS`` the calls of either half
-that took the plain version.
+count the CUDA kernel launches of the float32 entry points,
+``FWD_BF16_LAUNCHES`` and ``BWD_BF16_LAUNCHES`` those of the bf16 ones
+(as many a call), ``PLAIN_CALLS`` the calls of either half that took the
+plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import ctypes
 
 import torch
 
-from kaldi_lstm_tpu_torch.ops.lstm_infer import _check
+from kaldi_lstm_tpu_torch.ops.lstm_cell import rounded
+from kaldi_lstm_tpu_torch.ops.lstm_infer import _check, check_compute_dtype
 from kaldi_lstm_tpu_torch.train.loss import (
     LossAux,
     target_best,
@@ -38,6 +49,8 @@ from kaldi_lstm_tpu_torch.train.loss import (
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_BF16_LAUNCHES = 0
+BWD_BF16_LAUNCHES = 0
 PLAIN_CALLS = 0
 # classes per K3 chunk (a multiple of the kernels' 128-class tile): the
 # forward's grid is (frame tiles of 128) x (chunks), 40 x 8 CTAs at the
@@ -46,16 +59,22 @@ FWD_CHUNK = 1024
 
 
 def reset_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, PLAIN_CALLS
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
+    global PLAIN_CALLS
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
+    FWD_BF16_LAUNCHES = 0
+    BWD_BF16_LAUNCHES = 0
     PLAIN_CALLS = 0
 
 
-def _entries():
+def _entries(bf16: bool = False):
+    """K3's and K4's C entry points: the float32 ones, or the bf16 ones."""
     from kaldi_lstm_tpu_torch.ops import _build
     lib = _build.load("xent_affine")
-    fwd, bwd = lib.xent_affine_fwd_f32, lib.xent_affine_bwd_f32
+    tag = "bf16" if bf16 else "f32"
+    fwd = getattr(lib, f"xent_affine_fwd_{tag}")
+    bwd = getattr(lib, f"xent_affine_bwd_{tag}")
     p, i = ctypes.c_void_p, ctypes.c_int
     if fwd.argtypes is None:
         fwd.argtypes = [p] * 10 + [i] * 5 + [p]
@@ -70,10 +89,11 @@ def _entries():
 # plain versions (CPU tensors; the card holds the kernels against them)
 # ---------------------------------------------------------------------------
 
-def xent_fwd_plain(r, w, b, ids, tw):
+def xent_fwd_plain(r, w, b, ids, tw, compute_dtype=None):
     """K3's outputs from the logits formed in torch: (lse, picked, amax
-    [N] float32, aidx [N] int32; aidx is the first max)."""
-    z = r @ w.T + b
+    [N] float32, aidx [N] int32; aidx is the first max). With a
+    ``compute_dtype`` the logits product's operands are rounded to it."""
+    z = rounded(r, compute_dtype) @ rounded(w, compute_dtype).T + b
     lse = torch.logsumexp(z, dim=-1)
     picked = torch.sum(tw * torch.gather(z, 1, ids.long()), dim=-1)
     amax = z.amax(dim=-1)
@@ -81,13 +101,15 @@ def xent_fwd_plain(r, w, b, ids, tw):
     return lse, picked, amax, aidx
 
 
-def xent_fwd_chunked_plain(r, w, b, ids, tw, chunk: int):
+def xent_fwd_chunked_plain(r, w, b, ids, tw, chunk: int,
+                           compute_dtype=None):
     """K3's decomposition in torch: per chunk of `chunk` classes the
     chunk's max, its first index, the sum of exp(z - max) and the
     weighted picked logits of the targets inside it; then the chunks
     merged in increasing order with a strict >, as the kernel's second
     launch does. Same results as ``xent_fwd_plain``."""
     K = w.shape[0]
+    r, w = rounded(r, compute_dtype), rounded(w, compute_dtype)
     ids_l = ids.long()
     parts = []
     for c0 in range(0, K, chunk):
@@ -111,15 +133,19 @@ def xent_fwd_chunked_plain(r, w, b, ids, tw, chunk: int):
     return v + torch.log(s), p, v, i.to(torch.int32)
 
 
-def xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot):
+def xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
     """K4's outputs from the logits formed in torch: dz = scale * (wtot *
-    exp(z - lse) - sum_j tw_j onehot(id_j)); returns (dr, dW, db)."""
+    exp(z - lse) - sum_j tw_j onehot(id_j)); returns (dr, dW, db). With a
+    ``compute_dtype`` the operands of the three products (r and W, dz and
+    W, dz and r) are rounded to it; db is summed from the unrounded dz."""
+    r, w = rounded(r, compute_dtype), rounded(w, compute_dtype)
     z = r @ w.T + b
     dz = torch.exp(z - lse[:, None]) * wtot[:, None]
     for j in range(ids.shape[1]):
         dz.scatter_add_(1, ids[:, j:j + 1].long(), -tw[:, j:j + 1])
     dz = dz * scale[:, None]
-    return dz @ w, dz.T @ r, dz.sum(0)
+    dzc = rounded(dz, compute_dtype)
+    return dzc @ w, dzc.T @ r, dz.sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +168,12 @@ def _check_inputs(r, w, b, ids, tw) -> tuple[int, int, int, int]:
     return N, R, K, Km
 
 
-def xent_fwd_cuda(r, w, b, ids, tw):
-    """K3 on the card; same arguments and results as the plain version
+def xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=None):
+    """K3 on the card (``xent_affine_fwd_bf16`` when ``compute_dtype`` is
+    torch.bfloat16); same arguments and results as the plain version
     (ids int32)."""
-    global FWD_LAUNCHES
+    global FWD_LAUNCHES, FWD_BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype, "fused_affine_xent")
     N, R, K, Km = _check_inputs(r, w, b, ids, tw)
     ops = [t.contiguous() for t in (r, w, b, ids, tw)]
     f32 = dict(dtype=torch.float32, device=r.device)
@@ -155,7 +183,7 @@ def xent_fwd_cuda(r, w, b, ids, tw):
     aidx = torch.empty((N,), dtype=torch.int32, device=r.device)
     # per-(chunk, row) max, sum-exp, picked and first index
     part = torch.empty((4, -(-K // FWD_CHUNK), N), **f32)
-    fwd, _ = _entries()
+    fwd, _ = _entries(bf16)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fwd(*(t.data_ptr() for t in ops), lse.data_ptr(),
@@ -164,13 +192,18 @@ def xent_fwd_cuda(r, w, b, ids, tw):
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K3 launch failed with CUDA "
                            f"error {err}")
-    FWD_LAUNCHES += 2
+    if bf16:
+        FWD_BF16_LAUNCHES += 2
+    else:
+        FWD_LAUNCHES += 2
     return lse, picked, amax, aidx
 
 
-def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot):
-    """K4 on the card; same arguments and results as the plain version."""
-    global BWD_LAUNCHES
+def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
+    """K4 on the card (``xent_affine_bwd_bf16`` when ``compute_dtype`` is
+    torch.bfloat16); same arguments and results as the plain version."""
+    global BWD_LAUNCHES, BWD_BF16_LAUNCHES
+    bf16 = check_compute_dtype(compute_dtype, "fused_affine_xent")
     N, R, K, Km = _check_inputs(r, w, b, ids, tw)
     for name, t in (("lse", lse), ("scale", scale), ("wtot", wtot)):
         _check(name, t, (N,), r.device, "fused_affine_xent")
@@ -183,7 +216,7 @@ def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot):
     # rows padded to a multiple of 4 floats for 16-byte copies
     ldz = -(-K // 4) * 4
     dz = torch.empty((N, ldz), **f32)
-    _, bwd = _entries()
+    _, bwd = _entries(bf16)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = bwd(*(t.data_ptr() for t in ops), dr.data_ptr(),
@@ -192,30 +225,36 @@ def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot):
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K4 launch failed with CUDA "
                            f"error {err}")
-    BWD_LAUNCHES += 3
+    if bf16:
+        BWD_BF16_LAUNCHES += 3
+    else:
+        BWD_LAUNCHES += 3
     return dr, dw, db
 
 
-def xent_fwd(r, w, b, ids, tw):
+def xent_fwd(r, w, b, ids, tw, compute_dtype=None):
     """K3 for a CUDA tensor, its plain version for a CPU tensor."""
     global PLAIN_CALLS
     if r.device.type == "cuda":
-        return xent_fwd_cuda(r, w, b, ids, tw)
+        return xent_fwd_cuda(r, w, b, ids, tw, compute_dtype)
     if r.device.type != "cpu":
         raise ValueError(f"fused_affine_xent: unsupported device {r.device}")
+    check_compute_dtype(compute_dtype, "fused_affine_xent")
     PLAIN_CALLS += 1
-    return xent_fwd_plain(r, w, b, ids, tw)
+    return xent_fwd_plain(r, w, b, ids, tw, compute_dtype)
 
 
-def xent_bwd(r, w, b, ids, tw, lse, scale, wtot):
+def xent_bwd(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
     """K4 for a CUDA tensor, its plain version for a CPU tensor."""
     global PLAIN_CALLS
     if r.device.type == "cuda":
-        return xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot)
+        return xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot,
+                             compute_dtype)
     if r.device.type != "cpu":
         raise ValueError(f"fused_affine_xent: unsupported device {r.device}")
+    check_compute_dtype(compute_dtype, "fused_affine_xent")
     PLAIN_CALLS += 1
-    return xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot)
+    return xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +278,11 @@ class _FusedAffineXent(torch.autograd.Function):
     """forward = K3 + the torch epilogue, backward = K4."""
 
     @staticmethod
-    def forward(ctx, r, w, b, ids, tw, mask):
-        lse, picked, _, aidx = xent_fwd(r, w, b, ids, tw)
+    def forward(ctx, r, w, b, ids, tw, mask, compute_dtype):
+        lse, picked, _, aidx = xent_fwd(r, w, b, ids, tw, compute_dtype)
         xent, aux = fused_loss_and_stats(lse, picked, aidx, ids, tw, mask)
         ctx.save_for_backward(r, w, b, ids, tw, mask, lse)
+        ctx.compute_dtype = compute_dtype
         ctx.mark_non_differentiable(aux.entropy, aux.correct, aux.frames)
         return xent, aux.entropy, aux.correct, aux.frames
 
@@ -251,16 +291,18 @@ class _FusedAffineXent(torch.autograd.Function):
         r, w, b, ids, tw, mask, lse = ctx.saved_tensors
         scale = (g_loss * mask.to(torch.float32)).contiguous()
         wtot = torch.sum(tw, dim=-1)
-        dr, dw, db = xent_bwd(r, w, b, ids, tw, lse, scale, wtot)
-        return dr, dw, db, None, None, None
+        dr, dw, db = xent_bwd(r, w, b, ids, tw, lse, scale, wtot,
+                              ctx.compute_dtype)
+        return dr, dw, db, None, None, None, None
 
 
-def fused_affine_xent(r, w, b, ids, tw, mask
+def fused_affine_xent(r, w, b, ids, tw, mask, compute_dtype=None
                       ) -> tuple[torch.Tensor, LossAux]:
     """loss = masked xent of softmax(r @ w.T + b) vs sparse targets, and
     its statistics, without forming the logits. Differentiable in r, w,
-    b."""
+    b. ``compute_dtype`` (None or torch.bfloat16) is the products'
+    operand dtype (the module docstring's bf16 contract)."""
     loss, ent, correct, frames = _FusedAffineXent.apply(
-        r, w, b, ids.to(torch.int32), tw, mask)
+        r, w, b, ids.to(torch.int32), tw, mask, compute_dtype)
     return loss, LossAux(xent=loss.detach(), entropy=ent, correct=correct,
                          frames=frames)

@@ -23,10 +23,10 @@ in the JAX tool's JSON format, so a run resumes in either package.
 
 The port's `nnet_initialize` and `train_lstm_streams` run in this
 process on ``--device`` (default cuda; cpu runs the plain path), with
-``--step-group``, ``--verbose`` and the other trainer flags passed on.
-Flags the port's trainer does not take yet (``--bf16 true``, ``--mesh``
-and the multi-process flags) exit 1 before any file is written, naming
-the ROADMAP item, as the trainer does.
+``--step-group``, ``--bf16``, ``--verbose`` and the other trainer flags
+passed on. Flags the port's trainer does not take yet (``--mesh`` and
+the multi-process flags) exit 1 before any file is written, naming the
+ROADMAP item, as the trainer does.
 """
 
 from __future__ import annotations
@@ -100,8 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="passed to the trainer: batches per grouped step "
                         "(one CUDA-graph replay on the card)")
     p.add_argument("--bf16", default="false",
-                   help="passed to the trainer (only false is ported: "
-                        "ROADMAP queue A item 5)")
+                   help="passed to the trainer: bfloat16 matmul inputs "
+                        "with float32 accumulation (true|false)")
     p.add_argument("--mesh", default="",
                    help="passed to the trainer: multi-chip sharded "
                         "training; not ported (ROADMAP queue A item 8)")

@@ -16,9 +16,12 @@ runs N steps per CUDA-graph replay on the card (a loop on the CPU),
 ``--verbose 1`` prints the first-minibatch moment dumps, ``--debug-dump
 DIR`` the per-frame LSTM dumps of ``tools/nnet_debug_dump.py`` before
 training, and ``--profile-dir DIR`` writes a torch.profiler trace of the
-training epoch. Flags whose machinery is not ported yet exit 1 with the
-ROADMAP item that adds it: ``--mesh`` and the multi-process flags,
-``--bf16 true``.
+training epoch. ``--bf16 true`` sets the net's (and the feature
+transform's) matmul dtype to bfloat16 (``Nnet.set_matmul_dtype``): every
+product of the training and cross-validation passes rounds its operands
+to bf16 and sums in float32, on the bf16 kernels on the card. Flags whose
+machinery is not ported yet exit 1 with the ROADMAP item that adds it:
+``--mesh`` and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -118,8 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write full train state (params + momentum) for "
                         "exact resume")
     p.add_argument("--bf16", default="false",
-                   help="bfloat16 matmul inputs; only false is ported "
-                        "(ROADMAP queue A item 5)")
+                   help="bfloat16 matmul inputs with float32 accumulation "
+                        "(true|false)")
     p.add_argument("--debug-dump", default="",
                    help="directory: before training, dump per-frame LSTM "
                         "activations/derivatives for the first minibatch "
@@ -155,8 +158,6 @@ def unported_flag(args) -> str | None:
     if args.coordinator_address or args.num_processes > 1:
         return ("multi-process training (--coordinator-address, "
                 "--num-processes) is ROADMAP queue A item 8")
-    if _bool(args.bf16):
-        return "--bf16 true: bfloat16 kernels are ROADMAP queue A item 5"
     return None
 
 
@@ -219,6 +220,11 @@ def main(argv=None, _stats_out=None) -> int:
     prof = args.verbose >= 2
     t_start = time.perf_counter()
     nnet, params = Nnet.read(args.model_in, device)
+    if _bool(args.bf16):
+        import torch
+        for net in (nnet, transf):
+            if net is not None:
+                net.set_matmul_dtype(torch.bfloat16)
     if prof:
         LOG(f"invocation profile: model read {args.model_in} "
             f"{time.perf_counter() - t_start:.2f}s")

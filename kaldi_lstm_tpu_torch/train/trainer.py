@@ -145,7 +145,8 @@ def make_objective(nnet: Nnet, loss_fn, use_fused: bool, train: bool,
             mask_f = mask.transpose(0, 1) if tm else mask
             loss, aux = fused_affine_xent(
                 y.reshape(n, y.shape[2]), aff["linearity"], aff["bias"],
-                ids_f.reshape(n, -1), tw_f.reshape(n, -1), mask_f.reshape(n))
+                ids_f.reshape(n, -1), tw_f.reshape(n, -1), mask_f.reshape(n),
+                compute_dtype=nnet.components[-2].matmul_dtype)
             return loss, (aux, tuple(new_states))
         # xent takes pre-softmax logits (autograd gives the combined
         # softmax+xent backward); mse takes the net output as it is

@@ -329,7 +329,6 @@ def test_fixed_scheduler_matches_jax(tmp_path, monkeypatch, name, losses,
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--bf16", "true"], "item 5"),
     (["--mesh", "data=4"], "item 8"),
     (["--num-processes", "2", "--coordinator-address", "h:1"], "item 8"),
 ])
@@ -346,11 +345,13 @@ def test_unported_trainer_flags_exit_1_up_front(tmp_path, monkeypatch,
     (["--step-group", "2"], ["--step-group=2", "--verbose=1"]),
     (["--step-group", "16", "--verbose", "2"],
      ["--step-group=16", "--verbose=2"]),
+    (["--bf16", "true", "--step-group", "16"],
+     ["--bf16=true", "--step-group=16"]),
 ])
 def test_trainer_flags_reach_the_trainer(tmp_path, monkeypatch, flags,
                                          passed):
-    """--step-group and --verbose pass through to every trainer call, as
-    the JAX recipe passes them."""
+    """--step-group, --bf16 and --verbose pass through to every trainer
+    call, as the JAX recipe passes them."""
     res = {}
     for key, recipe in (("jax", j_recipe), ("port", t_recipe)):
         d = _exp(tmp_path, key)

@@ -298,7 +298,7 @@ def test_cli_state_out_resumes_in_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "data=2"], ["--num-processes", "2"],
-    ["--coordinator-address", "localhost:1"], ["--bf16", "true"]])
+    ["--coordinator-address", "localhost:1"]])
 def test_cli_unported_flags_exit_1(tmp_path, capsys, flag):
     out = tmp_path / "o.nnet"
     rc = t_cli.main(["ark:f.ark", "ark:p.ark", "m.nnet", str(out),
