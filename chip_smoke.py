@@ -112,12 +112,30 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    the card against the port's CPU path; print the warm deep step, the
    deep scoring rate, a profile of one deep step, and the deep step at
    group 4 in f32 and in bf16 (ms, idle share, capture ms, pool MB);
-7. print one JSON line with every kernel (the bf16 variants as
+7. drive the fused score->decode path at the LVCSR recipe's operating
+   point (examples/lvcsr_experiment.sh): the port's make_word_synth_data
+   writes the 10k-word, 7998-pdf corpus with its counted trigram, the
+   port's train_lstm_streams trains the full-width AM briefly and
+   nnet_copy converts it; the decoding graph is built once (states,
+   arcs, build and CSR seconds, host RSS); `nnet_decode` decodes as a
+   user runs it, with the K5 count zeroed just before and read just
+   after (one launch per batch of 8, no plain call); then on the
+   prebuilt graph: the dense fused decode (decoded audio-s/s, RTF, the
+   card's scoring ms and idle share, host search and float64 conversion
+   ms, the score copy's ms and overlap with the next batch, peak host
+   RSS) held byte for byte to the CLI's and to the two-stage flow
+   (nnet_forward -> ark -> decode_faster), lattices fused against
+   two-stage byte for byte, the `--top-p 64` and `--fetch-dtype bf16`
+   fetches against the dense one, the card against `--device cpu` and
+   the native core against the numpy decoder (shares printed, not
+   gated), and the WER against the corpus text (printed);
+8. print one JSON line with every kernel (the bf16 variants as
    entries of their own), then the device line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -229,6 +247,41 @@ DEEP_STACK_LINES = (
 # one deep step, card vs the port's CPU path, on 64 streams (bounds the
 # CPU's time); tolerances as phase 5's
 DEEP_CHECK_S = 64
+
+# Phase 7: the fused score->decode path at the LVCSR recipe's operating
+# point. The corpus flags are examples/lvcsr_experiment.sh:26-41,79-83's
+# (10k words, 2666 phones x 3 states = 7998 pdfs, a counted trigram from
+# 60000 sentences of a 16-successor word process), with 40-dim synthetic
+# frames in place of fbank from rendered audio; the search flags are its
+# fused stage's (:260-275: acwt 0.1, beam 13, max-active 7000, 2 decoder
+# threads) and the lattice beam tests/test_nnet_decode.py's.
+LVCSR_PDFS = 2666 * 3
+LVCSR_CORPUS = ["--num-words", "10000", "--num-phones", "2666",
+                "--states-per-phone", "3", "--feat-dim", "40",
+                "--lm-order", "3", "--lm-branch", "16",
+                "--lm-train-sents", "60000", "--self-loop-prob", "0.7",
+                "--max-words", "12", "--eos-prob", "0.1", "--sil-prob", "0.1",
+                "--min-pron", "3", "--max-pron", "6", "--seed", "0"]
+LVCSR_PROTO = TRAIN_PROTO.replace("8000", str(LVCSR_PDFS))
+LVCSR_SEARCH = ["--acoustic-scale", "0.1", "--beam", "13",
+                "--max-active", "7000", "--num-threads", "2"]
+LVCSR_LATTICE = ["--lattice-beam", "6"]
+# cut to the time limit: a brief AM training, 32 utterances decoded (16
+# of them also by the CLI and into lattices, 4 also on the CPU, the 2
+# shortest also by the numpy decoder); the host search takes 0.5-0.8
+# core-s an audio-s on the card's machine, so each 32-utterance pass
+# takes 25-45 s on the 2 decoder threads
+DECODE_TRAIN_UTTS = 2048
+DECODE_EPOCHS = 4
+# the recipe's rate, targets delay and gradient clip (lvcsr_experiment.sh
+# :47,140-153); without the clip the rate diverged in epoch 5 on the card
+DECODE_LR = 1e-4
+DECODE_DELAY = 0
+DECODE_UTTS = 32
+DECODE_LAT_UTTS = 16
+DECODE_CPU_UTTS = 4
+DECODE_PY_UTTS = 2
+DECODE_TOP_P = 64
 
 
 def log(msg: str) -> None:
@@ -2221,6 +2274,423 @@ def phase_deep(work: str):
             f"{r['pool_mb']:.1f} MB")
 
 
+def rss_bytes() -> int:
+    """This process's resident set now (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """Samples this process's resident set every 20 ms on a thread, from
+    entry to exit: `.start` and `.peak` in bytes."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def decode_pass(what: str, args, tm, graph, n_utts: int, frames: int,
+                traced: bool = False) -> dict:
+    """One fused decode, nnet_decode's body on a graph built once, with
+    the K5 count zeroed just before and read just after (one launch per
+    batch of 8 utterances, no plain call). Records each batch's CUDA
+    events (input copy + forward on the compute stream; the score copy
+    on the scorer's side stream) and whether its scores were on the host
+    before the decoder asked for them, times each decoder call with its
+    float64 conversion apart from the search, samples the resident set,
+    and with `traced` takes the card's idle share from torch.profiler.
+    Fails unless every copy whose next batch was queued in time overlaps
+    that batch's compute and every batch after the first reached the host
+    before the decoder asked for it. Returns the measurements."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    import kaldi_lstm_tpu_torch.tools.decode_faster as dft
+    from kaldi_lstm_tpu_torch.decode.scoring import copy_overlaps
+    from kaldi_lstm_tpu_torch.tools import nnet_decode
+
+    scorer = nnet_decode.make_scorer(args)
+    pend, queued, calls = [], [], []
+    dispatch, forward = scorer._dispatch, scorer._forward
+
+    def tracked(group):
+        pend.append(dispatch(group))
+        return pend[-1]
+
+    def tracked_forward(x):
+        # is batch k+1's forward queued while batch k's still runs?
+        queued.append(bool(pend) and not pend[-1].ready.query())
+        return forward(x)
+    fetch, fetched = scorer._fetch, []
+
+    def tracked_fetch(y):
+        # was the batch's copy done before the decoder asked for it?
+        hidden = y.done.query()
+        t0 = time.perf_counter()
+        out = fetch(y)
+        fetched.append((hidden, 1e3 * (time.perf_counter() - t0)))
+        return out
+    scorer._dispatch, scorer._forward = tracked, tracked_forward
+    scorer._fetch = tracked_fetch
+    search = dft.decode_faster
+
+    def timed(graph, mat, *rest):
+        t0 = time.perf_counter()
+        em = np.ascontiguousarray(mat, np.float64)
+        t1 = time.perf_counter()
+        res = search(graph, em, *rest)
+        calls.append((t1 - t0, time.perf_counter() - t1))
+        return res
+    dft.decode_faster = timed
+    prof = contextlib.nullcontext()
+    if traced:
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+    try:
+        with RssPeak() as rss, prof:
+            _, wall = counted(
+                what, {"lstmp_infer": -(-n_utts // 8)},
+                lambda: nnet_decode.decode_stream(args, scorer, tm, graph))
+    finally:
+        dft.decode_faster = search
+    audio_s = frames / FRAMES_PER_AUDIO_SECOND
+    r = {"wall_s": wall, "audio_s_per_s": audio_s / wall,
+         "rtf": wall / audio_s,
+         "scoring_ms": sum(p.begin.elapsed_time(p.ready) for p in pend),
+         "copy_ms": [p.start.elapsed_time(p.done) for p in pend],
+         "copy_bytes": [sum(h.nbytes for h in p.host) for p in pend],
+         "overlap": [copy_overlaps(pend[k], pend[k + 1])
+                     for k in range(len(pend) - 1)],
+         "queued": queued[1:],
+         "hidden": [f[0] for f in fetched],
+         "fetch_ms": [f[1] for f in fetched],
+         "convert_ms": 1e3 * sum(c[0] for c in calls),
+         "search_ms": 1e3 * sum(c[1] for c in calls),
+         "rss_start": rss.start, "rss_peak": rss.peak}
+    log(f"    {frames} frames ({audio_s:.2f} audio-s) in {wall:.3f} s: "
+        f"{r['audio_s_per_s']:.2f} decoded audio-s/s, RTF {r['rtf']:.4f}")
+    log(f"    card: scoring (input copy + forward, CUDA events) "
+        f"{r['scoring_ms']:.3f} ms over {len(pend)} batches; score copy "
+        f"{statistics.median(r['copy_ms']):.3f} ms and "
+        f"{int(statistics.median(r['copy_bytes']))} bytes a batch (median; "
+        f"{', '.join(f'{c:.3f}' for c in r['copy_ms'])} ms); batch k+1's "
+        f"forward queued before batch k's ended: {r['queued']}; batch "
+        f"k's copy ran while batch k+1's input copy and forward did: "
+        f"{r['overlap']}")
+    log(f"    scores on the host before the decoder asked for them: "
+        f"{r['hidden']}; fetch (copy wait + host conversion) "
+        f"{', '.join(f'{f:.3f}' for f in r['fetch_ms'])} ms a batch")
+    if calls:
+        log(f"    host: {len(calls)} decoder calls on "
+            f"{args.num_threads} threads, search {r['search_ms']:.3f} ms "
+            f"and float64 conversion {r['convert_ms']:.3f} ms summed over "
+            f"the threads ({r['search_ms'] / 1e3 / audio_s:.4f} core-s of "
+            f"search per audio-s)")
+    log(f"    host RSS {rss.start / 2**30:.3f} GiB at the start, peak "
+        f"{rss.peak / 2**30:.3f} GiB (+{(rss.peak - rss.start) / 2**20:.1f}"
+        f" MiB)")
+    if traced:
+        busy, copies = profiled_busy_ms(prof)
+        r["idle"] = None if busy <= 0 else max(0.0, 1 - busy / (1e3 * wall))
+        log(f"    card idle share over the decode (torch.profiler, kernel "
+            f"time {busy:.3f} ms of {1e3 * wall:.3f} ms wall; copies and "
+            f"sets {copies:.3f} ms): "
+            + ("not measured (no kernel time recorded)" if busy <= 0
+               else f"{r['idle']:.4f}"))
+    if not all(o for o, q in zip(r["overlap"], r["queued"]) if q) \
+            or not all(r["hidden"][1:]):
+        fail(f"{what}: a score copy whose next batch was queued in time did "
+             f"not overlap it (queued {r['queued']}, overlapped "
+             f"{r['overlap']}), or a batch after the first was not on the "
+             f"host when the decoder asked for it ({r['hidden']})")
+    return r
+
+
+def phase_decode(work: str) -> dict:
+    """Phase 7: the fused score->decode path (nnet_decode) at the LVCSR
+    recipe's operating point; returns the K5 launches of the CLI run."""
+    import argparse
+    import itertools
+    import torch
+    from kaldi_lstm_tpu_torch.decode.faster import compile_graph, decode_faster
+    from kaldi_lstm_tpu_torch.decode.wer import EditStats, edit_distance, \
+        wer_report
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.io.lang import read_text_table
+    from kaldi_lstm_tpu_torch.io.transition_model import TransitionModel
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools import (
+        make_word_synth_data,
+        nnet_copy,
+        nnet_decode,
+        nnet_forward,
+        train_lstm_streams,
+    )
+    from kaldi_lstm_tpu_torch.tools.decode_faster import (
+        decode_source,
+        graph_from_args,
+    )
+    from kaldi_lstm_tpu_torch.tools.latgen_faster import latgen_source
+
+    if os.environ.get("KLT_DECODE_IMPL", "auto") == "python":
+        fail("KLT_DECODE_IMPL=python is set; phase 7 times the native core")
+    n_all = DECODE_TRAIN_UTTS + DECODE_UTTS
+    log(f"  cuts: 40-dim synthetic frames (the corpus generator's Gaussian "
+        f"emissions), not fbank of rendered audio; {n_all} utterances "
+        f"({DECODE_TRAIN_UTTS} to train, {DECODE_UTTS} to decode; the "
+        f"recipe has 10240); the AM trained {DECODE_EPOCHS} epochs "
+        f"(the recipe: newbob, 4-14); lattices on the first "
+        f"{DECODE_LAT_UTTS} decoded utterances, the CPU decode on the first "
+        f"{DECODE_CPU_UTTS}, the numpy decoder on the {DECODE_PY_UTTS} "
+        f"shortest")
+    lang = os.path.join(work, "lang")
+    t0 = time.perf_counter()
+    if make_word_synth_data.main(["--dir", lang, "--num-utts", str(n_all)]
+                                 + LVCSR_CORPUS) != 0:
+        fail("make_word_synth_data failed")
+    log(f"  corpus (10k words, counted trigram, {LVCSR_PDFS} pdfs): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    with open(f"{lang}/feats.scp") as f:
+        lines = f.read().splitlines()
+
+    def scp(name, rows):
+        path = os.path.join(work, name)
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        return f"scp:{path}"
+    train_keys = {ln.split()[0] for ln in lines[:DECODE_TRAIN_UTTS]}
+    dec_lines = lines[DECODE_TRAIN_UTTS:]
+    dec_keys = [ln.split()[0] for ln in dec_lines]
+    train_scp = scp("train.scp", lines[:DECODE_TRAIN_UTTS])
+    dec_scp = scp("decode.scp", dec_lines)
+    lat_scp = scp("lattice.scp", dec_lines[:DECODE_LAT_UTTS])
+    cpu_scp = scp("cpu.scp", dec_lines[:DECODE_CPU_UTTS])
+
+    # 1-best pdf targets from ali.ark through the transition model; pdf
+    # counts of the training part, each + 1, for the priors
+    t0 = time.perf_counter()
+    tm = TransitionModel.load(f"{lang}/final.mdl")
+    counts = np.ones(tm.num_pdfs)
+    lens = {}
+    post = f"ark:{work}/post.ark"
+    with kio.PosteriorWriter(post) as pw:
+        for key, ali in kio.SequentialIntVectorReader(f"ark:{lang}/ali.ark"):
+            pdf = tm.transition_ids_to_pdfs(ali)
+            lens[key] = len(pdf)
+            if key in train_keys:
+                counts += np.bincount(pdf, minlength=tm.num_pdfs)
+                pw.write(key, [[(int(p), 1.0)] for p in pdf])
+    counts_path = os.path.join(work, "counts.vec")
+    with open(counts_path, "wb") as f:
+        kio.write_vector(kio.KaldiOutput(f), counts.astype(np.float32))
+    frames = sum(lens[k] for k in dec_keys)
+    log(f"  targets and priors: {time.perf_counter() - t0:.3f} s; "
+        f"{sum(lens[k] for k in train_keys)} training frames, {frames} "
+        f"frames to decode ({frames / FRAMES_PER_AUDIO_SECOND:.2f} "
+        f"audio-s); pdfs never seen in training: "
+        f"{int((counts == 1).sum())}")
+
+    model = os.path.join(work, "am.iter0")
+    nnet, params = Nnet.init_from_proto(
+        LVCSR_PROTO, torch.Generator().manual_seed(0), "cuda")
+    nnet.write(model, params, binary=True)
+    for e in range(DECODE_EPOCHS):
+        nxt = os.path.join(work, f"am.iter{e + 1}")
+        t0 = time.perf_counter()
+        rc, st = train_lstm_streams.run_main(
+            [train_scp, post, model, nxt, f"--learn-rate={DECODE_LR}",
+             "--num-stream=256", "--batch-size=20", "--grad-clip=50",
+             f"--targets-delay={DECODE_DELAY}", "--bf16", "true",
+             "--step-group", "16", "--device", "cuda"])
+        if rc != 0:
+            fail(f"training epoch {e + 1} exited {rc}")
+        log(f"  AM epoch {e + 1} (train_lstm_streams --bf16 true "
+            f"--step-group 16 --grad-clip 50): AvgLoss "
+            f"{st.avg_loss():.4f}, frame accuracy "
+            f"{100 * st.correct / st.frames:.2f}% in "
+            f"{time.perf_counter() - t0:.3f} s")
+        model = nxt
+    final = os.path.join(work, "final.nnet")
+    if nnet_copy.main(["--to-standard", f"--time-shift={DECODE_DELAY}",
+                       model, final, "--device", "cuda"]) != 0:
+        fail("nnet_copy --to-standard failed")
+
+    base = [final, f"{lang}/final.mdl", f"{lang}/lexicon.txt",
+            f"{lang}/lm.arpa"]
+    common = ["--word-symbol-table", f"{lang}/words.txt", "--apply-log=true",
+              f"--class-frame-counts={counts_path}", "--device", "cuda",
+              *LVCSR_SEARCH]
+    parser = nnet_decode.build_parser()
+
+    def parse(feats, hyp, *extra):
+        return parser.parse_args(base + [feats, f"ark,t:{work}/{hyp}"]
+                                 + common + list(extra))
+
+    def read(name):
+        with open(os.path.join(work, name), "rb") as f:
+            return f.read()
+
+    def text(name):
+        return read_text_table(os.path.join(work, name))
+
+    args = parse(dec_scp, "hyp_dense.txt")
+    rss0 = rss_bytes()
+    t0 = time.perf_counter()
+    tm_g, graph = graph_from_args(args)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compile_graph(graph)
+    csr_s = time.perf_counter() - t0
+    rss1 = rss_bytes()
+    log(f"  graph: {graph.num_states} states, {graph.num_arcs()} arcs; "
+        f"built in {build_s:.3f} s, CSR compile {csr_s:.3f} s (one host "
+        f"core); host RSS {rss0 / 2**30:.3f} -> {rss1 / 2**30:.3f} GiB")
+
+    got, cli_wall = counted(
+        f"nnet_decode, the CLI as a user runs it, on the first "
+        f"{DECODE_LAT_UTTS} utterances (model read, graph build, scoring, "
+        f"search)", {"lstmp_infer": -(-DECODE_LAT_UTTS // 8)},
+        lambda: nnet_decode.main(base + [lat_scp, f"ark,t:{work}/hyp_cli.txt"]
+                                 + common))
+    launches = got["lstmp_infer"]
+
+    log("  fused decode, dense f32 fetch (graph built once, traced):")
+    dense = decode_pass("nnet_decode body, dense fetch", args, tm_g, graph,
+                        DECODE_UTTS, frames, traced=True)
+    n_cli = len(read("hyp_cli.txt").splitlines())
+    if n_cli != DECODE_LAT_UTTS or read("hyp_cli.txt") != b"".join(
+            read("hyp_dense.txt").splitlines(True)[:DECODE_LAT_UTTS]):
+        fail("the fused decode on the prebuilt graph differs from the CLI's")
+    log(f"  the CLI's {n_cli} transcripts: byte-identical to the fused "
+        f"decode's on the prebuilt graph")
+    n_batches = -(-DECODE_UTTS // 8)
+
+    # two-stage on the card: nnet_forward -> ark -> the decoders' cores
+    loglik = os.path.join(work, "loglik.ark")
+    counted("nnet_forward (two-stage flow, stage 1)",
+            {"lstmp_infer": n_batches},
+            lambda: nnet_forward.main([final, dec_scp, f"ark:{loglik}",
+                                       "--apply-log=true",
+                                       f"--class-frame-counts={counts_path}",
+                                       "--device", "cuda"]))
+    t0 = time.perf_counter()
+    if decode_source(tm_g, graph, kio.SequentialMatrixReader(f"ark:{loglik}"),
+                     acoustic_scale=args.acoustic_scale, beam=args.beam,
+                     max_active=args.max_active,
+                     trans_wspecifier=f"ark,t:{work}/hyp_two.txt",
+                     word_strings=True, num_threads=args.num_threads) != 0:
+        fail("two-stage decode_faster failed")
+    log(f"  two-stage decode_faster over the ark: "
+        f"{time.perf_counter() - t0:.3f} s")
+    if read("hyp_two.txt") != read("hyp_dense.txt"):
+        fail("fused and two-stage transcripts differ")
+    log("  fused and two-stage transcripts: byte-identical")
+
+    lat_frames = sum(lens[k] for k in dec_keys[:DECODE_LAT_UTTS])
+    lat_args = parse(lat_scp, "lhyp_fused.txt", "--lattice-wspecifier",
+                     f"ark:{work}/lat_fused.ark", *LVCSR_LATTICE)
+    log(f"  fused lattice generation ({DECODE_LAT_UTTS} utterances, "
+        f"determinized):")
+    decode_pass("nnet_decode body, --lattice-wspecifier", lat_args, tm_g,
+                graph, DECODE_LAT_UTTS, lat_frames)
+    two = argparse.Namespace(**vars(lat_args))
+    two.lattice_wspecifier = f"ark:{work}/lat_two.ark"
+    two.transcript_wspecifier = f"ark,t:{work}/lhyp_two.txt"
+    t0 = time.perf_counter()
+    if latgen_source(tm_g, graph, itertools.islice(
+            kio.SequentialMatrixReader(f"ark:{loglik}"), DECODE_LAT_UTTS),
+            two) != 0:
+        fail("two-stage latgen_faster failed")
+    log(f"  two-stage latgen_faster over the ark: "
+        f"{time.perf_counter() - t0:.3f} s")
+    if read("lat_two.ark") != read("lat_fused.ark") or \
+            read("lhyp_two.txt") != read("lhyp_fused.txt"):
+        fail("fused and two-stage lattices or their transcripts differ")
+    log(f"  fused and two-stage lattices ({len(read('lat_two.ark'))} bytes) "
+        f"and best paths: byte-identical")
+
+    ref = text("hyp_dense.txt")
+    corpus_text = read_text_table(f"{lang}/text")
+
+    def wer(hyp) -> str:
+        total = EditStats()
+        for k in dec_keys:
+            total.add(edit_distance(corpus_text[k], hyp[k]))
+        ser = sum(corpus_text[k] != hyp[k] for k in dec_keys) / len(dec_keys)
+        return f"{wer_report(total)}; %SER {100 * ser:.2f}"
+    fetch = {}
+    for tag, extra in (("top_p", ["--top-p", str(DECODE_TOP_P)]),
+                       ("bf16", ["--fetch-dtype", "bf16"])):
+        log(f"  fused decode, {' '.join(extra)}:")
+        r = decode_pass(f"nnet_decode body, {' '.join(extra)}",
+                        parse(dec_scp, f"hyp_{tag}.txt", *extra), tm_g,
+                        graph, DECODE_UTTS, frames)
+        hyp = text(f"hyp_{tag}.txt")
+        r["same"] = sum(hyp[k] == ref[k] for k in dec_keys) / len(dec_keys)
+        log(f"    copy {int(statistics.median(r['copy_bytes']))} bytes a "
+            f"batch (dense {int(statistics.median(dense['copy_bytes']))}), "
+            f"{statistics.median(r['copy_ms']):.3f} ms (dense "
+            f"{statistics.median(dense['copy_ms']):.3f}); "
+            f"{r['audio_s_per_s']:.2f} audio-s/s (dense "
+            f"{dense['audio_s_per_s']:.2f}); transcripts equal to the "
+            f"dense fetch's: {r['same']:.4f}; {wer(hyp)}")
+        fetch[tag] = r
+
+    # the card against the CPU (the port's plain path) on a few utterances
+    cpu_args = parse(cpu_scp, "hyp_cpu.txt")
+    cpu_args.device = "cpu"
+    t0 = time.perf_counter()
+    if nnet_decode.decode_stream(cpu_args, nnet_decode.make_scorer(cpu_args),
+                                 tm_g, graph) != 0:
+        fail("the --device cpu decode failed")
+    hyp = text("hyp_cpu.txt")
+    same_cpu = sum(hyp[k] == ref[k] for k in dec_keys[:DECODE_CPU_UTTS])
+    log(f"  --device cpu on {DECODE_CPU_UTTS} utterances "
+        f"({time.perf_counter() - t0:.3f} s): transcripts equal to the "
+        f"card's {same_cpu}/{DECODE_CPU_UTTS} (not gated)")
+    shortest = sorted(dec_keys, key=lens.get)[:DECODE_PY_UTTS]
+    errs = ref_words = 0
+    for key, mat in kio.SequentialMatrixReader(f"ark:{loglik}"):
+        if key not in shortest:
+            continue
+        nat = decode_faster(graph, mat, args.acoustic_scale, args.beam,
+                            args.max_active)
+        os.environ["KLT_DECODE_IMPL"] = "python"
+        try:
+            t0 = time.perf_counter()
+            py = decode_faster(graph, mat, args.acoustic_scale, args.beam,
+                               args.max_active)
+        finally:
+            del os.environ["KLT_DECODE_IMPL"]
+        e = edit_distance(nat.words, py.words)
+        errs += e.errors
+        ref_words += len(nat.words)
+        log(f"    {key} ({mat.shape[0]} frames): numpy decoder "
+            f"{time.perf_counter() - t0:.3f} s, words {py.words == nat.words}"
+            f", score {py.score!r} vs native {nat.score!r}")
+    log(f"  words of the numpy decoder (KLT_DECODE_IMPL=python) equal to "
+        f"the native core's on the card's scores of the {DECODE_PY_UTTS} "
+        f"shortest utterances: {1 - errs / max(ref_words, 1):.4f} (not "
+        f"gated)")
+
+    log(f"  WER of the trained AM against the corpus text (dense fetch, "
+        f"{DECODE_UTTS} utterances, not gated): {wer(ref)}")
+    return {"launches": launches, "dense": dense, "fetch": fetch,
+            "cli_wall_s": cli_wall}
+
+
 def phase_main_path(work: str):
     import torch
     from kaldi_lstm_tpu_torch.decode.scoring import (
@@ -2355,6 +2825,29 @@ K1_PROFILE_KEYS = ("interleave_gate_rows", "xw_tc_kernel", "gates_tc_kernel",
                    "contract_tc_kernel<32, 32, true, true")
 
 
+def device_table(prof) -> list:
+    """(self device us, count, name) of every device event of a finished
+    torch.profiler run."""
+    import torch
+    table = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        table.append((us, e.count, e.key))
+    return table
+
+
+def profiled_busy_ms(prof) -> tuple[float, float]:
+    """(kernel ms, copy and set ms) of a finished torch.profiler run."""
+    table = device_table(prof)
+    copies = [r for r in table if r[2].startswith(("Memcpy", "Memset"))]
+    return (sum(r[0] for r in table if r not in copies) / 1e3,
+            sum(r[0] for r in copies) / 1e3)
+
+
 def profile(fn, what: str, rows: int = 10):
     """Device time by kernel and by copy over one call of fn(), and the
     share of its wall time in which no kernel ran (torch.profiler; the
@@ -2372,14 +2865,7 @@ def profile(fn, what: str, rows: int = 10):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    table = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        table.append((us, e.count, e.key))
+    table = device_table(prof)
     copies = [r for r in table if r[2].startswith(("Memcpy", "Memset"))]
     busy = sum(r[0] for r in table if r not in copies)
     copy_us = sum(r[0] for r in copies)
@@ -2463,11 +2949,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
         phase_deep(work)
 
+    log("phase 7: fused score->decode (nnet_decode) at the LVCSR recipe's "
+        "operating point")
+    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
+        decode = phase_decode(work)
+
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
         "source": "kaldi_lstm_tpu_torch/csrc/lstmp_infer.cu",
         "replaces": "kaldi_lstm_tpu/ops/lstm_pallas.py:243 (_infer_kernel)",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "launches": launches, "decode_launches": decode["launches"],
+        "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "kernel_ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,

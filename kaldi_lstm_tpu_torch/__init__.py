@@ -10,5 +10,8 @@ plain PyTorch version only for tensors that lie on the CPU.
 
 Ported so far: whole-utterance acoustic-model scoring (the
 ``nnet-forward`` half of every decode) and the tools to make and convert
-the models it scores.
+the models it scores; training; and the fused score->decode path
+(``tools/nnet_decode.py``), whose word search runs on the host in the
+native core ``csrc/kltdecode.cc`` (C++, built with g++ at first use by
+``io/native.py``).
 """

@@ -573,6 +573,24 @@ class SequentialMatrixReader:
                 yield key, read_matrix_from_rxfilename(rxf)
 
 
+class SequentialIntVectorReader:
+    """Sequential reader over `ark:` integer-VECTOR tables (alignments)
+    — upstream SequentialInt32VectorReader."""
+
+    def __init__(self, rspecifier: str):
+        self.kind, self.stream = _open_rspecifier(rspecifier)
+
+    def __iter__(self) -> Iterator[tuple[str, np.ndarray]]:
+        if self.kind == "scp":
+            raise ValueError("scp int-vector tables not supported")
+        stream = _buffered(self.stream)
+        while True:
+            key = _read_key(stream)
+            if key is None:
+                return
+            yield key, read_int_vector(_read_value_header(stream))
+
+
 def check_output_path(path: str, what: str = "output file") -> str:
     """Refuse to CREATE a file whose name looks like a CLI flag (a
     mis-parsed argv once wrote a model to a flag-named file). `-`

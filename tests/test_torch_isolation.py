@@ -11,6 +11,7 @@
   skips where there is no card, with the reason).
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -69,6 +70,24 @@ _MONITOR_MODULES = {
     "kaldi_lstm_tpu_torch.tools.nnet_debug_dump",
 }
 
+_DECODE_MODULES = {
+    "kaldi_lstm_tpu_torch.io.arpa",
+    "kaldi_lstm_tpu_torch.io.lang",
+    "kaldi_lstm_tpu_torch.io.lattice",
+    "kaldi_lstm_tpu_torch.io.native",
+    "kaldi_lstm_tpu_torch.io.transition_model",
+    "kaldi_lstm_tpu_torch.decode.determinize",
+    "kaldi_lstm_tpu_torch.decode.faster",
+    "kaldi_lstm_tpu_torch.decode.graph",
+    "kaldi_lstm_tpu_torch.decode.lattice_faster",
+    "kaldi_lstm_tpu_torch.decode.wer",
+    "kaldi_lstm_tpu_torch.tools.compute_wer",
+    "kaldi_lstm_tpu_torch.tools.decode_faster",
+    "kaldi_lstm_tpu_torch.tools.latgen_faster",
+    "kaldi_lstm_tpu_torch.tools.make_word_synth_data",
+    "kaldi_lstm_tpu_torch.tools.nnet_decode",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -80,13 +99,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert n_modules >= 30
     names = set(res.stdout.splitlines()[1].split())
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
-    assert _MONITOR_MODULES <= names
+    assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
 
 
-@pytest.mark.parametrize("module", sorted(_MONITOR_MODULES))
+@pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
+                                          | _DECODE_MODULES))
 def test_monitor_modules_import_no_jax(module):
-    """Each of the debug-dump modules alone, in a fresh interpreter,
-    loads neither jax nor the JAX package."""
+    """Each of the debug-dump and decode modules alone, in a fresh
+    interpreter, loads neither jax nor the JAX package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'kaldi_lstm_tpu'))\n"
@@ -111,6 +131,39 @@ def test_chip_smoke_imports_no_jax():
                  or n == "kaldi_lstm_tpu" or n.startswith("kaldi_lstm_tpu."))
     assert not bad, bad
     assert "kaldi_lstm_tpu_torch.train.trainer" in names
+
+
+_DECODE_MAPS = r"""
+import numpy as np, sys
+from kaldi_lstm_tpu_torch.decode.faster import decode_faster
+from kaldi_lstm_tpu_torch.decode.graph import build_decoding_graph
+from kaldi_lstm_tpu_torch.io.arpa import uniform_unigram
+from kaldi_lstm_tpu_torch.io.transition_model import (
+    make_monophone_transition_model)
+tm = make_monophone_transition_model(4, 2)
+lex = {"a": [[2, 3]], "b": [[4]]}
+g = build_decoding_graph(tm, lex, uniform_unigram(sorted(lex)))
+decode_faster(g, np.zeros((5, tm.num_pdfs)), 1.0, 10.0)
+maps = open("/proc/self/maps").read()
+print([l.split()[-1] for l in maps.splitlines() if ".so" in l
+       and ("kltdecode" in l or "kltio" in l)])
+"""
+
+
+def test_decoder_core_is_the_ports_own_build():
+    """A native decode loads the library built from the port's own
+    csrc/kltdecode.cc into kaldi_lstm_tpu_torch/_build/, never the JAX
+    package's native/libkltio.so."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KLT_DECODE_IMPL", None)
+    res = subprocess.run([sys.executable, "-c", _DECODE_MAPS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    libs = set(ast.literal_eval(res.stdout.strip().splitlines()[-1]))
+    assert libs and all(
+        p.startswith(os.path.join(REPO, "kaldi_lstm_tpu_torch", "_build",
+                                  "libkltdecode.")) for p in libs), libs
 
 
 def _case(S=3, T=5, I=7, C=9, R=6, device="cpu", scale=0.3):

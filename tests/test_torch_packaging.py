@@ -1,8 +1,10 @@
-"""The port's CUDA sources ship whole: every file that a source in
-``kaldi_lstm_tpu_torch/csrc/`` includes with ``#include "..."`` exists
-beside it and matches a glob of the package's data in
-``pyproject.toml``, so a built wheel can compile every kernel (nvcc runs
-at first use, from the installed package)."""
+"""The port's native sources ship whole: every CUDA source and header
+and the host decoder core (``kltdecode.cc``) in
+``kaldi_lstm_tpu_torch/csrc/``, and every file that one of them includes
+with ``#include "..."``, exists there and matches a glob of the
+package's data in ``pyproject.toml``, so a built wheel can compile every
+kernel and the decoder core (nvcc and g++ run at first use, from the
+installed package)."""
 
 import fnmatch
 import os
@@ -23,7 +25,7 @@ def _package_data() -> list[str]:
 
 def _sources() -> list[str]:
     return sorted(f for f in os.listdir(CSRC)
-                  if f.endswith((".cu", ".cuh", ".h")))
+                  if f.endswith((".cu", ".cuh", ".h", ".cc")))
 
 
 def _includes(name: str) -> list[str]:
@@ -50,3 +52,12 @@ def test_the_tensor_core_header_is_included_and_shipped():
     users = [n for n in _sources() if "tc_gemm.cuh" in _includes(n)]
     assert {"lstmp_train.cu", "xent_affine.cu"} <= set(users)
     assert "csrc/*.cuh" in _package_data()
+
+
+def test_the_decoder_core_is_shipped_and_built_from_it():
+    """io/native.py builds csrc/kltdecode.cc, which ships as package
+    data."""
+    from kaldi_lstm_tpu_torch.io import native
+    assert native.SOURCE == os.path.join(CSRC, "kltdecode.cc")
+    assert "kltdecode.cc" in _sources()
+    assert "csrc/*.cc" in _package_data()
