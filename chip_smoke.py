@@ -13,11 +13,18 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    call) against its plain PyTorch version on the card at the serving
    path's widths (S=8, T=128 and 1000, clipped, ragged), at the
    cross-validation shape (S=256, T=20), at the deep config's layer-2
-   width (I=512) and at inputs too wide for the weights to stay in
-   shared memory (I=1024, 1501); time the entry point `lstm_infer` and
-   the plain version, both on batch-major x, with CUDA events at S=8
-   (T=128, 1000), S=256 (T=20) and I=512 (T=1000), and print the time
-   per step at S=8;
+   width (I=512), at inputs too wide for the weights to stay in shared
+   memory (I=1024, 1501) and at the streaming shapes (S=1 and S=64,
+   T=20); time the entry point `lstm_infer` and the plain version, both
+   on batch-major x, with CUDA events at S=8 (T=128, 1000), S=256
+   (T=20) and I=512 (T=1000), and print the time per step at S=8; then
+   K5's advance-mask entry point (the sticky server's ragged ticks)
+   against the masked scan at S=4 and S=64, T=20 (lengths 0 to 20 from
+   a seed, a skipped middle frame), at S=1, on the 4-byte-copy instance
+   and with the weights in device memory: the valid rows of r and the
+   final (c, r), a stream of length 0 unchanged, a mask set everywhere
+   bit for bit the unmasked kernel; masked and unmasked timed at S=4
+   and S=64;
 3b. hold the training kernels K1-K4 (LSTMP forward with residuals, BPTT,
    fused senone affine + xent forward and backward, all four with their
    products on the 3xTF32 tensor-core mainloop) against their plain
@@ -54,7 +61,8 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    N=5120, R=512, K=8000, at K=16624 and ragged; K5 at S=8, T=1000 and
    S=256, T=20 at I=40 and I=512, at I=1024 (resident in bf16, not in
    f32), at I=2400 (the bf16 weights leave shared memory), at T=2 and
-   ragged at T=2 (every ragged case on the 4-byte-copy instances); time
+   ragged at T=2 (every ragged case on the 4-byte-copy instances), and
+   K5's masked bf16 entry point at S=64, T=20; time
    kernel and plain and print bounds at 989 TFLOP/s and 3.35 TB/s and,
    as context, cuBLAS bf16 times of the products;
 4. drive the serving path: `nnet_forward` scoring of the full-width
@@ -129,8 +137,31 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    fetches against the dense one, the card against `--device cpu` and
    the native core against the numpy decoder (shares printed, not
    gated), and the WER against the corpus text (printed);
-8. print one JSON line with every kernel (the bf16 variants as
-   entries of their own), then the device line last.
+8. drive streaming serving in phase 7's work directory on its AM (no
+   model or graph built twice): a second corpus of 500 words over phase
+   7's phones and emission means (its final.mdl gated byte-identical to
+   phase 7's) decoded with a uniform unigram; `online_serve_batch` with
+   64 lock-step sessions, chunk 20, first with the dense fetch (every
+   streamed score within SCORE_ATOL of offline nnet_forward's, the
+   transcript agreement with offline decode_faster printed), then
+   `--pipeline true --top-p 128 --fetch-bf16 true` (agreement printed);
+   `online_decode` (K5 at S=1) on 4 of its utterances, gated as the
+   dense pass; `online_serve_sticky` with 4 slots and ragged Poisson
+   chunks (arrival hazard 0.2, mean chunk 20) on phase 7's decoded
+   utterances over its 1.52M-state graph, after an in-process replay of
+   the same trace (one masked K5 launch per tick with frames; the CLI's
+   transcripts equal the replay's), and an endpointing pass (silence
+   pdfs 0,1,2). Every decoder's words and score equal decode_faster on
+   the rows it was fed; unmasked K5 launches of the lock-step and
+   single-stream runs and masked ones of the sticky run against their
+   predictions, none of the other kind and no plain call. Each run prints
+   audio-s per wall-s, ticks, per tick the card's ms, the score copy's ms
+   and bytes and the host search ms, tick-wall p50/p90/p99, the card's
+   idle share, peak RSS against the backpointer estimate, and occupancy
+   for the sticky run;
+9. print one JSON line with every kernel (the bf16 variants as
+   entries of their own; K5's adds its masked entry point's launches,
+   times and error), then the device line last.
 """
 
 from __future__ import annotations
@@ -282,6 +313,31 @@ DECODE_LAT_UTTS = 16
 DECODE_CPU_UTTS = 4
 DECODE_PY_UTTS = 2
 DECODE_TOP_P = 64
+# Phase 8: streaming serving on phase 7's AM. The lock-step run is the
+# JAX package's round-4 product shape (BENCH_NOTES.md:240-265: 64
+# sessions, 200 ms chunks, a pipelined top-128 bf16 fetch, a 500-word
+# graph) on a second corpus of phase 7's phones, pdfs and emission means
+# (its final.mdl is phase 7's byte for byte), decoded with a uniform
+# unigram over its 500 words so that 64 sessions' dense backpointers
+# (sessions x frames x states x 4 B) stay under 1 GB; the sticky run is
+# round 5's LVCSR shape (BENCH_NOTES.md:3-35: 4-8 slots on the 1.5M-state
+# graph) with ragged Poisson chunks, on phase 7's search flags.
+STREAM_CORPUS = ["--num-words", "500", "--lm-order", "2", "--seed", "1",
+                 "--num-phones", "2666", "--states-per-phone", "3",
+                 "--feat-dim", "40", "--mean-seed", "42",
+                 "--self-loop-prob", "0.7", "--max-words", "12",
+                 "--eos-prob", "0.1", "--sil-prob", "0.1", "--min-pron", "3",
+                 "--max-pron", "6"]
+STREAM_SEARCH = ["--acoustic-scale", "0.1", "--beam", "13",
+                 "--max-active", "7000"]
+STREAM_SESSIONS = 64
+STREAM_UTTS = 96
+STREAM_CHUNK = 20
+STREAM_TOP_P = 128
+SINGLE_UTTS = 4
+STICKY_SLOTS = 4
+STICKY_UTTS = 16
+STICKY_ENDPOINT_UTTS = 4
 
 
 def log(msg: str) -> None:
@@ -345,15 +401,19 @@ def errors(got, ref):
     return float(d.max()), float(rel.max()), ok
 
 
-def lstm_bound_ms(S, T, I, C, R) -> tuple[float, str]:
+def lstm_bound_ms(S, T, I, C, R, mask=None) -> tuple[float, str]:
     """Least time for the inference forward on this card: each input
     read once and each output written once over HBM bandwidth, against
-    the three weight products' f32 operations over the f32 peak."""
+    the three weight products' f32 operations over the f32 peak. With an
+    advance `mask` ([S, T] 0/1), the operations of the frames it
+    advances and one byte a frame of mask."""
     inputs = T * S * I + (I + R) * 4 * C + 4 * C + 3 * C + C * R \
         + S * C + S * R
     outputs = T * S * R + S * C
-    t_bytes = 4.0 * (inputs + outputs) / PEAK_BYTES_PER_S
-    t_ops = 2.0 * T * S * (4 * C * (I + R) + C * R) / PEAK_F32_FLOPS
+    frames = T * S if mask is None else float(mask.sum())
+    t_bytes = (4.0 * (inputs + outputs) + (0 if mask is None else T * S)) \
+        / PEAK_BYTES_PER_S
+    t_ops = 2.0 * frames * (4 * C * (I + R) + C * R) / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -388,6 +448,11 @@ def phase_kernels():
          (8, 16, 1024, 800, 512), 50.0, {"resident": False}, False),
         ("weights in device memory, ragged S=3 T=9 I=1501 R=130",
          (3, 9, 1501, 800, 130), 50.0, {"resident": False}, False),
+        # the streaming shapes: online_decode's single stream and the
+        # lock-step batch of 64 sessions, one chunk of 20 frames (the
+        # plan depends on S)
+        ("single stream S=1 T=20", (1, 20, 40, 800, 512), 50.0, {}, False),
+        ("lock-step S=64 T=20", (64, 20, 40, 800, 512), 50.0, {}, False),
     ]
     worst = 0.0
     times = {}
@@ -444,6 +509,147 @@ def phase_kernels():
                   cv_ms=cv["ms"], cv_plain_ms=cv["plain_ms"],
                   cv_bound_ms=cv["bound_ms"])
     return record
+
+
+def ragged_mask(S: int, T: int, seed: int, middle: bool):
+    """A [S, T] 0/1 advance mask of lengths drawn from `seed`, with a
+    length 0 and a length T among them (a single stream stops 7 frames
+    short of T); with `middle`, the last stream also skips its middle
+    frame."""
+    lengths = np.random.RandomState(seed).randint(0, T + 1, S)
+    lengths[0], lengths[-1] = 0, T
+    if S == 1:
+        lengths[0] = T - 7
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    if middle:
+        mask[-1, T // 2] = 0.0
+    return mask
+
+
+def phase_kernels_masked():
+    """K5's advance-mask entry point against its plain version (the
+    masked scan) on the card, at the streaming shapes: the sticky
+    server's S=4, the lock-step batch's S=64 and a single stream at T=20
+    (chunk 20) with ragged lengths (0 and 20 among them), a skipped
+    middle frame, a mask set everywhere (bit for bit the unmasked
+    kernel), the 4-byte-copy instance and the weights in device memory. Compares the valid rows of
+    r and the final (c, r); a stream of length 0 keeps its state exactly.
+    Times masked against unmasked at S=4 and S=64. Returns the record."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import lstm_scan
+    cases = [
+        # name, (S, T, I, C, R), middle frame skipped, timed
+        ("sticky S=4 T=20, ragged", (4, 20, 40, 800, 512), False, True),
+        ("lock-step width S=64 T=20, ragged, a middle frame skipped",
+         (64, 20, 40, 800, 512), True, True),
+        ("ragged S=3 T=9 I=37 C=200 R=130 (4-byte copies), middle frame",
+         (3, 9, 37, 200, 130), True, False),
+        ("weights in device memory S=3 T=5 I=1024, middle frame",
+         (3, 5, 1024, 800, 512), True, False),
+        ("single stream S=1 T=20, short, a middle frame skipped",
+         (1, 20, 40, 800, 512), True, False),
+    ]
+    worst, rec = 0.0, {}
+    for i, (name, dims, middle, timed) in enumerate(cases):
+        S, T, I, C, R = dims
+        params, x, state = lstm_case(*dims, seed=200 + i)
+        mask_np = ragged_mask(S, T, 210 + i, middle)
+        mask = torch.tensor(mask_np, device="cuda")
+        valid = mask.bool()
+        # the serving path's form: bytes, batch-major, read in place
+        mask_u8 = mask.to(torch.uint8)
+
+        def kernel():
+            return li.lstm_infer(params, x, state, 50.0,
+                                 advance_mask=mask_u8)
+
+        li.reset_counts()
+        with torch.inference_mode():
+            out_k, fin_k = kernel()
+            out_p, fin_p = lstm_scan(params, x, state, 50.0,
+                                     advance_mask=mask)
+            torch.cuda.synchronize()
+        if (li.MASKED_LAUNCHES, li.LAUNCHES, li.PLAIN_CALLS) != (1, 0, 0):
+            fail(f"K5 masked {name}: {li.MASKED_LAUNCHES} masked, "
+                 f"{li.LAUNCHES} unmasked launches, {li.PLAIN_CALLS} plain "
+                 f"calls for one call (expected 1, 0, 0)")
+        log(f"  [K5 masked, {name}] lengths {mask_np.sum(1).astype(int)}")
+        for what, a, b in (("r (valid rows)", out_k[valid], out_p[valid]),
+                           ("final c", fin_k.c, fin_p.c),
+                           ("final r", fin_k.r, fin_p.r)):
+            mx, rel, ok = errors(a, b)
+            worst = max(worst, mx)
+            log(f"    {what}: max_abs_err {mx:.3e} max_rel_err {rel:.3e} "
+                f"(tol {KERNEL_ATOL:g} abs + {KERNEL_RTOL:g} rel)")
+            if not ok or not bool(torch.isfinite(a).all()):
+                fail(f"K5 masked {name}: {what} disagrees with the plain "
+                     f"version")
+        if mask_np[0].sum() == 0 and not (
+                torch.equal(fin_k.c[0], state.c[0])
+                and torch.equal(fin_k.r[0], state.r[0])):
+            fail(f"K5 masked {name}: a stream of length 0 changed its state")
+        if not timed:
+            continue
+        ones = torch.ones_like(mask)
+        with torch.inference_mode():
+            all_k, all_fin = li.lstm_infer(params, x, state, 50.0,
+                                           advance_mask=ones)
+            un_k, un_fin = li.lstm_infer(params, x, state, 50.0)
+            torch.cuda.synchronize()
+        same = torch.equal(all_k, un_k) and torch.equal(all_fin.c, un_fin.c)
+        log(f"    mask set everywhere vs the unmasked kernel: bit for bit "
+            f"{same}")
+        if not same:
+            fail(f"K5 masked {name}: a mask set everywhere differs from "
+                 f"the unmasked kernel")
+        with torch.inference_mode():
+            m_ms = cuda_ms(kernel, reps=20)
+            u_ms = cuda_ms(lambda: li.lstm_infer(params, x, state, 50.0),
+                           reps=20)
+            p_ms = cuda_ms(lambda: lstm_scan(params, x, state, 50.0,
+                                             advance_mask=mask), reps=5)
+        bound, by = lstm_bound_ms(*dims, mask=mask_np)
+        ubound, uby = lstm_bound_ms(*dims)
+        log(f"    masked kernel {m_ms:.3f} ms, unmasked {u_ms:.3f} ms "
+            f"({100 * (m_ms / u_ms - 1):+.1f}%), plain (masked scan) "
+            f"{p_ms:.3f} ms; bound {bound:.4f} ms ({by}; "
+            f"{int(mask_np.sum())} of {S * T} frames advance; the unmasked "
+            f"bound {ubound:.4f} ms, {uby}); library: n/a")
+        rec[S] = {"ms": m_ms, "unmasked_ms": u_ms, "plain_ms": p_ms,
+                  "bound_ms": bound, "bound_by": by,
+                  "unmasked_bound_ms": ubound}
+    # chunked against whole at the same S: the step's sums do not depend
+    # on T, so 5 chunks of 20 with the carried state give one call over
+    # 100 frames bit for bit (unmasked, and through the masked entry
+    # point with every frame set)
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmState
+    params, x, state = lstm_case(64, 100, 40, 800, 512, seed=230)
+    with torch.inference_mode():
+        whole, wfin = li.lstm_infer(params, x, state, 50.0)
+        for mask in (None, torch.ones(64, 20, dtype=torch.uint8,
+                                      device="cuda")):
+            st, parts = LstmState(state.c.clone(), state.r.clone()), []
+            for t0 in range(0, 100, 20):
+                o, st = li.lstm_infer(params, x[:, t0:t0 + 20], st, 50.0,
+                                      advance_mask=mask)
+                parts.append(o)
+            same = torch.equal(torch.cat(parts, 1), whole) and \
+                torch.equal(st.c, wfin.c) and torch.equal(st.r, wfin.r)
+            log(f"  K5 at S=64 over 5 chunks of 20 (carried state"
+                f"{', masked entry point' if mask is not None else ''}) vs "
+                f"one call over 100 frames: bit for bit {same}")
+            if not same:
+                fail("chunked K5 differs from whole-utterance K5 at the "
+                     "same S")
+    s4, s64 = rec[4], rec[64]
+    return {"masked_ms": s4["ms"], "masked_plain_ms": s4["plain_ms"],
+            "masked_bound_ms": s4["bound_ms"],
+            "masked_unmasked_ms": s4["unmasked_ms"],
+            "masked_max_abs_err": worst,
+            "masked_s64_ms": s64["ms"], "masked_s64_plain_ms": s64["plain_ms"],
+            "masked_s64_bound_ms": s64["bound_ms"],
+            "masked_s64_unmasked_ms": s64["unmasked_ms"]}
 
 
 def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
@@ -1290,6 +1496,35 @@ def phase_bf16_kernels():
             f"{f32b[0]:.4f} ms); library: n/a")
         times[dims] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
                        "bound_by": bnd[1]}
+    # the masked bf16 entry point: the kernel's precision template gives
+    # the advance mask to both entry points
+    dims = (64, 20, 40, 800, 512)
+    params, x, state = lstm_case(*dims, seed=190)
+    mask = torch.tensor(ragged_mask(64, 20, 191, True), device="cuda")
+    valid = mask.bool()
+    li.reset_counts()
+    with torch.inference_mode():
+        out_k, fin_k = li.lstm_infer(params, x, state, 50.0,
+                                     compute_dtype=bf, advance_mask=mask)
+        out_p, fin_p = lstm_scan(params, x, state, 50.0, compute_dtype=bf,
+                                 advance_mask=mask)
+        out_32, fin_32 = lstm_scan(params, x, state, 50.0,
+                                   advance_mask=mask)
+        out_64, fin_64 = lstm_scan(*f64((params, x, state)), 50.0,
+                                   compute_dtype=bf,
+                                   advance_mask=mask.double())
+        torch.cuda.synchronize()
+    if (li.MASKED_BF16_LAUNCHES, li.BF16_LAUNCHES, li.MASKED_LAUNCHES,
+            li.PLAIN_CALLS) != (1, 0, 0, 0):
+        fail("K5 bf16 masked: not one launch of lstmp_infer_masked_bf16")
+    log("  [K5 bf16, masked S=64 T=20 I=40, ragged lengths and a skipped "
+        "middle frame]")
+    for what, a, b, c, d in (
+            ("r (valid rows)", out_k[valid], out_p[valid], out_32[valid],
+             out_64[valid]),
+            ("final c", fin_k.c, fin_p.c, fin_32.c, fin_64.c)):
+        worst["K5"] = bf16_compare(f"K5 masked {what}", a, b, c, d,
+                                   worst["K5"])
     rec = dict(times[(256, 20, 40, 800, 512)])
     for dims, tag in (((8, 1000, 40, 800, 512), "s8_t1000"),
                       ((8, 1000, 512, 800, 512), "s8_t1000_i512"),
@@ -2688,7 +2923,476 @@ def phase_decode(work: str) -> dict:
     log(f"  WER of the trained AM against the corpus text (dense fetch, "
         f"{DECODE_UTTS} utterances, not gated): {wer(ref)}")
     return {"launches": launches, "dense": dense, "fetch": fetch,
-            "cli_wall_s": cli_wall}
+            "cli_wall_s": cli_wall, "lang": lang, "final": final,
+            "counts": counts_path, "graph": graph, "dec_lines": dec_lines,
+            "lens": lens, "ref": ref}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: streaming serving (online_serve_batch, online_serve_sticky,
+# online_decode) in phase 7's work directory, on its AM and graph
+# ---------------------------------------------------------------------------
+
+class StreamTrace:
+    """What the streaming classes record during one run: each tick's
+    PendingFetch (CUDA events, pinned host copies), the host clock and
+    the summed search seconds at each `score` call, the decoders in the
+    order they finalized (with the rows each was fed), and the sticky
+    server's frames per tick."""
+
+    def __init__(self):
+        self.pend, self.calls, self.finished, self.totals = [], [], [], []
+        self.search_s = 0.0
+        self.server = None
+
+
+TRACE = StreamTrace()
+
+
+@contextlib.contextmanager
+def traced_stream():
+    """Patch the streaming modules' scorer, decoder and server classes
+    with recording subclasses for the length of the block; each block
+    starts a fresh TRACE."""
+    global TRACE
+    from kaldi_lstm_tpu_torch.decode import online, serve
+    from kaldi_lstm_tpu_torch.tools import online_serve_batch as osb
+    from kaldi_lstm_tpu_torch.tools import online_serve_sticky as oss
+
+    class TracedScorer(online.OnlineBatchScorer):
+        def _dispatch(self, feats, lengths):
+            y = super()._dispatch(feats, lengths)
+            TRACE.pend.append(y)
+            return y
+
+        def score(self, feats, lengths=None):
+            TRACE.calls.append((time.perf_counter(), TRACE.search_s))
+            return super().score(feats, lengths)
+
+    class RecordingDecoder(online.OnlineDecoder):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rows = []
+
+        def advance(self, loglik):
+            # exactly what the search saw (every caller passes a fresh
+            # array or a view of a fresh block, never rewritten)
+            self.rows.append(loglik)
+            t0 = time.perf_counter()
+            super().advance(loglik)
+            TRACE.search_s += time.perf_counter() - t0
+
+        def finalize(self):
+            self.result = super().finalize()
+            self.bps = None   # as the callers drop a finished decoder
+            TRACE.finished.append(self)
+            return self.result
+
+    class TracedServer(serve.StickySessionServer):
+        def tick(self):
+            n = super().tick()
+            TRACE.totals.append(n)
+            TRACE.server = self
+            return n
+
+    saved = [(online, "OnlineBatchScorer"), (online, "OnlineDecoder"),
+             (serve, "OnlineBatchScorer"), (serve, "OnlineDecoder"),
+             (osb, "OnlineBatchScorer"), (osb, "OnlineDecoder"),
+             (oss, "StickySessionServer")]
+    saved = [(m, n, getattr(m, n)) for m, n in saved]
+    for m, n, _ in saved:
+        setattr(m, n, {"OnlineBatchScorer": TracedScorer,
+                       "OnlineDecoder": RecordingDecoder,
+                       "StickySessionServer": TracedServer}[n])
+    TRACE = StreamTrace()
+    try:
+        yield TRACE
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def lockstep_dispatches(lengths, n: int, chunk: int, pipeline: bool) -> int:
+    """online_serve_batch's `score` calls (one K5 launch each) for
+    utterances of these lengths in reader order: each tick every bound
+    slot takes up to `chunk` frames; a slot that finished is rebound
+    when its tick's block is processed, right after its own dispatch, or
+    with the pipeline one dispatch later."""
+    it = iter(lengths)
+    slots = [None] * n
+
+    def assign(i):
+        nxt = next(it, None)
+        slots[i] = None if nxt is None else [nxt, 0]
+    for i in range(n):
+        assign(i)
+    pending, inflight, calls = [], False, 0
+    while any(x is not None for x in slots) or pending:
+        if any(x is not None for x in slots):
+            done = []
+            for i, sl in enumerate(slots):
+                if sl is None:
+                    continue
+                sl[1] += min(chunk, sl[0] - sl[1])
+                if sl[1] >= sl[0]:
+                    done.append(i)
+                    slots[i] = None
+            calls += 1
+            pending.append(done)
+            if pipeline and not inflight:
+                inflight = True
+                continue
+        else:
+            inflight = False
+        for i in pending.pop(0):
+            assign(i)
+    return calls
+
+
+def stream_report(what: str, tr: StreamTrace, frames: int, wall: float,
+                  rss, bp_bytes: float, prof=None) -> dict:
+    """Print a streaming run's measurements: decoded audio-s per wall-s,
+    ticks, per tick the card's ms (input copy + forward: the CUDA events'
+    span, and the profiler's kernel time), the score copy's ms (events'
+    span) and bytes and the host search ms (medians), the tick walls'
+    p50/p90/p99, the card's idle share (profiler), and the peak RSS
+    against the backpointer estimate, with the bytes of the rows that
+    this script keeps for its gates."""
+    import torch
+    torch.cuda.synchronize()
+    pend = [p for p in tr.pend if hasattr(p, "begin")]
+    card = [p.begin.elapsed_time(p.ready) for p in pend]
+    copy = [p.start.elapsed_time(p.done) for p in pend]
+    nbytes = [sum(h.nbytes for h in p.host) for p in pend]
+    stamps = [c[0] for c in tr.calls]
+    walls = 1e3 * np.diff(stamps) if len(stamps) > 1 else np.zeros(1)
+    search = 1e3 * np.diff([c[1] for c in tr.calls] + [tr.search_s])
+    audio_s = frames / FRAMES_PER_AUDIO_SECOND
+    r = {"wall_s": wall, "audio_s_per_s": audio_s / wall,
+         "ticks": len(tr.calls), "card_ms": statistics.median(card),
+         "copy_ms": statistics.median(copy),
+         "copy_bytes": int(statistics.median(nbytes)),
+         "search_ms": float(np.median(search)),
+         "p50": float(np.percentile(walls, 50)),
+         "p90": float(np.percentile(walls, 90)),
+         "p99": float(np.percentile(walls, 99)),
+         "rss_peak": rss.peak - rss.start, "bp_bytes": bp_bytes}
+    log(f"    {what}: {frames} frames ({audio_s:.2f} audio-s) in "
+        f"{wall:.3f} s: {r['audio_s_per_s']:.2f} audio-s/s over "
+        f"{r['ticks']} ticks")
+    log(f"    per tick (median): card {r['card_ms']:.3f} ms (input copy + "
+        f"K5 + affine + log-softmax, CUDA events; sum {sum(card):.1f} ms), "
+        f"score copy {r['copy_ms']:.3f} ms of {r['copy_bytes']} bytes, "
+        f"host search {r['search_ms']:.3f} ms (sum {1e3 * tr.search_s:.1f}"
+        f" ms); tick wall p50 / p90 / p99 {r['p50']:.3f} / "
+        f"{r['p90']:.3f} / {r['p99']:.3f} ms")
+    if prof is not None:
+        busy, copies = profiled_busy_ms(prof)
+        r["idle"] = None if busy <= 0 else max(0.0, 1 - busy / (1e3 * wall))
+        r["kernel_ms_tick"] = busy / max(r["ticks"], 1)
+        r["copy_ms_tick"] = copies / max(r["ticks"], 1)
+        log(f"    card idle share (torch.profiler, kernel time {busy:.3f} "
+            f"ms of {1e3 * wall:.3f} ms wall, {r['kernel_ms_tick']:.3f} ms "
+            f"a tick; copies and sets {copies:.3f} ms, "
+            f"{r['copy_ms_tick']:.3f} ms a tick): "
+            + ("not measured (no kernel time recorded)" if busy <= 0
+               else f"{r['idle']:.4f}"))
+    kept = sum(x.nbytes for d in tr.finished for x in d.rows)
+    log(f"    host RSS peak +{r['rss_peak'] / 2**30:.3f} GiB over the start, "
+        f"{kept / 2**30:.3f} GiB of it the rows this script keeps for its "
+        f"gates; backpointer estimate (sessions x frames x states x 4 B) "
+        f"{bp_bytes / 2**30:.3f} GiB")
+    return r
+
+
+def check_streamed(what: str, tr: StreamTrace, keys: list, graph, offline,
+                   threads: int = 4) -> dict:
+    """Gate the decoders of a run (in TRACE.finished order, which is the
+    order of `keys`): decode_faster on each decoder's own rows gives
+    exactly its words and score; with `offline` ({key: (rows, result)}),
+    the streamed rows agree with the offline ones within SCORE_ATOL (the
+    gate) and the words' agreement is returned."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kaldi_lstm_tpu_torch.decode.faster import decode_faster
+    decs = tr.finished
+    if len(decs) != len(keys):
+        fail(f"{what}: {len(decs)} decoders finalized for {len(keys)} "
+             f"utterances")
+
+    def redo(dec):
+        rows = np.concatenate(dec.rows)
+        return rows, decode_faster(graph, rows, dec.acoustic_scale,
+                                   dec.beam, dec.max_active)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        redone = list(pool.map(redo, decs))
+    worst, same = 0.0, 0
+    for key, dec, (rows, ref) in zip(keys, decs, redone):
+        if ref.words != dec.result.words or ref.score != dec.result.score:
+            fail(f"{what}: {key}: decode_faster on the streamed rows gives "
+                 f"{ref.words} ({ref.score!r}), the stream "
+                 f"{dec.result.words} ({dec.result.score!r})")
+        if offline is not None:
+            off_rows, off_res = offline[key]
+            if rows.shape != off_rows.shape:
+                fail(f"{what}: {key}: streamed rows {rows.shape} vs "
+                     f"offline {off_rows.shape}")
+            worst = max(worst, float(np.abs(rows - off_rows).max()))
+            same += off_res.words == dec.result.words
+    log(f"    decode_faster on each session's own streamed rows: words and "
+        f"score equal for all {len(keys)} ({time.perf_counter() - t0:.1f} s "
+        f"on {threads} threads)")
+    out = {}
+    if offline is not None:
+        out = {"max_abs_err": worst, "agree": same / len(keys)}
+        log(f"    streamed vs offline scores: max_abs_err {worst:.3e} (tol "
+            f"{SCORE_ATOL:g}); transcripts equal to offline "
+            f"{out['agree']:.4f}")
+        if worst > SCORE_ATOL:
+            fail(f"{what}: streamed scores disagree with the offline ones")
+    return out
+
+
+def phase_stream(work: str, p7: dict) -> dict:
+    """Phase 8: streaming serving on phase 7's AM. Lock-step
+    (online_serve_batch, 64 sessions) on a second, 500-word corpus of
+    the same phones and emission means, dense and then pipelined with a
+    top-P bf16 fetch; the single stream (online_decode) on 4 of its
+    utterances; sticky sessions (online_serve_sticky, 4 slots, ragged
+    Poisson chunks) on phase 7's decoded utterances over its graph, with
+    an in-process replay of the same trace and an endpointing pass."""
+    import argparse
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from kaldi_lstm_tpu_torch.decode.faster import decode_faster
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.io.lang import read_lexicon, read_text_table
+    from kaldi_lstm_tpu_torch.tools import (
+        make_word_synth_data,
+        nnet_forward,
+        online_decode,
+        online_serve_batch,
+        online_serve_sticky,
+    )
+    from kaldi_lstm_tpu_torch.tools.decode_faster import graph_from_args
+
+    dev = torch.device("cuda")
+    log(f"  cuts: lock-step on {STREAM_UTTS} utterances ({STREAM_SESSIONS} "
+        f"sessions and {STREAM_UTTS - STREAM_SESSIONS} rebinds; round 4 ran "
+        f"120); the single stream on {SINGLE_UTTS}; sticky on {STICKY_UTTS} "
+        f"of phase 7's decoded utterances, the endpointing pass on "
+        f"{STICKY_ENDPOINT_UTTS} (each live session keeps 6 MB of "
+        f"backpointers a frame at 1.52M states and the dense stream core "
+        f"searches a frame in milliseconds)")
+    lang = os.path.join(work, "lang500")
+    t0 = time.perf_counter()
+    if make_word_synth_data.main(["--dir", lang, "--num-utts",
+                                  str(STREAM_UTTS)] + STREAM_CORPUS) != 0:
+        fail("make_word_synth_data (500 words) failed")
+    with open(f"{lang}/final.mdl", "rb") as a, \
+            open(f"{p7['lang']}/final.mdl", "rb") as b:
+        if a.read() != b.read():
+            fail("the 500-word corpus's final.mdl differs from phase 7's")
+    log(f"  500-word corpus ({time.perf_counter() - t0:.3f} s): final.mdl "
+        f"byte-identical to phase 7's, so phase 7's AM applies")
+    lex = read_lexicon(f"{lang}/lexicon.txt")
+    est_states = sum(len(p) for prons in lex.values() for p in prons) * 3
+    feats = dict(kio.SequentialMatrixReader(f"scp:{lang}/feats.scp"))
+    keys = list(feats)
+    lengths = [len(feats[k]) for k in keys]
+    frames = sum(lengths)
+    mean_len = frames / len(keys)
+    log(f"  graph size before building: about {est_states} emitting states "
+        f"(pronunciation phones x 3); backpointers of {STREAM_SESSIONS} "
+        f"sessions x {mean_len:.0f} frames: about "
+        f"{STREAM_SESSIONS * mean_len * est_states * 4 / 2**30:.3f} GiB")
+
+    base = [p7["final"], f"{lang}/final.mdl", f"{lang}/lexicon.txt", "none",
+            f"scp:{lang}/feats.scp"]
+    common = ["--word-symbol-table", f"{lang}/words.txt",
+              f"--class-frame-counts={p7['counts']}", "--device", "cuda",
+              *STREAM_SEARCH, "--chunk-frames", str(STREAM_CHUNK)]
+    bparser = online_serve_batch.build_parser()
+    args = bparser.parse_args(base + [f"ark,t:{work}/hyp_lock.txt"] + common
+                              + ["--num-sessions", str(STREAM_SESSIONS)])
+    t0 = time.perf_counter()
+    _, graph = graph_from_args(args)
+    ns = graph.num_states
+    log(f"  graph: {ns} states, {graph.num_arcs()} arcs in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # offline: nnet_forward's scorer -> decode_faster over the same graph
+    fargs = argparse.Namespace(
+        feature_transform="", apply_log="true", no_softmax="false",
+        class_frame_counts=p7["counts"], prior_scale=1.0, prior_floor=1e-10,
+        length_bucket=128, batch_utts=8, device="cuda")
+    t0 = time.perf_counter()
+    scorer = nnet_forward.scorer_from_args(fargs, p7["final"])
+    offline = {}
+    for key, y in scorer.score_stream(feats.items()):
+        offline[key] = (y, decode_faster(graph, y, args.acoustic_scale,
+                                         args.beam, args.max_active))
+    log(f"  offline nnet_forward -> decode_faster: {len(offline)} "
+        f"utterances in {time.perf_counter() - t0:.3f} s")
+
+    def text(name):
+        return read_text_table(os.path.join(work, name))
+    out = {}
+    # 1. lock-step, dense fetch, then pipelined top-P bf16
+    for tag, extra, pipe in (
+            ("dense", [], False),
+            ("pipe_topp_bf16", ["--pipeline", "true", "--top-p",
+                                str(STREAM_TOP_P), "--fetch-bf16", "true"],
+             True)):
+        a = bparser.parse_args(base + [f"ark,t:{work}/hyp_lock_{tag}.txt"]
+                               + common + ["--num-sessions",
+                                           str(STREAM_SESSIONS)] + extra)
+        pred = lockstep_dispatches(lengths, STREAM_SESSIONS, STREAM_CHUNK,
+                                   pipe)
+        log(f"  lock-step online_serve_batch, {tag} ({' '.join(extra)}):")
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+        with traced_stream() as tr, RssPeak() as rss, prof:
+            got, wall = counted(f"online_serve_batch {tag}",
+                                {"lstmp_infer": pred},
+                                lambda: online_serve_batch.serve(a, dev,
+                                                                 graph))
+        if got["lstmp_infer_masked"]:
+            fail("lock-step ticks launched the masked K5")
+        done = list(text(f"hyp_lock_{tag}.txt"))
+        r = stream_report(tag, tr, frames, wall, rss,
+                          STREAM_SESSIONS * mean_len * ns * 4, prof)
+        r.update(check_streamed(f"lock-step {tag}", tr, done, graph,
+                                offline if tag == "dense" else None))
+        r["launches"] = got["lstmp_infer"]
+        if tag != "dense":
+            hyp, dense = text(f"hyp_lock_{tag}.txt"), text(
+                "hyp_lock_dense.txt")
+            sym = graph.words.id2sym
+            r["agree"] = sum(
+                hyp[k] == [sym[w] for w in offline[k][1].words]
+                for k in keys) / len(keys)
+            r["agree_dense"] = sum(hyp[k] == dense[k] for k in keys) \
+                / len(keys)
+            log(f"    transcripts equal to offline {r['agree']:.4f}, to the "
+                f"dense stream {r['agree_dense']:.4f}")
+        out[tag] = r
+
+    # 2. the single stream: online_decode on the first utterances
+    single = os.path.join(work, "single.scp")
+    with open(f"{lang}/feats.scp") as f:
+        head = f.read().splitlines()[:SINGLE_UTTS]
+    with open(single, "w") as f:
+        f.write("\n".join(head) + "\n")
+    skeys = keys[:SINGLE_UTTS]
+    a = online_decode.build_parser().parse_args(
+        base[:4] + [f"scp:{single}", f"ark,t:{work}/hyp_single.txt"]
+        + common)
+    pred = sum(-(-lengths[i] // STREAM_CHUNK) for i in range(SINGLE_UTTS))
+    sframes = sum(lengths[:SINGLE_UTTS])
+    log(f"  single stream online_decode (K5 at S=1, {SINGLE_UTTS} "
+        f"utterances):")
+    prof = tprofile(activities=[ProfilerActivity.CUDA])
+    with traced_stream() as tr, RssPeak() as rss, prof:
+        got, wall = counted("online_decode", {"lstmp_infer": pred},
+                            lambda: online_decode.decode_utterances(
+                                a, dev, graph))
+    r = stream_report("single", tr, sframes, wall, rss,
+                      max(lengths[:SINGLE_UTTS]) * ns * 4, prof)
+    r.update(check_streamed("single stream", tr, skeys, graph, offline))
+    r["launches"] = got["lstmp_infer"]
+    out["single"] = r
+
+    # 3. sticky sessions over phase 7's graph on its decoded utterances
+    g7 = p7["graph"]
+    sticky = os.path.join(work, "sticky.scp")
+    with open(sticky, "w") as f:
+        f.write("\n".join(p7["dec_lines"][:STICKY_UTTS]) + "\n")
+    endp = os.path.join(work, "sticky_ep.scp")
+    with open(endp, "w") as f:
+        f.write("\n".join(p7["dec_lines"][:STICKY_ENDPOINT_UTTS]) + "\n")
+    tkeys = [ln.split()[0] for ln in p7["dec_lines"][:STICKY_UTTS]]
+    tframes = sum(p7["lens"][k] for k in tkeys)
+    l7 = p7["lang"]
+    sparser = online_serve_sticky.build_parser()
+    sbase = [p7["final"], f"{l7}/final.mdl", f"{l7}/lexicon.txt",
+             f"{l7}/lm.arpa"]
+    scommon = ["--word-symbol-table", f"{l7}/words.txt",
+               f"--class-frame-counts={p7['counts']}", "--device", "cuda",
+               *STREAM_SEARCH, "--chunk-frames", str(STREAM_CHUNK),
+               "--num-slots", str(STICKY_SLOTS), "--arrival-hazard", "0.2",
+               "--mean-chunk", "20", "--trace-seed", "0"]
+    a = sparser.parse_args(sbase + [f"scp:{sticky}",
+                                    f"ark,t:{work}/hyp_sticky.txt"]
+                           + scommon)
+    bp7 = STICKY_SLOTS * tframes / STICKY_UTTS * g7.num_states * 4
+    bp7_max = sum(sorted(p7["lens"][k] for k in tkeys)[-STICKY_SLOTS:]) \
+        * g7.num_states * 4
+    log(f"  sticky sessions over phase 7's graph ({g7.num_states} states; "
+        f"backpointers of {STICKY_SLOTS} live sessions: about "
+        f"{bp7 / 2**30:.2f} GiB at the mean length, {bp7_max / 2**30:.2f} "
+        f"GiB for the {STICKY_SLOTS} longest):")
+    from kaldi_lstm_tpu_torch.ops.counts import reset_counts, snapshot_counts
+    with traced_stream() as tr, RssPeak() as rss:
+        reset_counts()
+        t0 = time.perf_counter()
+        srv = online_serve_sticky.make_server(a, dev, g7)
+        if online_serve_sticky.drive_trace(a, srv) is None:
+            fail("the in-process sticky replay ran away")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnt = snapshot_counts()
+    busy_ticks = sum(1 for n in tr.totals if n)
+    log(f"  in-process replay of the trace: {len(tr.totals)} ticks, "
+        f"{busy_ticks} with frames; masked K5 launches "
+        f"{cnt['lstmp_infer_masked']}, unmasked {cnt['lstmp_infer']}, plain "
+        f"{cnt['plain.lstm_infer']}; occupancy {srv.occupancy:.4f}")
+    if (cnt["lstmp_infer_masked"], cnt["lstmp_infer"],
+            cnt["plain.lstm_infer"]) != (busy_ticks, 0, 0):
+        fail("the sticky replay did not launch one masked K5 per tick with "
+             "frames")
+    order = [r.sid for r in srv.results]
+    stream_report("sticky replay", tr, tframes, wall, rss, bp7)
+    check_streamed("sticky replay", tr, order, g7, None)
+    inproc = {r.sid: [g7.words.id2sym[w] for w in r.result.words]
+              for r in srv.results}
+    del srv, tr
+    prof = tprofile(activities=[ProfilerActivity.CUDA])
+    with traced_stream() as tr, RssPeak() as rss, prof:
+        got, wall = counted("online_serve_sticky",
+                            {"lstmp_infer_masked": busy_ticks},
+                            lambda: online_serve_sticky.serve(a, dev, g7))
+    if got["lstmp_infer"]:
+        fail("sticky ticks launched the unmasked K5")
+    r = stream_report("sticky CLI", tr, tframes, wall, rss, bp7, prof)
+    r["occupancy"] = tr.server.occupancy
+    log(f"    occupancy (bound slots over slot-ticks) {r['occupancy']:.4f}")
+    hyp = text("hyp_sticky.txt")
+    if hyp != inproc:
+        fail("the sticky CLI's transcripts differ from the in-process "
+             "server's")
+    r["agree"] = sum(hyp[k] == p7["ref"][k] for k in tkeys) / len(tkeys)
+    r["launches"] = got["lstmp_infer_masked"]
+    log(f"    the CLI's {len(hyp)} transcripts equal the in-process "
+        f"server's; equal to phase 7's offline transcripts {r['agree']:.4f}")
+    out["sticky"] = r
+    del tr
+    a = sparser.parse_args(sbase + [f"scp:{endp}",
+                                    f"ark,t:{work}/hyp_sticky_ep.txt"]
+                           + scommon + ["--endpoint-silence-pdfs", "0,1,2",
+                                        "--endpoint-trailing-silence", "8"])
+    with traced_stream() as tr:
+        t0 = time.perf_counter()
+        srv = online_serve_sticky.make_server(a, dev, g7)
+        if online_serve_sticky.drive_trace(a, srv) is None:
+            fail("the endpointing pass ran away")
+        n_ep = online_serve_sticky.write_results(a, srv, g7)
+    log(f"  endpointing pass (--endpoint-silence-pdfs 0,1,2, phone 1 being "
+        f"silence; --endpoint-trailing-silence 8, under one silence phone's "
+        f"~10 frames), {STICKY_ENDPOINT_UTTS} utterances in "
+        f"{time.perf_counter() - t0:.3f} s: {n_ep} of {len(srv.results)} "
+        f"sessions endpointed")
+    out["endpointed"] = n_ep
+    return out
 
 
 def phase_main_path(work: str):
@@ -2916,6 +3620,9 @@ def main() -> int:
 
     log("phase 3: K5 vs its plain version on the card")
     rec = phase_kernels()
+    log("phase 3: K5's advance-mask entry point vs the masked scan on the "
+        "card")
+    rec.update(phase_kernels_masked())
 
     log("phase 3b: K1-K4 vs their plain versions on the card")
     train_recs = phase_train_kernels()
@@ -2953,18 +3660,26 @@ def main() -> int:
         "operating point")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
         decode = phase_decode(work)
+        log("phase 8: streaming serving (online_serve_batch, online_decode, "
+            "online_serve_sticky) on phase 7's AM")
+        stream = phase_stream(work, decode)
+        del decode["graph"]
 
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
         "source": "kaldi_lstm_tpu_torch/csrc/lstmp_infer.cu",
         "replaces": "kaldi_lstm_tpu/ops/lstm_pallas.py:243 (_infer_kernel)",
         "launches": launches, "decode_launches": decode["launches"],
+        "stream_launches": stream["dense"]["launches"],
+        "single_stream_launches": stream["single"]["launches"],
+        "masked_launches": stream["sticky"]["launches"],
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "kernel_ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
         **{k: rec[k] for k in ("us_per_step_s8", "cv_ms", "cv_plain_ms",
                                "cv_bound_ms")},
+        **{k: v for k, v in rec.items() if k.startswith("masked_")},
     }]
     for key, name, source, replaces in (
             ("K1", "lstmp_train_fwd", "lstmp_train.cu",

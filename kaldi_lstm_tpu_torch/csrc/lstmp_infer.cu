@@ -83,6 +83,18 @@
 // (f32 there, rounded at use). The plan, the cooperative launch and the
 // barrier are the f32 kernel's.
 //
+// Advance mask (lstmp_infer_masked_f32 / _bf16, the sticky server's ragged
+// ticks; kaldi_lstm_tpu/ops/lstm_cell.py::lstm_scan's advance_mask): a
+// byte mask at any strides, 0 where stream s must keep its state through
+// step t. Every stream still runs its arithmetic; the gates epilogue
+// writes c only where the mask is set, and the projection epilogue writes
+// r_{t-1} (read from L2: other threads wrote it before the last grid
+// barrier) into row t where it is not, so that the next step and the
+// final state read the carried r. Each epilogue call reads its stream's
+// byte (through the read-only cache: the threads of a CTA that own that
+// stream's cells or projection quads all read it). Two grid barriers a
+// step, as without the mask.
+//
 // Built with nvcc into a shared library with plain C entry points, loaded
 // by kaldi_lstm_tpu_torch/ops/lstm_infer.py through ctypes; that module's
 // `k5_plan` and `lstm_infer_sliced_plain` mirror the plan and the sums.
@@ -119,6 +131,8 @@ struct Params {
   int cst_smem;         // the cells' bias and peepholes in shared memory
   int c_smem;           // the cells' c state in shared memory
   unsigned* bar;        // grid barrier arrivals, zero at launch
+  const unsigned char* amask;  // advance mask at (t, s), or null (all set)
+  long long mts, mss;          // its strides (bytes) along t and along s
 };
 
 __host__ __device__ __forceinline__ size_t round4(size_t n) {
@@ -455,7 +469,17 @@ lstmp_infer_kernel(Params p) {
     __syncthreads();
   };
   const size_t r_step = (size_t)S * R;
-  for (int t = 0; t < p.T; ++t) {
+  int t = 0;
+  // whether stream s advances at step t: one byte load in each epilogue
+  // call, i.e. for every (t, s) once per cell (gates) and once per quad of
+  // projection columns (projection) that the CTA owns; the threads of a
+  // stream read the same byte, so after the first these hit L1 (the mask
+  // is read-only for the whole launch)
+  auto advances = [&](int s) {
+    return p.amask == nullptr ||
+           __ldg(p.amask + t * p.mts + s * p.mss) != 0;
+  };
+  for (t = 0; t < p.T; ++t) {
     const float* x_t = p.x + (size_t)t * S * I;
     const float* r_prev = t == 0 ? p.r0 : p.r_out + (size_t)(t - 1) * r_step;
     float* r_t = p.r_out + (size_t)t * r_step;
@@ -485,7 +509,9 @@ lstmp_infer_kernel(Params p) {
             }
             const float o = sigmoid_f(a[3] + bsrc[3 * bstr + c] +
                                       cn * psrc[2 * bstr + c]);
-            *cp = cn;
+            // a masked stream keeps its c; its m is written all the
+            // same, and the projection epilogue discards what it gives
+            if (advances(s)) *cp = cn;
             p.m[(size_t)s * C + j0 + c] = tanhf(cn) * o;
           });
     }
@@ -496,10 +522,17 @@ lstmp_infer_kernel(Params p) {
           [&](int s, int k) { return p.m + (size_t)s * C + k; },
           load_wq,
           [&](int s, int quad, const float (&a)[4]) {
+            // a masked stream carries r_{t-1} into row t, where the next
+            // step (and the caller, at t = T-1) reads the carried r;
+            // r_{t-1} was written before the last grid barrier: from L2
+            const bool adv = advances(s);
             #pragma unroll
             for (int g = 0; g < 4; ++g) {
               const int q = 4 * quad + g;
-              if (q < nqc) r_t[(size_t)s * R + q0 + q] = a[g];
+              if (q < nqc) {
+                const size_t e = (size_t)s * R + q0 + q;
+                r_t[e] = adv ? a[g] : __ldcg(r_prev + e);
+              }
             }
           });
     }
@@ -567,7 +600,8 @@ template <class P>
 int infer(const float* x, const float* w_cat, const float* bias,
           const float* peep, const float* wrm_t, const float* r0, float* c,
           float* m, float* r_out, unsigned* bar, int T, int S, int I, int C,
-          int R, float cell_clip, void* stream) {
+          int R, float cell_clip, const unsigned char* amask,
+          long long mts, long long mss, void* stream) {
   if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
   cudaError_t err = make_plan(S, I, C, R, P::kBf16, &pl);
@@ -597,7 +631,7 @@ int infer(const float* x, const float* w_cat, const float* bias,
   }
   Params prm{x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, T, S, I, C, R,
              cell_clip, pl.ncell, pl.nq, pl.wld, pl.qld, pl.cst_smem,
-             pl.c_smem, bar};
+             pl.c_smem, bar, amask, mts, mss};
   err = cudaMemsetAsync(bar, 0, sizeof(unsigned),
                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -655,7 +689,7 @@ extern "C" int lstmp_infer_f32(const float* x, const float* w_cat,
                                unsigned* bar, int T, int S, int I, int C,
                                int R, float cell_clip, void* stream) {
   return infer<tc::F32>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
-                      T, S, I, C, R, cell_clip, stream);
+                      T, S, I, C, R, cell_clip, nullptr, 0, 0, stream);
 }
 
 // K5 in bf16 (the --bf16 cross-validation pass): the arguments of
@@ -669,5 +703,44 @@ extern "C" int lstmp_infer_bf16(const float* x, const float* w_cat,
                                 unsigned* bar, int T, int S, int I, int C,
                                 int R, float cell_clip, void* stream) {
   return infer<tc::Bf16>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
-                       T, S, I, C, R, cell_clip, stream);
+                       T, S, I, C, R, cell_clip, nullptr, 0, 0, stream);
+}
+
+// K5 with per-frame state gating (the sticky server's ragged ticks): the
+// arguments of lstmp_infer_f32 and amask, a 0/1 byte mask on the device
+// whose entry (t, s) is amask[t mts + s mss] (so a [S, T] batch-major mask
+// needs no transpose). Where it is 0 stream s keeps its (c, r) through step t:
+// c is not written and r_out[t, s] holds r_{t-1} (r0 at t = 0), so the
+// final state is (c, r_out[T-1]) as without a mask. Those rows are the
+// carried r, not an output; callers discard them. For a 0/1 mask and
+// finite values this is the blend a c_new + (1 - a) c_{t-1} of the plain
+// scan; it selects instead of blending, so an inf in a masked stream's new
+// state does not turn its carried state into NaN.
+extern "C" int lstmp_infer_masked_f32(const float* x, const float* w_cat,
+                                      const float* bias, const float* peep,
+                                      const float* wrm_t, const float* r0,
+                                      float* c, float* m, float* r_out,
+                                      unsigned* bar, int T, int S, int I,
+                                      int C, int R, float cell_clip,
+                                      const unsigned char* amask,
+                                      long long mts, long long mss,
+                                      void* stream) {
+  if (amask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return infer<tc::F32>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
+                      T, S, I, C, R, cell_clip, amask, mts, mss, stream);
+}
+
+// lstmp_infer_masked_f32 in bf16 (the operands of lstmp_infer_bf16).
+extern "C" int lstmp_infer_masked_bf16(const float* x, const float* w_cat,
+                                       const float* bias, const float* peep,
+                                       const float* wrm_t, const float* r0,
+                                       float* c, float* m, float* r_out,
+                                       unsigned* bar, int T, int S, int I,
+                                       int C, int R, float cell_clip,
+                                       const unsigned char* amask,
+                                       long long mts, long long mss,
+                                       void* stream) {
+  if (amask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return infer<tc::Bf16>(x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, bar,
+                       T, S, I, C, R, cell_clip, amask, mts, mss, stream);
 }

@@ -68,7 +68,44 @@ def copy_overlaps(a: PendingFetch, b: PendingFetch) -> bool:
         and b.begin.elapsed_time(a.done) > 0.0
 
 
-def _params_device(params) -> torch.device:
+def queue_host_copy(y, side: torch.cuda.Stream, device,
+                    begin: torch.cuda.Event) -> PendingFetch:
+    """Queue the copy of a device result (a tensor, or a tuple of them)
+    to fresh pinned host tensors on the `side` stream, after the work
+    queued so far on `device`'s current stream; `begin` was recorded on
+    that stream before the result's input copy."""
+    ready = torch.cuda.Event(enable_timing=True)
+    ready.record(torch.cuda.current_stream(device))
+    start = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    host = []
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        start.record(side)
+        for t in (y if isinstance(y, tuple) else (y,)):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            t.record_stream(side)   # the allocator keeps t for the copy
+            host.append(h)
+        done.record(side)
+    return PendingFetch(tuple(host), begin, ready, start, done)
+
+
+def fetch_block(y, top_p: int, num_pdfs: int,
+                floor_margin: float) -> np.ndarray:
+    """Bring a scoring result to the host as a dense [B, T, K] float32
+    block, rebuilt from the pruned (vals, idx) pair when `top_p` > 0. On
+    CUDA `y` is a PendingFetch: wait for its copy only."""
+    if isinstance(y, PendingFetch):
+        y.done.synchronize()
+        y = y.host if top_p > 0 else y.host[0]
+    if top_p <= 0:
+        return y.cpu().float().numpy()
+    return dense_from_topk(y[0].cpu().float().numpy(), y[1].cpu().numpy(),
+                           num_pdfs, floor_margin)
+
+
+def params_device(params) -> torch.device:
     for p in params:
         for t in (p.values() if isinstance(p, dict) else p):
             return t.device
@@ -105,7 +142,7 @@ class AmScorer:
                  floor_margin: float = 10.0, fetch_dtype=None,
                  device=None):
         self.device = torch.device(device) if device is not None \
-            else _params_device(params)
+            else params_device(params)
         self.nnet, self.params = nnet, params
         self.transf, self.transf_params = transf, transf_params
         self.log_prior = log_prior
@@ -151,37 +188,12 @@ class AmScorer:
         """Queue the copy of a device result (a tensor, or the top_p
         (vals, idx) pair) to fresh pinned host tensors on the side
         stream, after the compute stream's work so far."""
-        ready = torch.cuda.Event(enable_timing=True)
-        ready.record(torch.cuda.current_stream(self.device))
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
-        side = self._copy_stream
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        host = []
-        with torch.cuda.stream(side):
-            side.wait_event(ready)
-            start.record(side)
-            for t in (y if isinstance(y, tuple) else (y,)):
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                t.record_stream(side)   # the allocator keeps t for the copy
-                host.append(h)
-            done.record(side)
-        return PendingFetch(tuple(host), begin, ready, start, done)
+        return queue_host_copy(y, self._copy_stream, self.device, begin)
 
     def _fetch(self, y) -> np.ndarray:
-        """Bring a result to the host as a dense [B, T, K] f32 block
-        (reconstructing from the pruned (vals, idx) pair with top_p). On
-        CUDA ``y`` is a PendingFetch: wait for its copy only."""
-        if isinstance(y, PendingFetch):
-            y.done.synchronize()
-            y = y.host if self.top_p > 0 else y.host[0]
-        if self.top_p <= 0:
-            return y.cpu().float().numpy()
-        return dense_from_topk(y[0].cpu().float().numpy(),
-                               y[1].cpu().numpy(), self.num_pdfs,
-                               self.floor_margin)
+        return fetch_block(y, self.top_p, self.num_pdfs, self.floor_margin)
 
     def _postprocess(self, y: np.ndarray) -> np.ndarray:
         # device path already applied log-softmax / prior subtraction

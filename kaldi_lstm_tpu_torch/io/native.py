@@ -11,8 +11,8 @@ compiler nor load a half-written library.
 
 There is no fallback: a core that fails to build or load raises
 RuntimeError naming the compiler's or the loader's error. The numpy
-decoders in decode/faster.py and decode/lattice_faster.py run only when
-asked for with ``KLT_DECODE_IMPL=python``.
+decoders in decode/faster.py, decode/lattice_faster.py and
+decode/online.py run only when asked for with ``KLT_DECODE_IMPL=python``.
 
 ctypes releases the GIL for the length of each call, so decoder threads
 (``--num-threads``) search in parallel while the main thread feeds the
@@ -118,6 +118,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.klt_decode_lattice2.restype = I64
     lib.klt_decode_lattice2.argtypes = graph + [
         PD, D, D, I64, I64, PI, PD, I64, P64, P64, I64, P64, P64, I64, P64]
+    lib.klt_stream_new.restype = ctypes.c_void_p
+    lib.klt_stream_new.argtypes = [I64, P64, PI, PI, PD, I64, P64, PI, PD,
+                                   D, D, I64, I64, PI]
+    lib.klt_stream_advance.restype = I64
+    lib.klt_stream_advance.argtypes = [ctypes.c_void_p, PD, I64, I64, PI]
+    lib.klt_stream_alpha.restype = None
+    lib.klt_stream_alpha.argtypes = [ctypes.c_void_p, PD]
+    lib.klt_stream_free.restype = None
+    lib.klt_stream_free.argtypes = [ctypes.c_void_p]
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -339,3 +348,62 @@ def decode_lattice2_native(ns: int, em_ptr, em_dst, em_pdf, em_w,
     return (SparseAlphas(alev_states[:n].copy(), alev_vals[:n].copy(),
                          alev_ptr.copy()),
             _kept(em_ids, em_out_ptr, T), _kept(eps_ids, eps_out_ptr, T + 1))
+
+
+class NativeStreamSession:
+    """Persistent native Viterbi search state of one online decoder
+    (``klt_stream_*``): the search advances chunk by chunk and keeps its
+    alpha between calls. It holds the graph's CSR arrays for its lifetime
+    (the C side keeps raw pointers into them). Chunks passed to `advance`
+    are PRE-SCALED log-likelihoods (the session runs at acoustic scale
+    1.0; OnlineDecoder folds its scale in). Raises RuntimeError when the
+    core cannot be built or loaded, like every binding here."""
+
+    def __init__(self, ns: int, em_ptr, em_dst, em_pdf, em_w,
+                 eps_ptr, eps_dst, eps_w, beam: float,
+                 max_active: int, start: int):
+        lib = get_lib()
+        self._lib = lib
+        self.ns = int(ns)
+        self._refs = (em_ptr, em_dst, em_pdf, em_w, eps_ptr, eps_dst, eps_w)
+        self.bp0 = np.empty(self.ns, np.int32)
+        self._h = lib.klt_stream_new(
+            self.ns, _ptr(em_ptr, ctypes.c_int64),
+            _ptr(em_dst, ctypes.c_int), _ptr(em_pdf, ctypes.c_int),
+            _ptr(em_w, ctypes.c_double), len(em_dst),
+            _ptr(eps_ptr, ctypes.c_int64), _ptr(eps_dst, ctypes.c_int),
+            _ptr(eps_w, ctypes.c_double),
+            1.0, float(beam), int(max_active), int(start),
+            _ptr(self.bp0, ctypes.c_int))
+        self._frames = 0
+
+    def advance(self, em: np.ndarray) -> np.ndarray:
+        """em: [T, K] pre-scaled log-likelihoods. Returns the dense
+        [T, ns] int32 backpointer rows of these frames."""
+        em = np.ascontiguousarray(em, np.float64)
+        T, K = em.shape
+        bps = np.empty((T, self.ns), np.int32)
+        rc = self._lib.klt_stream_advance(
+            self._h, _ptr(em, ctypes.c_double), T, K,
+            _ptr(bps, ctypes.c_int))
+        if rc < 0:
+            raise RuntimeError(
+                f"online decode: no tokens survived at frame "
+                f"{self._frames + (-rc - 1)} — beam too tight or "
+                "loglik/graph mismatch")
+        self._frames += T
+        return bps
+
+    def alpha(self) -> np.ndarray:
+        """A copy of the search's current alpha row [ns]."""
+        out = np.empty(self.ns, np.float64)
+        self._lib.klt_stream_alpha(self._h, _ptr(out, ctypes.c_double))
+        return out
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.klt_stream_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

@@ -542,17 +542,23 @@ class _LstmBase(Component):
         """Dispatch on the call, the same for both devices: a training
         call (a gradient is needed, or a dropout mask is given) goes to
         ``lstm_train`` (K1/K2 on CUDA), an inference call to
-        ``lstm_infer`` (K5 on CUDA); each takes its plain version for a
-        CPU tensor. ``advance_mask`` runs the eager scan on the CPU only.
-        Every path takes the component's ``matmul_dtype``.
+        ``lstm_infer`` (K5 on CUDA, its masked entry point with an
+        ``advance_mask``); each takes its plain version for a CPU tensor.
+        A training call with an ``advance_mask`` runs the eager scan on
+        the CPU and raises on CUDA: K1/K2 have no mask, and the JAX
+        package never trains with one. Every path takes the component's
+        ``matmul_dtype``.
         """
         keep = 1.0 - self.dropout_rate
         dt = self.matmul_dtype
-        if advance_mask is not None:
+        training = dropout_mask is not None or needs_grad(params, x, state)
+        if advance_mask is not None and training:
             if x.device.type == "cuda":
                 raise NotImplementedError(
-                    "advance_mask on CUDA: per-frame state gating in the "
-                    "kernel is ROADMAP queue A item 3 (streaming scoring)")
+                    "advance_mask on a training call on CUDA: the "
+                    "training kernels (K1/K2) have no per-frame state "
+                    "gating, and the JAX package never trains with a "
+                    "mask (inference calls run K5's masked entry point)")
             gate_mult = None if dropout_mask is None else \
                 dropout_mask.to(x.dtype) / keep
             return lstm_scan(params, x, state, self.cell_clip,
@@ -560,13 +566,14 @@ class _LstmBase(Component):
                              gate_dropout_mask=gate_mult,
                              time_major=time_major,
                              advance_mask=advance_mask)
-        if dropout_mask is not None or needs_grad(params, x, state):
+        if training:
             return lstm_train(params, x, state, self.cell_clip,
                               time_major=time_major,
                               gate_keep_mask=dropout_mask, keep_prob=keep,
                               need_input_grad=input_grad, compute_dtype=dt)
         return lstm_infer(params, x, state, self.cell_clip,
-                          time_major=time_major, compute_dtype=dt)
+                          time_major=time_major, compute_dtype=dt,
+                          advance_mask=advance_mask)
 
     def init_params(self, generator, device=None) -> LstmParams:
         return init_lstm_params(generator, self.input_dim, self.cell_dim,

@@ -14,7 +14,8 @@ from kaldi_lstm_tpu_torch.ops import xent_affine
 
 # name -> (module, global): launches under the kernel's entry-point name
 # (the float32 entry points; the bf16 ones of the --bf16 path under
-# "<name>_bf16"), plain-version calls under "plain.<module>"
+# "<name>_bf16"; K5's advance-mask entry points under
+# "lstmp_infer_masked[_bf16]"), plain-version calls under "plain.<module>"
 _COUNTERS = {
     "lstmp_train_fwd": (lstm_train, "FWD_LAUNCHES"),
     "lstmp_train_bwd": (lstm_train, "BWD_LAUNCHES"),
@@ -26,6 +27,8 @@ _COUNTERS = {
     "xent_affine_fwd_bf16": (xent_affine, "FWD_BF16_LAUNCHES"),
     "xent_affine_bwd_bf16": (xent_affine, "BWD_BF16_LAUNCHES"),
     "lstmp_infer_bf16": (lstm_infer, "BF16_LAUNCHES"),
+    "lstmp_infer_masked": (lstm_infer, "MASKED_LAUNCHES"),
+    "lstmp_infer_masked_bf16": (lstm_infer, "MASKED_BF16_LAUNCHES"),
     "lstmp_stack_fwd2": (lstm_stack, "FWD2_LAUNCHES"),
     "lstmp_stack_infer2": (lstm_stack, "INFER2_LAUNCHES"),
     "plain.lstm_train": (lstm_train, "PLAIN_CALLS"),

@@ -2,7 +2,7 @@
 ``kaldi_lstm_tpu/ops/lstm_pallas.py::_infer_kernel``.
 
 ``lstm_infer`` takes the same arguments as the eager ``lstm_scan`` for
-an inference call (no dropout, no advance mask, float32). On a CUDA
+an inference call (no dropout, float32). On a CUDA
 tensor it launches ``csrc/lstmp_infer.cu`` (one persistent cooperative
 launch per call on the current stream, the weights resident in shared
 memory; see the source for the design) or raises; on a CPU tensor it
@@ -23,10 +23,25 @@ slices in shared memory as bf16 and rounds each staged operand at use;
 the plain versions (``lstm_cell.lstm_scan`` and
 ``lstm_infer_sliced_plain``) round the same operands.
 
+``advance_mask`` (the sticky server's ragged ticks): a [S, T] ([T, S]
+with ``time_major``) 0/1 mask; a stream keeps its (c, r) through a frame
+whose entry is 0, and its output row there is unspecified (callers
+discard it). The kernel selects on entry != 0; for a 0/1 mask and finite
+values that equals the plain scan's blend a new + (1 - a) old, which
+gives NaN where the selection does not when a masked stream's new state
+is inf. On the card the ``lstmp_infer_masked_f32`` / ``_bf16``
+entry points read it as bytes at its own strides (a uint8 mask as it is,
+any other dtype compared with 0 first); on the CPU
+``lstm_scan(advance_mask=...)`` is the plain version. A masked call that
+needs a gradient raises: the training kernels have no mask, and the JAX
+package never trains with one (``_LstmBase._run_scan`` sends such a call
+on a CPU tensor to ``lstm_scan`` itself).
+
 ``LAUNCHES`` counts the CUDA kernel launches of the float32 entry point
-(one per call), ``BF16_LAUNCHES`` those of the bf16 one; ``PLAIN_CALLS``
-counts the calls that took the plain version. A caller can zero them
-before a run and read them after it.
+(one per call), ``BF16_LAUNCHES`` those of the bf16 one,
+``MASKED_LAUNCHES`` and ``MASKED_BF16_LAUNCHES`` those of the masked
+entry points; ``PLAIN_CALLS`` counts the calls that took the plain
+version. A caller can zero them before a run and read them after it.
 
 ``k5_plan`` and ``lstm_infer_sliced_plain`` spell out in torch how the
 kernel deals the cells and projection columns to its CTAs and splits
@@ -49,6 +64,8 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import (
 
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+MASKED_LAUNCHES = 0
+MASKED_BF16_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _MAX_STREAMS = 65535 * 8  # the limit the wrapper has always enforced
@@ -59,9 +76,12 @@ H100_SMS = 132
 
 
 def reset_counts() -> None:
-    global LAUNCHES, BF16_LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, BF16_LAUNCHES, MASKED_LAUNCHES, MASKED_BF16_LAUNCHES
+    global PLAIN_CALLS
     LAUNCHES = 0
     BF16_LAUNCHES = 0
+    MASKED_LAUNCHES = 0
+    MASKED_BF16_LAUNCHES = 0
     PLAIN_CALLS = 0
 
 
@@ -76,16 +96,21 @@ def check_compute_dtype(compute_dtype, op: str) -> bool:
                     f"got {compute_dtype}")
 
 
-def _entries(bf16: bool = False):
-    """The kernel's C entry point (float32 or bf16) and the planner."""
+def _entries(bf16: bool = False, masked: bool = False):
+    """The kernel's C entry point (float32 or bf16, with or without the
+    advance mask) and the planner."""
     from kaldi_lstm_tpu_torch.ops import _build
     lib = _build.load("lstmp_infer")
-    fn = lib.lstmp_infer_bf16 if bf16 else lib.lstmp_infer_f32
+    name = ("lstmp_infer_masked_" if masked else "lstmp_infer_") \
+        + ("bf16" if bf16 else "f32")
+    fn = getattr(lib, name)
     plan = lib.lstmp_infer_plan
     p, i = ctypes.c_void_p, ctypes.c_int
     if fn.argtypes is None:
+        ll = ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                       ctypes.c_float, p]
+                       ctypes.c_float] + ([p, ll, ll] if masked else []) \
+            + [p]
         fn.restype = ctypes.c_int
     if plan.argtypes is None:
         plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
@@ -265,45 +290,74 @@ def _kernel_operands(params: LstmParams) -> tuple[torch.Tensor, ...]:
 
 def lstm_infer(params: LstmParams, x: torch.Tensor, state: LstmState,
                cell_clip: float = 50.0, time_major: bool = False,
-               compute_dtype=None) -> tuple[torch.Tensor, LstmState]:
+               compute_dtype=None, advance_mask: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, LstmState]:
     """Inference forward of one LSTMP layer over a [S, T, I] chunk
     ([T, S, I] with ``time_major``) from the carried ``state``, with the
-    products' operands in ``compute_dtype`` (None or torch.bfloat16).
-    Returns (r_out with x's layout, final state)."""
+    products' operands in ``compute_dtype`` (None or torch.bfloat16) and
+    the optional 0/1 ``advance_mask`` ([S, T], [T, S] with
+    ``time_major``; see the module docstring). Returns (r_out with x's
+    layout, final state)."""
     global PLAIN_CALLS
     check_compute_dtype(compute_dtype, "lstm_infer")
     if needs_grad(params, x, state):
         # the inference kernel keeps no residuals: a gradient needs the
-        # training kernels (K1 forward, K2 backward)
+        # training kernels (K1 forward, K2 backward), which have no mask
+        if advance_mask is not None:
+            raise NotImplementedError(
+                "lstm_infer: advance_mask on a call that needs a gradient: "
+                "the training kernels (K1/K2) have no per-frame state "
+                "gating (lstm_scan is the differentiable masked scan)")
         from kaldi_lstm_tpu_torch.ops.lstm_train import lstm_train
         return lstm_train(params, x, state, cell_clip, time_major=time_major,
                           compute_dtype=compute_dtype)
     if x.device.type == "cpu":
         PLAIN_CALLS += 1
         return lstm_scan(params, x, state, cell_clip,
-                         compute_dtype=compute_dtype, time_major=time_major)
+                         compute_dtype=compute_dtype, time_major=time_major,
+                         advance_mask=advance_mask)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_infer: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"lstm_infer: x must be 3-D, got {tuple(x.shape)}")
     x_tm = x if time_major else x.transpose(0, 1)
+    amask_tm = None
+    if advance_mask is not None:
+        amask_tm = advance_mask if time_major else advance_mask.transpose(0, 1)
     r_out, final = lstm_infer_cuda(params, x_tm, state, cell_clip,
-                                   compute_dtype)
+                                   compute_dtype, amask_tm)
     return (r_out if time_major else r_out.transpose(0, 1)), final
 
 
 def lstm_infer_cuda(params: LstmParams, x_tm: torch.Tensor,
                     state: LstmState, cell_clip: float = 50.0,
-                    compute_dtype=None) -> tuple[torch.Tensor, LstmState]:
+                    compute_dtype=None,
+                    advance_mask_tm: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, LstmState]:
     """K5 on the card over x [T, S, I] (``lstmp_infer_bf16`` when
-    ``compute_dtype`` is torch.bfloat16): (r [T, S, R], final state)."""
-    global LAUNCHES, BF16_LAUNCHES
+    ``compute_dtype`` is torch.bfloat16; the ``_masked_`` entry points
+    with a [T, S] 0/1 ``advance_mask_tm``): (r [T, S, R], final state)."""
+    global LAUNCHES, BF16_LAUNCHES, MASKED_LAUNCHES, MASKED_BF16_LAUNCHES
     bf16 = check_compute_dtype(compute_dtype, "lstm_infer")
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     dev = x_tm.device
     _check("x", x_tm, (T, S, I), dev)
     check_lstm_operands(params, T, S, I, state, dev, "lstm_infer")
+    masked = advance_mask_tm is not None
+    if masked:
+        if advance_mask_tm.device != dev:
+            raise ValueError(f"lstm_infer: advance_mask is on "
+                             f"{advance_mask_tm.device}, x is on {dev}")
+        if tuple(advance_mask_tm.shape) != (T, S):
+            raise ValueError(
+                f"lstm_infer: advance_mask has shape "
+                f"{tuple(advance_mask_tm.shape)} in time-major layout, "
+                f"expected {(T, S)}")
+        # the kernel reads one byte per (t, s) at any strides: nonzero
+        # advances (a uint8 mask goes as it is, without a transpose)
+        amask = advance_mask_tm if advance_mask_tm.dtype == torch.uint8 \
+            else (advance_mask_tm != 0).to(torch.uint8)
     if T == 0:
         return x_tm.new_empty((0, S, R)), state
 
@@ -315,17 +369,24 @@ def lstm_infer_cuda(params: LstmParams, x_tm: torch.Tensor,
     m = torch.empty((S, C), dtype=torch.float32, device=dev)
     r_out = torch.empty((T, S, R), dtype=torch.float32, device=dev)
     bar = torch.empty(1, dtype=torch.int32, device=dev)   # barrier count
-    fn, _ = _entries(bf16)
+    fn, _ = _entries(bf16, masked)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x_c.data_ptr(), w_cat.data_ptr(), bias.data_ptr(),
-                 peep.data_ptr(), wrm_t.data_ptr(), r0.data_ptr(),
-                 c.data_ptr(), m.data_ptr(), r_out.data_ptr(),
-                 bar.data_ptr(), T, S, I, C, R, float(cell_clip), stream)
+        args = [x_c.data_ptr(), w_cat.data_ptr(), bias.data_ptr(),
+                peep.data_ptr(), wrm_t.data_ptr(), r0.data_ptr(),
+                c.data_ptr(), m.data_ptr(), r_out.data_ptr(),
+                bar.data_ptr(), T, S, I, C, R, float(cell_clip)]
+        if masked:
+            args += [amask.data_ptr(), amask.stride(0), amask.stride(1)]
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"lstm_infer: CUDA launch failed with error "
                            f"{err}")
-    if bf16:
+    if masked and bf16:
+        MASKED_BF16_LAUNCHES += 1
+    elif masked:
+        MASKED_LAUNCHES += 1
+    elif bf16:
         BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1

@@ -88,6 +88,14 @@ _DECODE_MODULES = {
     "kaldi_lstm_tpu_torch.tools.nnet_decode",
 }
 
+_STREAM_MODULES = {
+    "kaldi_lstm_tpu_torch.decode.online",
+    "kaldi_lstm_tpu_torch.decode.serve",
+    "kaldi_lstm_tpu_torch.tools.online_decode",
+    "kaldi_lstm_tpu_torch.tools.online_serve_batch",
+    "kaldi_lstm_tpu_torch.tools.online_serve_sticky",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -100,13 +108,15 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = set(res.stdout.splitlines()[1].split())
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
+    assert _STREAM_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
-                                          | _DECODE_MODULES))
+                                          | _DECODE_MODULES
+                                          | _STREAM_MODULES))
 def test_monitor_modules_import_no_jax(module):
-    """Each of the debug-dump and decode modules alone, in a fresh
-    interpreter, loads neither jax nor the JAX package."""
+    """Each of the debug-dump, decode and streaming modules alone, in a
+    fresh interpreter, loads neither jax nor the JAX package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'kaldi_lstm_tpu'))\n"

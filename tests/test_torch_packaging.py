@@ -61,3 +61,25 @@ def test_the_decoder_core_is_shipped_and_built_from_it():
     assert native.SOURCE == os.path.join(CSRC, "kltdecode.cc")
     assert "kltdecode.cc" in _sources()
     assert "csrc/*.cc" in _package_data()
+
+
+def _port_scripts() -> dict[str, str]:
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return {k: v for k, v in scripts.items()
+            if v.startswith("kaldi_lstm_tpu_torch.")}
+
+
+def test_the_streaming_tools_have_console_scripts():
+    scripts = _port_scripts()
+    for tool in ("online_decode", "online_serve_batch",
+                 "online_serve_sticky"):
+        name = "klt-torch-" + tool.replace("_", "-")
+        assert scripts[name] == f"kaldi_lstm_tpu_torch.tools.{tool}:main"
+
+
+@pytest.mark.parametrize("name", sorted(_port_scripts()))
+def test_every_port_console_script_names_a_main(name):
+    import importlib
+    module, func = _port_scripts()[name].split(":")
+    assert callable(getattr(importlib.import_module(module), func))
