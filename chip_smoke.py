@@ -159,9 +159,32 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    and bytes and the host search ms, tick-wall p50/p90/p99, the card's
    idle share, peak RSS against the backpointer estimate, and occupancy
    for the sticky run;
-9. print one JSON line with every kernel (the bf16 variants as
+9. realign and post-process in phase 7's work directory, on its AM and
+   corpus (no model built twice): `nnet_align` as the recipe runs it
+   (examples/flagship_experiment.sh:271-284: class counts,
+   --apply-log=true, --acoustic-scale 1.0, beam 200) on the first 64
+   training utterances, with the K5 count zeroed just before and read
+   just after (one launch per batch of 8, no other launch, no plain
+   call), then its body on a prebuilt scorer, traced (aligned audio-s
+   per wall-s, the card's scoring ms and idle share, the host's graph
+   and Viterbi ms); the fused alignments held byte for byte to the
+   two-stage flow (nnet_forward -> ark -> align_mapped), every
+   utterance aligned and each alignment as long as its utterance;
+   printed: the frame-pdf agreement (ali_to_pdf) with the corpus's
+   ali.ark, card against --device cpu on 4 utterances, ali_to_phones
+   --ctm-output on 2; then on phase 7's 16 determinized lattices:
+   lattice_best_path equal to phase 7's one-best, lattice_copy binary
+   -> binary byte-equal and binary -> text -> binary -> text text-equal
+   (structure equal, weights within the text's 6 decimals),
+   lattice_prune --beam 6 keeping every best path, lattice_to_ctm
+   writing the best paths' words in order; printed: the WER of the
+   one-best, lattice_mbr_decode and lattice_oracle against the corpus
+   text, and the share of best paths an identity lattice_lmrescore
+   keeps;
+10. print one JSON line with every kernel (the bf16 variants as
    entries of their own; K5's adds its masked entry point's launches,
-   times and error), then the device line last.
+   times and error, and the realignment's launches), then the device
+   line last.
 """
 
 from __future__ import annotations
@@ -338,6 +361,16 @@ SINGLE_UTTS = 4
 STICKY_SLOTS = 4
 STICKY_UTTS = 16
 STICKY_ENDPOINT_UTTS = 4
+# Phase 9: realignment (examples/flagship_experiment.sh:271-284: nnet_align
+# with the class counts, --apply-log=true, --acoustic-scale 1.0 and the
+# default beam 200) on the first training utterances of phase 7's corpus
+# (the recipe realigns KLT_NSEQ = 400); the lattice tools on phase 7's
+# determinized lattices
+ALIGN_UTTS = 64
+ALIGN_CPU_UTTS = 4
+ALIGN_CTM_UTTS = 2
+ALIGN_FLAGS = ["--apply-log=true", "--acoustic-scale", "1.0"]
+PRUNE_BEAM = "6"
 
 
 def log(msg: str) -> None:
@@ -3395,6 +3428,312 @@ def phase_stream(work: str, p7: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: realign and post-process (nnet_align, align_mapped, ali_to_pdf,
+# ali_to_phones and the lattice tools) in phase 7's work directory
+# ---------------------------------------------------------------------------
+
+def phase_align(work: str, p7: dict) -> dict:
+    """Phase 9: nnet_align as the recipe runs it on phase 7's AM and
+    corpus, held to the two-stage flow byte for byte; then the lattice
+    tools on phase 7's fused lattices. Returns the K5 launches of the
+    CLI run."""
+    import contextlib as ctx
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    import kaldi_lstm_tpu_torch.tools.align_mapped as am
+    from kaldi_lstm_tpu_torch.decode.wer import EditStats, edit_distance, \
+        wer_report
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.io.lang import read_text_table
+    from kaldi_lstm_tpu_torch.io.lattice import (
+        SequentialLatticeReader,
+        lattice_best_path,
+    )
+    from kaldi_lstm_tpu_torch.io.transition_model import TransitionModel
+    from kaldi_lstm_tpu_torch.tools import (
+        ali_to_pdf,
+        ali_to_phones,
+        lattice_best_path as lbp,
+        lattice_copy,
+        lattice_lmrescore,
+        lattice_mbr_decode,
+        lattice_oracle,
+        lattice_prune,
+        lattice_to_ctm,
+        nnet_align,
+        nnet_forward,
+    )
+
+    lang, final, counts = p7["lang"], p7["final"], p7["counts"]
+    log(f"  cuts: the first {ALIGN_UTTS} training utterances of phase 7's "
+        f"corpus realigned (the recipe: KLT_NSEQ = 400); the card against "
+        f"--device cpu on the first {ALIGN_CPU_UTTS}; ali_to_phones "
+        f"--ctm-output on {ALIGN_CTM_UTTS}; the lattice tools on phase 7's "
+        f"{DECODE_LAT_UTTS} lattices")
+    with open(f"{lang}/feats.scp") as f:
+        lines = f.read().splitlines()[:ALIGN_UTTS]
+    keys = [ln.split()[0] for ln in lines]
+    texts = read_text_table(f"{lang}/text")
+
+    def write(name, rows):
+        path = os.path.join(work, name)
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        return path
+    seq_scp = "scp:" + write("seq.scp", lines)
+    cpu_scp = "scp:" + write("seq_cpu.scp", lines[:ALIGN_CPU_UTTS])
+    seq_text = write("text.seq", [f"{k} {' '.join(texts[k])}" for k in keys])
+    frames = {k: m.shape[0] for k, m in kio.SequentialMatrixReader(seq_scp)}
+    n_frames = sum(frames.values())
+    audio_s = n_frames / FRAMES_PER_AUDIO_SECOND
+    graph_args = [f"{lang}/final.mdl", f"{lang}/lexicon.txt"]
+
+    def argv(feats, out, device="cuda"):
+        return [final, *graph_args, feats, seq_text, f"ark:{out}",
+                f"--class-frame-counts={counts}", *ALIGN_FLAGS,
+                "--device", device]
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def alis(path):
+        return dict(kio.SequentialIntVectorReader(f"ark:{path}"))
+    n_batches = -(-ALIGN_UTTS // 8)
+    only_k5 = {"lstmp_infer": n_batches}
+
+    def k5_only(what, got):
+        others = {k: v for k, v in got.items() if k not in only_k5 and v}
+        if others:
+            fail(f"{what} launched other kernels or plain versions: {others}")
+
+    # 1. the CLI as the recipe runs it (model read, scoring, alignment)
+    fused = os.path.join(work, "ali_fused.ark")
+    got, cli_wall = counted(
+        f"nnet_align, the CLI as the recipe runs it, {ALIGN_UTTS} "
+        f"utterances ({n_frames} frames, {audio_s:.2f} audio-s)", only_k5,
+        lambda: nnet_align.main(argv(seq_scp, fused)))
+    k5_only("nnet_align", got)
+    launches = got["lstmp_infer"]
+    log(f"    {audio_s / cli_wall:.2f} aligned audio-s per wall-s")
+
+    # 2. the same body on a prebuilt scorer, instrumented and traced
+    args = nnet_align.build_parser().parse_args(
+        argv(seq_scp, os.path.join(work, "ali_body.ark")))
+    scorer = nnet_align.make_scorer(args)
+    pend, graph_s, align_s = [], [], []
+    dispatch = scorer._dispatch
+
+    def tracked(group):
+        pend.append(dispatch(group))
+        return pend[-1]
+    scorer._dispatch = tracked
+    build, viterbi = am.build_alignment_graph, am.align_mapped
+
+    def timed(fn, acc):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc.append(time.perf_counter() - t0)
+        return run
+    am.build_alignment_graph = timed(build, graph_s)
+    am.align_mapped = timed(viterbi, align_s)
+    prof = tprofile(activities=[ProfilerActivity.CUDA])
+    try:
+        with prof:
+            got, wall = counted(
+                "nnet_align body on a prebuilt scorer (traced)", only_k5,
+                lambda: nnet_align.align_features(args, scorer))
+    finally:
+        am.build_alignment_graph, am.align_mapped = build, viterbi
+    k5_only("nnet_align body", got)
+    scoring_ms = sum(p.begin.elapsed_time(p.ready) for p in pend)
+    busy, copies = profiled_busy_ms(prof)
+    idle = None if busy <= 0 else max(0.0, 1 - busy / (1e3 * wall))
+    log(f"    {audio_s / wall:.2f} aligned audio-s per wall-s ({wall:.3f} s)"
+        f"; card: scoring (input copy + forward, CUDA events) "
+        f"{scoring_ms:.3f} ms over {len(pend)} batches "
+        f"({', '.join(f'{p.begin.elapsed_time(p.ready):.3f}' for p in pend)}"
+        f" ms); host: alignment graphs {1e3 * sum(graph_s):.3f} ms, Viterbi "
+        f"{1e3 * sum(align_s):.3f} ms ({len(align_s)} utterances)")
+    log("    card idle share over the run (torch.profiler, kernel time "
+        f"{busy:.3f} ms of {1e3 * wall:.3f} ms wall; copies and sets "
+        f"{copies:.3f} ms): "
+        + ("not measured (no kernel time recorded)" if idle is None
+           else f"{idle:.4f}"))
+    if read(fused) != read(os.path.join(work, "ali_body.ark")):
+        fail("the instrumented nnet_align body wrote other alignments "
+             "than the CLI")
+
+    # 3. the two-stage flow: nnet_forward -> ark -> align_mapped
+    loglik = os.path.join(work, "seq_loglik.ark")
+    two = os.path.join(work, "ali_two.ark")
+    got, _ = counted("nnet_forward (two-stage flow, stage 1)", only_k5,
+                     lambda: nnet_forward.main(
+                         [final, seq_scp, f"ark:{loglik}",
+                          f"--class-frame-counts={counts}",
+                          "--apply-log=true", "--device", "cuda"]))
+    k5_only("nnet_forward", got)
+    t0 = time.perf_counter()
+    if am.main([*graph_args, f"ark:{loglik}", seq_text, f"ark:{two}",
+                "--acoustic-scale", "1.0"]) != 0:
+        fail("two-stage align_mapped failed")
+    log(f"  two-stage align_mapped over the ark: "
+        f"{time.perf_counter() - t0:.3f} s")
+    if read(two) != read(fused):
+        fail("fused and two-stage alignments differ")
+    ali = alis(fused)
+    if list(ali) != keys:
+        fail(f"{ALIGN_UTTS - len(ali)} utterances failed to align "
+             f"({len(ali)} of {ALIGN_UTTS} written)")
+    bad = [k for k in keys if len(ali[k]) != frames[k]]
+    if bad:
+        fail(f"alignment lengths differ from the frame counts: {bad[:4]}")
+    log(f"  fused and two-stage alignments ({len(read(fused))} bytes): "
+        f"byte-identical; {len(ali)} of {ALIGN_UTTS} utterances aligned, "
+        f"each alignment as long as its utterance")
+
+    # 4. printed, not gated: the truth, the CPU, ali_to_phones
+    pdf_ark = os.path.join(work, "ali_pdf.ark")
+    if ali_to_pdf.main([f"{lang}/final.mdl", f"ark:{fused}",
+                        f"ark:{pdf_ark}"]) != 0:
+        fail("ali_to_pdf failed")
+    tm = TransitionModel.load(f"{lang}/final.mdl")
+    truth = {k: tm.transition_ids_to_pdfs(a) for k, a in
+             kio.SequentialIntVectorReader(f"ark:{lang}/ali.ark")
+             if k in frames}
+    same = sum(int((p == truth[k]).sum())
+               for k, p in kio.SequentialIntVectorReader(f"ark:{pdf_ark}"))
+    log(f"  frames whose ali_to_pdf pdf equals the corpus's ali.ark pdf: "
+        f"{same / n_frames:.4f} (not gated)")
+    cpu_ali = os.path.join(work, "ali_cpu.ark")
+    t0 = time.perf_counter()
+    if nnet_align.main(argv(cpu_scp, cpu_ali, "cpu")) != 0:
+        fail("nnet_align --device cpu failed")
+    cpu = alis(cpu_ali)
+    same_cpu = sum(np.array_equal(cpu[k], ali[k]) for k in cpu)
+    log(f"  --device cpu on {ALIGN_CPU_UTTS} utterances "
+        f"({time.perf_counter() - t0:.3f} s): alignments equal to the "
+        f"card's {same_cpu}/{ALIGN_CPU_UTTS} (not gated)")
+    two_ark = os.path.join(work, "ali_ctm.ark")
+    with kio.TableWriter(f"ark:{two_ark}", kio.write_int_vector) as w:
+        for k in keys[:ALIGN_CTM_UTTS]:
+            w.write(k, ali[k])
+    ctm = os.path.join(work, "phones.ctm")
+    if ali_to_phones.main([f"{lang}/final.mdl", f"ark:{two_ark}", ctm,
+                           "--ctm-output", "true"]) != 0:
+        fail("ali_to_phones --ctm-output failed")
+    with open(ctm) as f:
+        ctm_lines = f.read().splitlines()
+    log(f"  ali_to_phones --ctm-output on {ALIGN_CTM_UTTS} utterances: "
+        f"{len(ctm_lines)} phone lines; the first 6 of each:")
+    for k in keys[:ALIGN_CTM_UTTS]:
+        for ln in [ln for ln in ctm_lines if ln.split()[0] == k][:6]:
+            log(f"    {ln}")
+
+    # 5. the lattice tools on phase 7's fused lattices
+    lats = os.path.join(work, "lat_fused.ark")
+    words = ["--word-symbol-table", f"{lang}/words.txt"]
+    one_best = read_text_table(os.path.join(work, "lhyp_fused.txt"))
+    lat_keys = list(one_best)
+    t0 = time.perf_counter()
+    bp = os.path.join(work, "lat_bp.txt")
+    if lbp.main([f"ark:{lats}", f"ark,t:{bp}", *words]) != 0:
+        fail("lattice_best_path failed")
+    if read_text_table(bp) != one_best:
+        fail("lattice_best_path differs from phase 7's lattice one-best")
+    copies = [os.path.join(work, n) for n in
+              ("lat_copy.ark", "lat_t1.txt", "lat_t1.ark", "lat_t2.txt")]
+    steps = [(lats, copies[0], "ark"), (lats, copies[1], "ark,t"),
+             (copies[1], copies[2], "ark"), (copies[2], copies[3], "ark,t")]
+    for src, dst, spec in steps:
+        if lattice_copy.main([f"ark:{src}", f"{spec}:{dst}"]) != 0:
+            fail(f"lattice_copy {src} -> {spec}:{dst} failed")
+    if read(copies[0]) != read(lats) or read(copies[1]) != read(copies[3]):
+        fail("lattice_copy did not reproduce the binary bytes, or binary "
+             "-> text -> binary -> text changed the text")
+    orig = dict(SequentialLatticeReader(f"ark:{lats}"))
+    back = dict(SequentialLatticeReader(f"ark:{copies[2]}"))
+    worst = 0.0
+    for k in orig:
+        a, b = orig[k], back[k]
+        if (a.start, [[(x.label, x.tids, x.dst) for x in arcs]
+                      for arcs in a.arcs]) != \
+                (b.start, [[(x.label, x.tids, x.dst) for x in arcs]
+                           for arcs in b.arcs]) or \
+                sorted(a.final) != sorted(b.final):
+            fail(f"{k}: binary -> text -> binary changed the structure")
+        for arcs_a, arcs_b in zip(a.arcs, b.arcs):
+            for x, y in zip(arcs_a, arcs_b):
+                worst = max(worst, abs(x.graph_cost - y.graph_cost),
+                            abs(x.acoustic_cost - y.acoustic_cost))
+    if worst > 1e-3:
+        fail(f"binary -> text -> binary moved a weight by {worst:.3e}")
+    pruned = os.path.join(work, "lat_pruned.ark")
+    if lattice_prune.main([f"ark:{lats}", f"ark:{pruned}", "--beam",
+                           PRUNE_BEAM]) != 0:
+        fail("lattice_prune failed")
+    p_words = {k: lattice_best_path(v)[0] for k, v in
+               SequentialLatticeReader(f"ark:{pruned}")}
+    o_words = {k: lattice_best_path(v)[0] for k, v in orig.items()}
+    if p_words != o_words:
+        fail(f"lattice_prune --beam {PRUNE_BEAM} changed a best path")
+    ctm_w = os.path.join(work, "lat.ctm")
+    if lattice_to_ctm.main([f"ark:{lats}", ctm_w, *words]) != 0:
+        fail("lattice_to_ctm failed")
+    by_utt = {k: [] for k in lat_keys}
+    with open(ctm_w) as f:
+        for ln in f:
+            by_utt[ln.split()[0]].append(ln.split()[4])
+    if by_utt != one_best:
+        fail("lattice_to_ctm's words differ from the best path's")
+    log(f"  lattice tools on {len(lat_keys)} lattices "
+        f"({time.perf_counter() - t0:.3f} s): lattice_best_path equals "
+        f"phase 7's one-best; lattice_copy binary -> binary reproduces the "
+        f"bytes, binary -> text -> binary -> text the text (the text form "
+        f"keeps 6 decimals: largest weight change {worst:.3e}, structure "
+        f"equal); lattice_prune --beam {PRUNE_BEAM} keeps every best path "
+        f"({sum(v.num_arcs() for v in orig.values())} -> "
+        f"{sum(v.num_arcs() for k, v in SequentialLatticeReader(f'ark:{pruned}'))}"
+        f" arcs); lattice_to_ctm writes the best paths' words in order")
+
+    corpus = read_text_table(f"{lang}/text")
+
+    def wer(hyp) -> str:
+        total = EditStats()
+        for k in lat_keys:
+            total.add(edit_distance(corpus[k], hyp[k]))
+        return wer_report(total)
+    t0 = time.perf_counter()
+    mbr = os.path.join(work, "lat_mbr.txt")
+    if lattice_mbr_decode.main([f"ark:{lats}", f"ark,t:{mbr}", *words]) != 0:
+        fail("lattice_mbr_decode failed")
+    oracle = os.path.join(work, "lat_oracle.txt")
+    with ctx.redirect_stdout(sys.stderr):
+        rc = lattice_oracle.main([f"ark:{lats}", f"{lang}/text", *words,
+                                  "--oracle-wspecifier", f"ark,t:{oracle}"])
+    if rc != 0:
+        fail("lattice_oracle failed")
+    resc = os.path.join(work, "lat_resc.ark")
+    if lattice_lmrescore.main([f"ark:{lats}", f"{lang}/lm.arpa",
+                               f"{lang}/lm.arpa", f"ark:{resc}",
+                               *words]) != 0:
+        fail("lattice_lmrescore failed")
+    r_words = {k: lattice_best_path(v)[0] for k, v in
+               SequentialLatticeReader(f"ark:{resc}")}
+    same_resc = sum(r_words[k] == o_words[k] for k in lat_keys)
+    log(f"  ({time.perf_counter() - t0:.3f} s, not gated) against the "
+        f"corpus text: lattice one-best {wer(one_best)}; lattice_mbr_decode "
+        f"{wer(read_text_table(mbr))}; lattice_oracle "
+        f"{wer(read_text_table(oracle))}; lattice_lmrescore (old and new "
+        f"LM phase 7's trigram) keeps the best path's words in "
+        f"{same_resc}/{len(lat_keys)}")
+    return {"launches": launches, "wall_s": wall, "cli_wall_s": cli_wall,
+            "scoring_ms": scoring_ms, "idle": idle}
+
+
 def phase_main_path(work: str):
     import torch
     from kaldi_lstm_tpu_torch.decode.scoring import (
@@ -3664,6 +4003,10 @@ def main() -> int:
             "online_serve_sticky) on phase 7's AM")
         stream = phase_stream(work, decode)
         del decode["graph"]
+        log("phase 9: realign and post-process (nnet_align, align_mapped, "
+            "ali_to_pdf, ali_to_phones, the lattice tools) on phase 7's AM, "
+            "corpus and lattices")
+        align = phase_align(work, decode)
 
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
@@ -3673,6 +4016,7 @@ def main() -> int:
         "stream_launches": stream["dense"]["launches"],
         "single_stream_launches": stream["single"]["launches"],
         "masked_launches": stream["sticky"]["launches"],
+        "align_launches": align["launches"],
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "kernel_ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

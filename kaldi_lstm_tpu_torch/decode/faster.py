@@ -178,10 +178,12 @@ def _frame_step(cg: CompiledGraph, alpha, active, em_t, beam: float,
     return alpha, active
 
 
-def _traceback(cg: CompiledGraph, bps, state: int, level: int) -> list:
+def _traceback_full(cg: CompiledGraph, bps, state: int,
+                    level: int) -> tuple:
     """Walk backpointer rows from (level, state) to (0, start); returns
-    the word ids on the path. `bps` is indexable per level."""
-    words = []
+    (words, tids): the word ids on the path and one transition-id per
+    frame (emitting arc). `bps` is indexable per level."""
+    words, tids = [], []
     while not (level == 0 and state == cg.start
                and bps[0][state] == -1):
         arc = int(bps[level][state])
@@ -195,10 +197,16 @@ def _traceback(cg: CompiledGraph, bps, state: int, level: int) -> list:
         else:
             if cg.em_word[arc]:
                 words.append(int(cg.em_word[arc]))
+            tids.append(int(cg.em_tid[arc]))
             state = int(cg.em_src[arc])
             level -= 1
     words.reverse()
-    return words
+    tids.reverse()
+    return words, tids
+
+
+def _traceback(cg: CompiledGraph, bps, state: int, level: int) -> list:
+    return _traceback_full(cg, bps, state, level)[0]
 
 
 def decode_faster(graph: DecodingGraph, loglik: np.ndarray,

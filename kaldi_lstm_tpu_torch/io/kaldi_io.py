@@ -8,7 +8,8 @@ interoperate with the JAX package and with upstream Kaldi:
 * tokens are space-terminated ASCII words (``<CellDim> ``);
 * basic types are written as a size byte then little-endian payload;
 * float matrices are ``FM `` + int32 rows + int32 cols + row-major f32;
-  compressed feature matrices (``CM``/``CM2``/``CM3``) are read;
+  compressed feature matrices (``CM``/``CM2``/``CM3``) are read and
+  written (byte for byte as the JAX package writes them);
 * float vectors are ``FV `` + int32 dim + f32 data;
 * posteriors are int32 frames, then per frame int32 n and n (int32
   pdf-id, f32 weight) pairs (text: ``[ id w id w ] [ ... ]``).
@@ -310,6 +311,67 @@ def read_compressed_matrix(inp: KaldiInput, token: str) -> np.ndarray:
     return np.ascontiguousarray(out.T)
 
 
+def _float_to_uint16(h_min, h_range, m):
+    f = (m - h_min) / h_range
+    return np.clip(f * 65535.0 + 0.499, 0, 65535).astype("<u2")
+
+
+def write_compressed_matrix(out: KaldiOutput, mat: np.ndarray,
+                            method: str = "auto") -> None:
+    """Write in the upstream compressed wire format. method: "auto"
+    (upstream kSpeechFeature heuristic: CM for >= 8 rows, CM2 below),
+    or an explicit "CM"/"CM2"/"CM3". Lossy: ~range/255 absolute error
+    (CM/CM3), ~range/65535 (CM2). Text mode has no compressed form and
+    writes the plain matrix."""
+    if not out.binary:
+        write_matrix(out, mat)
+        return
+    mat = np.asarray(mat, np.float32)
+    rows, cols = mat.shape
+    if method == "auto":
+        method = "CM" if rows >= 8 else "CM2"
+    mn = float(mat.min()) if mat.size else 0.0
+    mx = float(mat.max()) if mat.size else 0.0
+    rng = mx - mn
+    if rng <= 0:
+        rng = 1.0e-5 if mn == 0 else abs(mn) * 0.01 + 1.0e-5
+    write_token(out, method)
+    out.stream.write(struct.pack("<ffii", mn, rng, rows, cols))
+    if method == "CM2":
+        out.stream.write(_float_to_uint16(mn, rng, mat).tobytes())
+        return
+    if method == "CM3":
+        q = np.clip((mat - mn) / rng * 255.0 + 0.499, 0, 255)
+        out.stream.write(q.astype(np.uint8).tobytes())
+        return
+    if method != "CM":
+        raise ValueError(f"write_compressed_matrix: unknown {method!r}")
+    srt = np.sort(mat, axis=0)  # per column
+    q1, q3 = max((rows - 1) // 4, 0), max((3 * (rows - 1)) // 4, 0)
+    pch = np.stack([srt[0], srt[q1], srt[q3], srt[-1]], axis=1)
+    pch_u = _float_to_uint16(mn, rng, pch)
+    # strictly increasing quantized percentiles, so the inverse mapping
+    # never divides by zero (upstream does the same):
+    # out[i] = max_{j<=i}(a[j]-j) + i gives out[i+1] >= out[i]+1
+    ar = np.arange(4)
+    pch_u = np.maximum.accumulate(
+        pch_u.astype(np.int64) - ar, axis=1) + ar
+    pch_u = np.clip(pch_u, ar, 65532 + ar).astype("<u2")
+    out.stream.write(pch_u.tobytes())
+    p = mn + rng * (1.0 / 65535.0) * pch_u.astype(np.float32)
+    p0, p25, p75, p100 = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    v = mat.T  # column-major
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lo = (v - p0[:, None]) / (p25 - p0)[:, None] * 64.0
+        mid = 64.0 + (v - p25[:, None]) / (p75 - p25)[:, None] * 128.0
+        hi = 192.0 + (v - p75[:, None]) / (p100 - p75)[:, None] * 63.0
+    q = np.where(v < p25[:, None], lo,
+                 np.where(v < p75[:, None], mid, hi))
+    q = np.clip(np.nan_to_num(q, nan=0.0, posinf=255.0, neginf=0.0)
+                + 0.499, 0, 255).astype(np.uint8)
+    out.stream.write(q.tobytes())
+
+
 def write_vector(out: KaldiOutput, vec: np.ndarray) -> None:
     vec = np.asarray(vec, np.float32).reshape(-1)
     if out.binary:
@@ -547,6 +609,53 @@ def read_matrix_from_rxfilename(rxfilename: str) -> np.ndarray:
         return read_matrix(KaldiInput(f))
 
 
+# -- mmap views for scp random access ---------------------------------------
+# Each ark shard is mapped once (one mapping per distinct file) and
+# records come back as zero-copy views, instead of an open + seek +
+# parse per record.
+
+_MMAP_CACHE: dict = {}
+_MMAP_CACHE_LIMIT = 256     # mappings kept open (ark shards)
+
+
+def _mmap_file(path: str):
+    import mmap
+    mm = _MMAP_CACHE.get(path)
+    if mm is None:
+        try:
+            with open(path, "rb") as f:
+                if os.fstat(f.fileno()).st_size == 0:
+                    return None
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except OSError:
+            return None
+        if len(_MMAP_CACHE) >= _MMAP_CACHE_LIMIT:
+            # drop the oldest mapping; views keep it alive until freed
+            _MMAP_CACHE.pop(next(iter(_MMAP_CACHE)))
+        _MMAP_CACHE[path] = mm
+    return mm
+
+
+def read_matrix_view(path: str, offset: int):
+    """Zero-copy float32 [rows, cols] view of a binary FM record at an scp
+    offset (the byte position of the ``\\0B`` header). Returns None when
+    the record is not a binary float matrix or is truncated; the caller
+    then reads it with the generic reader."""
+    mm = _mmap_file(path)
+    if mm is None:
+        return None
+    hdr = mm[offset:offset + 15]
+    if (len(hdr) < 15 or hdr[:2] != BINARY_HEADER or hdr[2:5] != b"FM "
+            or hdr[5:6] != b"\x04" or hdr[10:11] != b"\x04"):
+        return None
+    rows = int.from_bytes(hdr[6:10], "little", signed=True)
+    cols = int.from_bytes(hdr[11:15], "little", signed=True)
+    if rows < 0 or cols < 0 or offset + 15 + rows * cols * 4 > len(mm):
+        return None
+    return np.frombuffer(mm, np.float32, count=rows * cols,
+                         offset=offset + 15).reshape(rows, cols)
+
+
 class SequentialMatrixReader:
     """Sequential reader over `ark:`/`scp:` float-matrix tables (the
     feature source of the scoring tools)."""
@@ -649,6 +758,26 @@ def MatrixWriter(wspecifier: str) -> TableWriter:
     return TableWriter(wspecifier, write_matrix)
 
 
+def CompressedMatrixWriter(wspecifier: str,
+                           method: str = "auto") -> TableWriter:
+    """MatrixWriter with upstream --compress=true semantics (the lossy CM
+    wire format; feature arks about 4x smaller)."""
+    return TableWriter(wspecifier,
+                       lambda out, m: write_compressed_matrix(out, m,
+                                                              method))
+
+
+def Int32Writer(wspecifier: str) -> TableWriter:
+    """Per-key int32 table (upstream Int32Writer, e.g. feat-to-len's
+    output). Text mode writes the usual `key 345` line."""
+    def _write(out: KaldiOutput, value: int) -> None:
+        if out.binary:
+            write_int32(out, int(value))
+        else:
+            out.stream.write(f"{int(value)}\n".encode())
+    return TableWriter(wspecifier, _write)
+
+
 def PosteriorWriter(wspecifier: str) -> TableWriter:
     return TableWriter(wspecifier, write_posterior)
 
@@ -747,3 +876,62 @@ def read_float_vectors(rspecifier: str) -> dict[str, np.ndarray]:
             break
         out[key] = read_vector(_read_value_header(buffered))
     return out
+
+
+class SequentialInt32Reader:
+    """Sequential reader over `ark:` int32 tables (lengths etc.)."""
+
+    def __init__(self, rspecifier: str):
+        self.kind, self.stream = _open_rspecifier(rspecifier)
+
+    def __iter__(self) -> Iterator[tuple[str, int]]:
+        if self.kind == "scp":
+            raise ValueError("scp int32 tables not supported")
+        stream = _buffered(self.stream)
+        while True:
+            key = _read_key(stream)
+            if key is None:
+                return
+            yield key, read_int32(_read_value_header(stream))
+
+
+class RandomAccessMatrixReader:
+    """Random-access float-matrix reader (upstream
+    RandomAccessBaseFloatMatrixReader), the secondary input of tools like
+    paste-feats. `scp:` sources stay lazy (mmap views by offset); `ark:`
+    sources are read whole into memory."""
+
+    def __init__(self, rspecifier: str):
+        self.kind, stream = _open_rspecifier(rspecifier)
+        self._table: dict[str, np.ndarray] = {}
+        self._scp: dict[str, str] = {}
+        if self.kind == "ark":
+            buffered = _buffered(stream)
+            while True:
+                key = _read_key(buffered)
+                if key is None:
+                    break
+                self._table[key] = read_matrix(_read_value_header(buffered))
+            if buffered is not sys.stdin.buffer:
+                buffered.close()
+        else:
+            with io.TextIOWrapper(stream) as lines:
+                for line in lines:
+                    line = line.strip()
+                    if line:
+                        key, path = line.split(None, 1)
+                        self._scp[key] = path
+
+    def has_key(self, key: str) -> bool:
+        return key in self._table or key in self._scp
+
+    def value(self, key: str) -> np.ndarray:
+        if key in self._table:
+            return self._table[key]
+        rxf = self._scp[key]
+        path, offset = _split_offset(rxf)
+        if offset is not None:
+            mat = read_matrix_view(path, offset)
+            if mat is not None:
+                return mat
+        return read_matrix_from_rxfilename(rxf)

@@ -19,16 +19,23 @@ class SymbolTable:
 
     sym2id: dict = field(default_factory=dict)
     id2sym: dict = field(default_factory=dict)
+    # one past the largest id, so that `add` is O(1): a 10k-word table
+    # is built for every utterance an alignment graph is made for
+    _next: int = field(default=0, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self._next = max(self.id2sym, default=-1) + 1
 
     def add(self, sym: str, idx: int | None = None) -> int:
         if sym in self.sym2id:
             return self.sym2id[sym]
         if idx is None:
-            idx = max(self.id2sym, default=-1) + 1
+            idx = self._next
         if idx in self.id2sym:
             raise ValueError(f"duplicate symbol id {idx}")
         self.sym2id[sym] = idx
         self.id2sym[idx] = sym
+        self._next = max(self._next, idx + 1)
         return idx
 
     def __contains__(self, sym: str) -> bool:

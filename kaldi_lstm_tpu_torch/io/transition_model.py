@@ -2,7 +2,8 @@
 transition-id -> pdf-id mapping.
 
 This package's copy of ``kaldi_lstm_tpu.io.transition_model``: the part
-that the decoders and the word corpus generator use. Kaldi recipes start
+that the decoders, the aligner, the ali-to-* tools and the word corpus
+generator use. Kaldi recipes start
 from a GMM transition model (``ali-to-pdf final.mdl ark:ali.ark ark:- |
 ali-to-post ark:- ark:-``): the alignments on disk are *transition-ids*;
 the network is trained on *pdf-ids* (senones). This module supplies
@@ -251,6 +252,9 @@ class TransitionModel:
         return int(max((max(t[2], t[3]) for t in self.tuples),
                        default=-1)) + 1
 
+    def transition_id_to_pdf(self, tid: int) -> int:
+        return int(self.id2pdf[tid])
+
     def transition_ids_to_pdfs(self, tids) -> np.ndarray:
         """Vectorized tid -> pdf (the ali-to-pdf hot path)."""
         tids = np.asarray(tids, np.int64)
@@ -260,6 +264,33 @@ class TransitionModel:
             raise ValueError(f"transition-id {bad} out of range "
                              f"[1, {self.num_transition_ids}]")
         return self.id2pdf[tids]
+
+    def transition_ids_to_phones(self, tids) -> np.ndarray:
+        """Vectorized tid -> phone (ali-to-phones --per-frame)."""
+        tids = np.asarray(tids, np.int64)
+        if tids.size and (tids.min() < 1
+                          or tids.max() > self.num_transition_ids):
+            bad = tids[(tids < 1) | (tids > self.num_transition_ids)][0]
+            raise ValueError(f"transition-id {bad} out of range "
+                             f"[1, {self.num_transition_ids}]")
+        return self.id2phone[tids]
+
+    def split_to_phones(self, tids) -> list[np.ndarray]:
+        """Split a per-frame transition-id alignment into per-phone
+        segments (upstream hmm-utils SplitToPhones): a segment ends at
+        a final transition (into the entry's non-emitting state) or,
+        for defective alignments, where the phone changes."""
+        tids = np.asarray(tids, np.int64)
+        segs = []
+        start = 0
+        for i in range(len(tids)):
+            end_here = self.id2final[tids[i]] or (
+                i + 1 < len(tids)
+                and self.id2phone[tids[i + 1]] != self.id2phone[tids[i]])
+            if end_here or i == len(tids) - 1:
+                segs.append(tids[start:i + 1])
+                start = i + 1
+        return segs
 
     # -- serialization ---------------------------------------------------
     def write(self, out: KaldiOutput) -> None:

@@ -22,7 +22,7 @@ On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs the plain version beside it here, the serial composition of the
 one-layer functions (``lstm_train.lstm_fwd_residuals_plain`` twice,
 ``lstm_cell.lstm_scan`` twice). It never falls back from the card to the
-plain version. float32 only (bf16 is ROADMAP queue A item 5); no dropout
+plain version. float32 only (bf16 variants are ROADMAP B.3); no dropout
 and no advance mask, as the TPU kernels take neither. The results are
 not differentiable: a gradient goes through ``lstm_train.lstm_bwd``
 layer by layer.

@@ -16,7 +16,7 @@ called ``calls_per_bench(G, reps)`` times. Modes:
   fed layer 1's r) against the wavefront forward (K6) at tb 5, 4, 2;
   then the serial inference forward (K5 per layer) against the
   wavefront inference (K7) at tb 5, 4. float32 (the bf16 rows wait for
-  ROADMAP queue A item 5).
+  ROADMAP B.3).
 * ``ablate``: K6 with only layer 1's work, only layer 2's, both, and the
   single-layer kernel K1: whether the two layers' work overlaps.
 * ``profile``: device time per kernel and call of the serial and the
@@ -140,7 +140,7 @@ def run_ab(b: Bench) -> dict:
         res[f"wave infer tb{tb}"] = m
         print(f"  -> wavefront speedup {res['serial infer'] / m:.3f}x",
               flush=True)
-    print("bf16 rows: not run (bf16 kernels are ROADMAP queue A item 5)",
+    print("bf16 rows: not run (bf16 K6/K7 are ROADMAP B.3)",
           flush=True)
     return res
 

@@ -227,9 +227,21 @@ def test_nnet_decode_device_cuda_without_cuda_exits_1(tmp_path, monkeypatch,
 
 
 def test_raw_lattice_writer_refuses_a_compact_lattice(tmp_path):
-    from kaldi_lstm_tpu_torch.io.lattice import CompactLattice, LatticeWriter
-    clat = CompactLattice()
-    clat.add_state()
-    with LatticeWriter(f"ark:{tmp_path / 'l.ark'}", compact=False) as w:
-        with pytest.raises(TypeError, match="state-level"):
+    """The raw writer no longer refuses a CompactLattice: it writes the
+    state-level Lattice of compact_to_lattice, byte for byte as the JAX
+    package's raw writer does (tests/test_torch_lattice.py holds more
+    cases)."""
+    from kaldi_lstm_tpu.io import lattice as jl
+    from kaldi_lstm_tpu_torch.io import lattice as pl
+    for tag, mod in (("port", pl), ("jax", jl)):
+        clat = mod.CompactLattice()
+        for _ in range(2):
+            clat.add_state()
+        clat.arcs[0].append(mod.CompactLatticeArc(3, 0.5, 1.5, (4, 5), 1))
+        clat.final[1] = (0.25, 0.0, (6,))
+        with mod.LatticeWriter(f"ark:{tmp_path / tag}.ark",
+                               compact=False) as w:
             w.write("utt", clat)
+    raw = (tmp_path / "port.ark").read_bytes()
+    assert raw == (tmp_path / "jax.ark").read_bytes()
+    assert b"lattice4" in raw and b"compactlattice44" not in raw

@@ -96,6 +96,26 @@ _STREAM_MODULES = {
     "kaldi_lstm_tpu_torch.tools.online_serve_sticky",
 }
 
+_ALIGN_MODULES = {
+    "kaldi_lstm_tpu_torch.decode.align",
+    "kaldi_lstm_tpu_torch.decode.mbr",
+    "kaldi_lstm_tpu_torch.decode.viterbi",
+    "kaldi_lstm_tpu_torch.tools.ali_to_pdf",
+    "kaldi_lstm_tpu_torch.tools.ali_to_phones",
+    "kaldi_lstm_tpu_torch.tools.align_mapped",
+    "kaldi_lstm_tpu_torch.tools.decode_viterbi",
+    "kaldi_lstm_tpu_torch.tools.lattice_best_path",
+    "kaldi_lstm_tpu_torch.tools.lattice_copy",
+    "kaldi_lstm_tpu_torch.tools.lattice_determinize",
+    "kaldi_lstm_tpu_torch.tools.lattice_lmrescore",
+    "kaldi_lstm_tpu_torch.tools.lattice_mbr_decode",
+    "kaldi_lstm_tpu_torch.tools.lattice_oracle",
+    "kaldi_lstm_tpu_torch.tools.lattice_prune",
+    "kaldi_lstm_tpu_torch.tools.lattice_to_ctm",
+    "kaldi_lstm_tpu_torch.tools.lattice_to_post",
+    "kaldi_lstm_tpu_torch.tools.nnet_align",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -108,15 +128,17 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = set(res.stdout.splitlines()[1].split())
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
-    assert _STREAM_MODULES <= names
+    assert _STREAM_MODULES <= names and _ALIGN_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
                                           | _DECODE_MODULES
-                                          | _STREAM_MODULES))
+                                          | _STREAM_MODULES
+                                          | _ALIGN_MODULES))
 def test_monitor_modules_import_no_jax(module):
-    """Each of the debug-dump, decode and streaming modules alone, in a
-    fresh interpreter, loads neither jax nor the JAX package."""
+    """Each of the debug-dump, decode, streaming, alignment and lattice
+    modules alone, in a fresh interpreter, loads neither jax nor the JAX
+    package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'kaldi_lstm_tpu'))\n"

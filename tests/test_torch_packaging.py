@@ -78,6 +78,25 @@ def test_the_streaming_tools_have_console_scripts():
         assert scripts[name] == f"kaldi_lstm_tpu_torch.tools.{tool}:main"
 
 
+_ALIGN_LATTICE_TOOLS = (
+    "align_mapped", "ali_to_pdf", "decode_viterbi", "lattice_best_path",
+    "lattice_copy", "lattice_determinize", "lattice_oracle", "lattice_prune",
+    "lattice_lmrescore", "lattice_to_post", "lattice_mbr_decode",
+    "lattice_to_ctm")
+
+
+@pytest.mark.parametrize("tool", _ALIGN_LATTICE_TOOLS)
+def test_the_alignment_and_lattice_tools_have_console_scripts(tool):
+    """Each alignment, Viterbi and lattice tool that the JAX package
+    ships as `klt-<tool>` has its `klt-torch-<tool>` twin."""
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    name = tool.replace("_", "-")
+    assert scripts[f"klt-{name}"] == f"kaldi_lstm_tpu.tools.{tool}:main"
+    assert scripts[f"klt-torch-{name}"] == \
+        f"kaldi_lstm_tpu_torch.tools.{tool}:main"
+
+
 @pytest.mark.parametrize("name", sorted(_port_scripts()))
 def test_every_port_console_script_names_a_main(name):
     import importlib
