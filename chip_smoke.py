@@ -181,10 +181,40 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    one-best, lattice_mbr_decode and lattice_oracle against the corpus
    text, and the share of best paths an identity lattice_lmrescore
    keeps;
-10. print one JSON line with every kernel (the bf16 variants as
+10. per-utterance and frame-shuffled training. 10a: K1/K2 against
+   their plain versions at the per-utterance shapes (S=1, T=128 and
+   1024 at I=40, C=800, R=512; a second layer with dx at I=1024; a
+   ragged clipped dropout case), a BLSTM layer's two directions (one K1
+   and one K2 call each, the backward one on the time-flipped input) at
+   T=1024 and, with dx, at I=1024; K3/K4 at the BLSTM's R=1024 (N=1024)
+   and the DNN's minibatch (N=256), K=8000; K5 on the BLSTM's flipped
+   half at S=8, T=1000; K1 and K2 timed at S=1, T=1024 (ms, launches,
+   us a launch). 10b: the standard variant's trainer: nnet_initialize
+   builds phase 4's decode net from a seed and `nnet_train_perutt
+   --device cuda` trains it one epoch on phase 5's corpus (buckets
+   128/256/384), the counts zeroed just before and read just after
+   (K1-K4 against the sum over utterances of the prediction, no plain
+   call, no K5); two CV passes agree to the last digit, the CV AvgLoss
+   falls, two utterances on the card against the CPU path, the model
+   reads back; warm steps by bucket and the idle share of one step.
+   10c: the flagship widths in bidirectional form (BLSTM 40 -> 2 x
+   800c/512r -> 8000) through the same trainer on the first 64
+   utterances (two K1 and two K2 calls a step), the same gates; scored
+   by nnet_forward (two K5 launches a batch of 8) against the CPU path
+   on 3 utterances; OnlineBatchScorer and OnlineRecognizer refuse it on
+   the card with the JAX package's messages. 10d: Kaldi
+   steps/nnet/train.sh's default DNN (CMVN from cmvn_to_nnet and Splice
+   +-5 joined by nnet_concat as the feature transform; 4 x 1024 sigmoid
+   -> 8000) through `nnet_train_frmshuff` for one epoch at minibatch 256
+   and randomizer 32768: K3/K4 once a minibatch, the minibatches drained
+   as predicted, the CV AvgLoss falls, and with --randomize false the
+   card drains the same minibatches in the same order as the CPU path
+   and trains the same model;
+11. print one JSON line with every kernel (the bf16 variants as
    entries of their own; K5's adds its masked entry point's launches,
-   times and error, and the realignment's launches), then the device
-   line last.
+   times and error, the realignment's and the BLSTM scoring's launches;
+   K1-K4 add the per-utterance and frame-shuffled launches and their
+   times at the per-utterance shapes), then the device line last.
 """
 
 from __future__ import annotations
@@ -371,6 +401,38 @@ ALIGN_CPU_UTTS = 4
 ALIGN_CTM_UTTS = 2
 ALIGN_FLAGS = ["--apply-log=true", "--acoustic-scale", "1.0"]
 PRUNE_BEAM = "6"
+# Phase 10: per-utterance and frame-shuffled training. The standard
+# variant's trainer (SURVEY.md:13-14,69,86: standard/nnet.proto trained
+# by nnet-train-perutt, epoch-wise BPTT over whole utterances, the
+# element-wise gradient clip of +-50) on phase 4's decode net and phase
+# 5's corpus, at the JAX tool's defaults (--learn-rate 8e-5, momentum
+# 0.9, --length-bucket 128); the flagship widths in bidirectional form
+# (40 -> 2 x 800c/512r -> 8000) on the corpus's first 64 utterances; and
+# Kaldi steps/nnet/train.sh's default DNN (--splice 5 on 40 dims, 4 x
+# 1024 sigmoid layers, minibatch 256, randomizer 32768, learn rate
+# 0.008; the initial weights after utils/nnet/make_nnet_proto.py's
+# defaults: hidden biases -2 +- 2, stddev 0.1, output stddev 0.05)
+PERUTT_BUCKET = 128
+BLSTM_PROTO = """<NnetProto>
+<BLstmProjectedStreams> <InputDim> 40 <OutputDim> 1024 <CellDim> 800 <ParamScale> 0.01 <NumStream> 1
+<AffineTransform> <InputDim> 1024 <OutputDim> 8000 <ParamStddev> 0.04
+<Softmax> <InputDim> 8000 <OutputDim> 8000
+</NnetProto>
+"""
+BLSTM_UTTS = 64
+DNN_HIDDEN = ("<AffineTransform> <InputDim> {i} <OutputDim> 1024 "
+              "<BiasMean> -2.0 <BiasRange> 4.0 <ParamStddev> 0.1\n"
+              "<Sigmoid> <InputDim> 1024 <OutputDim> 1024\n")
+DNN_PROTO = ("<NnetProto>\n" + DNN_HIDDEN.format(i=440)
+             + DNN_HIDDEN.format(i=1024) * 3
+             + "<AffineTransform> <InputDim> 1024 <OutputDim> 8000 "
+               "<ParamStddev> 0.05\n"
+               "<Softmax> <InputDim> 8000 <OutputDim> 8000\n</NnetProto>\n")
+DNN_SPLICE = 5
+DNN_MINIBATCH = 256
+DNN_RANDOMIZER = 32768
+# the frames of the --randomize false check, card against the CPU path
+DNN_CHECK_UTTS = 6
 
 
 def log(msg: str) -> None:
@@ -3734,6 +3796,634 @@ def phase_align(work: str, p7: dict) -> dict:
             "scoring_ms": scoring_ms, "idle": idle}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: per-utterance and frame-shuffled training
+# ---------------------------------------------------------------------------
+
+def blstm_layer_case(name, T, I, C, R, seed, need_dx):
+    """One BLSTM layer on the card, trained as per-utterance training
+    calls it (S=1, zero initial state, one K1 and one K2 call per
+    direction through the autograd Function, the backward direction's
+    on the time-flipped input), against the plain versions on the same
+    inputs: the forward half of the output against K1's plain version
+    on x, the backward half against it on flip(x) flipped back, and the
+    gradients against K2's plain version per direction on the cotangent
+    split and flipped the same way. Returns the worst abs error."""
+    import torch
+    from kaldi_lstm_tpu_torch.models.components import BLstmProjectedStreams
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    bl = BLstmProjectedStreams(I, 2 * R, cell_dim=C, param_scale=0.04)
+    params = bl.init_params(torch.Generator().manual_seed(seed), "cuda")
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(1, T, I).astype(np.float32), device="cuda")
+    cot = torch.tensor(rng.randn(1, T, 2 * R).astype(np.float32),
+                       device="cuda")
+    live = {d: type(p)(*(t.detach().requires_grad_() for t in p))
+            for d, p in params.items()}
+    xg = x.clone().requires_grad_(need_dx)
+    log(f"  [{name}] BLSTM layer S=1 T={T} I={I} C={C} R={R} dx {need_dx}")
+    lt.reset_counts()
+    y, _ = bl.apply(live, xg, input_grad=need_dx)
+    torch.autograd.backward(y, cot)
+    torch.cuda.synchronize()
+    want = (2 * lt.fwd_launches(T), 2 * lt.bwd_launches(T, need_dx), 0)
+    got = (lt.FWD_LAUNCHES, lt.BWD_LAUNCHES, lt.PLAIN_CALLS)
+    log(f"    K1/K2 launches {got[:2]} (predicted {want[:2]}: one call per "
+        f"direction), plain calls {got[2]}")
+    if got != want:
+        fail(f"{name}: K1/K2 launches and plain calls {got}, predicted "
+             f"{want}")
+    zc = torch.zeros(1, C, device="cuda")
+    zr = torch.zeros(1, R, device="cuda")
+    worst = 0.0
+    dx_sum = torch.zeros(T, 1, I, device="cuda")
+    for d, half in (("fw", slice(0, R)), ("bw", slice(R, 2 * R))):
+        flip = d == "bw"
+        xin = torch.flip(x, (1,)) if flip else x
+        gin = cot[..., half]
+        gin = torch.flip(gin, (1,)) if flip else gin
+        x_tm = xin.transpose(0, 1).contiguous()
+        gifo, c_seq, r_seq = lt.lstm_fwd_residuals_plain(
+            params[d], x_tm, zc, zr, None, 1.0, 50.0)
+        out = r_seq.transpose(0, 1)
+        out = torch.flip(out, (1,)) if flip else out
+        worst = compare(f"K1 {d} r", y[..., half].detach(), out, worst)
+        dp, dx, _, _ = lt.lstm_bwd_plain(
+            params[d], x_tm, zc, zr, gifo, c_seq, r_seq, None, 1.0,
+            gin.transpose(0, 1).contiguous(), zc, need_dx)
+        for f, a, b in zip(type(dp)._fields, live[d], dp):
+            worst = compare(f"K2 {d} d{f}", a.grad, b, worst)
+        if need_dx:
+            dx_sum += torch.flip(dx, (0,)) if flip else dx
+    if need_dx:
+        worst = compare("K2 dx (both directions)", xg.grad,
+                        dx_sum.transpose(0, 1), worst)
+    return worst
+
+
+def phase_perutt_kernels() -> dict:
+    """Phase 10a: K1-K5 against their plain versions at the per-utterance
+    training shapes (S=1, T up to 1024; a second BLSTM layer at I=1024),
+    K3/K4 at the BLSTM's R=1024 and the DNN's minibatch, K5 on the
+    BLSTM's flipped half at S=8, T=1000; K1 and K2 timed at S=1, T=1024.
+    Returns {kernel: record}."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import lstm_scan, zero_state
+    I, C, R, K = 40, 800, 512, 8000
+    worst = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    recs = {}
+    for i, (name, dims, clip, keep, dx, extra, timed) in enumerate((
+            ("per-utterance S=1 T=128, no dx", (1, 128, I, C, R), 50.0,
+             None, False, {}, False),
+            ("per-utterance S=1 T=1024, no dx", (1, 1024, I, C, R), 50.0,
+             None, False, {}, True),
+            ("second layer S=1 T=128 I=1024, dx", (1, 128, 2 * R, C, R),
+             50.0, None, True, {}, False),
+            ("ragged S=1 T=131 I=37 C=200 R=130, clip active, keep 0.8, dx",
+             (1, 131, 37, 200, 130), 1.0, 0.8, True,
+             {"x_scale": 20.0, "param_scale": 0.2}, False))):
+        w, rec = lstm_train_case(name, *dims, clip, keep, dx, 80 + i,
+                                 timed=timed, **extra)
+        worst["K1"] = worst["K2"] = max(worst["K1"], w)
+        if rec:
+            recs.update(rec)
+    for name, T, I_, dx in (("BLSTM layer 1, T=1024", 1024, I, False),
+                            ("BLSTM layer 2, T=128, I=1024", 128, 2 * R,
+                             True)):
+        w = blstm_layer_case(name, T, I_, C, R, 90, dx)
+        worst["K1"] = worst["K2"] = max(worst["K1"], w)
+    T = 1024
+    for key, launches in (("K1", lt.fwd_launches(T)),
+                          ("K2", lt.bwd_launches(T, False))):
+        r = recs[key]
+        r["launches_per_call"] = launches
+        r["us_per_launch"] = 1e3 * r["ms"] / launches
+        log(f"  K{key[1]} at S=1, T={T}: {r['ms']:.3f} ms a call, "
+            f"{launches} launches ({'fwd' if key == 'K1' else 'bwd'}"
+            f"_launches({T}{'' if key == 'K1' else ', False'})), "
+            f"{r['us_per_launch']:.2f} us a launch; plain "
+            f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    for name, dims, timed in (
+            ("BLSTM per-utterance N=1024 R=1024", (1024, 2 * R, K, 1),
+             True),
+            ("DNN minibatch N=256 R=1024", (256, 1024, K, 1), "dnn")):
+        w, rec = xent_case(name, *dims, 95, timed=bool(timed))
+        worst["K3"] = worst["K4"] = max(worst["K3"], w)
+        tag = "n1024" if timed is True else "n256"
+        for k in ("K3", "K4"):
+            recs.setdefault(k, {}).update(
+                {f"{tag}_{f}": rec[k][f] for f in ("ms", "plain_ms",
+                                                   "bound_ms",
+                                                   "bound_by")})
+    # K5 on the BLSTM's backward half: zero state, time-flipped input
+    g = torch.Generator().manual_seed(97)
+    from kaldi_lstm_tpu_torch.ops.lstm_cell import init_lstm_params
+    params = init_lstm_params(g, I, C, R, 0.04, device="cuda")
+    x = torch.tensor(np.random.RandomState(97).randn(8, 1000, I)
+                     .astype(np.float32), device="cuda")
+    xf = torch.flip(x, (1,))
+    st = zero_state(8, C, R, device="cuda")
+    li.reset_counts()
+    with torch.inference_mode():
+        out_k, fin_k = li.lstm_infer(params, xf, st, 50.0)
+        out_p, fin_p = lstm_scan(params, xf, st, 50.0)
+        torch.cuda.synchronize()
+    if (li.LAUNCHES, li.PLAIN_CALLS) != (1, 0):
+        fail(f"K5 on the flipped half: {li.LAUNCHES} launches and "
+             f"{li.PLAIN_CALLS} plain calls (expected 1 and 0)")
+    for what, a, b in (("r", out_k, out_p), ("final c", fin_k.c, fin_p.c),
+                       ("final r", fin_k.r, fin_p.r)):
+        mx, rel, ok = errors(a, b)
+        worst["K5"] = max(worst["K5"], mx)
+        log(f"  [K5, BLSTM backward half S=8 T=1000, flipped input] {what}: "
+            f"max_abs_err {mx:.3e} max_rel_err {rel:.3e} (tol "
+            f"{KERNEL_ATOL:g} abs + {KERNEL_RTOL:g} rel)")
+        if not ok or not bool(torch.isfinite(a).all()):
+            fail(f"K5 on the flipped half: {what} disagrees with the plain "
+                 f"version")
+    with torch.inference_mode():
+        k_ms = cuda_ms(lambda: li.lstm_infer(params, xf, st, 50.0))
+        p_ms = cuda_ms(lambda: lstm_scan(params, xf, st, 50.0), reps=3)
+    bound, by = lstm_bound_ms(8, 1000, I, C, R)
+    log(f"  [K5, BLSTM backward half] kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+    recs["K5"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                  "bound_by": by}
+    for k in recs:
+        recs[k]["max_abs_err"] = worst[k]
+    return recs
+
+
+def utterance_buckets(feats: str, n: int, bucket: int = PERUTT_BUCKET
+                      ) -> list:
+    """The padded length of each of the first n utterances."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    out = []
+    for _, m in kio.SequentialMatrixReader(feats):
+        out.append(-(-m.shape[0] // bucket) * bucket)
+        if len(out) == n:
+            break
+    return out
+
+
+def perutt_prediction(buckets: list, directions: int) -> dict:
+    """Launches of one perutt training epoch: per utterance and LSTM
+    direction one K1 call (fwd_launches(T_b)) and one K2 call without dx
+    (the first layer over the features), one K3 call (2 launches) and one
+    K4 call (3)."""
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
+    return {"lstmp_train_fwd": directions * sum(map(fwd_launches, buckets)),
+            "lstmp_train_bwd": directions * sum(bwd_launches(T, False)
+                                                for T in buckets),
+            "xent_affine_fwd": 2 * len(buckets),
+            "xent_affine_bwd": 3 * len(buckets)}
+
+
+def perutt_cv(what: str, feats, post, model, n: int, directions: int):
+    """Two perutt cross-validation passes of one model (one K5 launch
+    per utterance and direction, one K3 call); they must agree to the
+    last digit. Returns the LossStats."""
+    from kaldi_lstm_tpu_torch.tools import nnet_train_perutt
+    predicted = {"lstmp_infer": directions * n, "xent_affine_fwd": 2 * n}
+    res = []
+    for _ in range(2):
+        out = {}
+
+        def cv():
+            rc, out["stats"] = nnet_train_perutt.run_main(
+                [feats, post, model, "--cross-validate=true", "--device",
+                 "cuda"])
+            return rc
+        counted(f"nnet_train_perutt --cross-validate ({what})", predicted,
+                cv)
+        res.append(out["stats"])
+    log(f"  cross-validation twice on {what}: AvgLoss "
+        f"{res[0].avg_loss()!r} and {res[1].avg_loss()!r}")
+    if res[0].avg_loss() != res[1].avg_loss():
+        fail(f"two cross-validation runs of {what} disagree")
+    return res[0]
+
+
+def padded_utterances(feats: str, post: str):
+    """(feats, ids, weights, mask) of each utterance as nnet_train_perutt
+    pads it: a [1, T] batch, T a multiple of PERUTT_BUCKET."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.tools.nnet_train_perutt import pad_utterance
+    targets = kio.RandomAccessPosteriorReader(post)
+    for key, m in kio.SequentialMatrixReader(feats):
+        ids, w = targets.value_dense(key, 1)
+        yield pad_utterance(m, ids, w, PERUTT_BUCKET)
+
+
+def perutt_card_vs_cpu(what: str, model: str, feats: str, post: str,
+                       n: int = 2) -> None:
+    """The first n utterances trained on the card (K1-K4) against the
+    same n on the port's CPU path (plain versions, unfused loss), from
+    the same model: every parameter within STEP_ATOL + STEP_RTOL x |p|,
+    the loss sums within 1e-5 relative, the frame counts exactly and the
+    correct-frame counts within 2 frames."""
+    import itertools
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum
+    from kaldi_lstm_tpu_torch.train.trainer import (
+        TrainOptions,
+        make_train_step,
+    )
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+    utts = list(itertools.islice(padded_utterances(feats, post), n))
+    opts = TrainOptions(learn_rate=8e-5, momentum=0.9, grad_clip=50.0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        nnet, params = Nnet.read(model, dev)
+        step = make_train_step(nnet, opts, device=dev)
+        opt = init_momentum(params)
+        lr = torch.tensor(8e-5, device=dev)
+        reset = torch.ones((1,), dtype=torch.int32, device=dev)
+        auxs = []
+        for u in utts:
+            params, opt, _, aux = step(
+                params, opt, nnet.init_states(1, dev), None,
+                *(torch.from_numpy(a).to(dev) for a in u), reset, lr)
+            auxs.append([float(a) for a in aux])
+        res[dev] = (tree_leaves(params), auxs)
+    worst = 0.0
+    for a, b in zip(res["cuda"][0], res["cpu"][0]):
+        d = (a.cpu() - b).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= STEP_ATOL + STEP_RTOL * b.abs()).all()):
+            fail(f"{what}: {n} utterances on the card disagree with the "
+                 f"CPU path (max_abs_err {float(d.max()):.3e})")
+    for (xk, ek, ck, fk), (xc, ec, cc, fc) in zip(res["cuda"][1],
+                                                  res["cpu"][1]):
+        if not (abs(xk - xc) <= 1e-5 * abs(xc)
+                and abs(ek - ec) <= 1e-5 * max(abs(ec), 1e-6)
+                and fk == fc and abs(ck - cc) <= 2):
+            fail(f"{what}: LossAux on the card {(xk, ek, ck, fk)} vs CPU "
+                 f"{(xc, ec, cc, fc)}")
+    log(f"  {what}: {n} utterances card vs CPU path: params max_abs_err "
+        f"{worst:.3e} (tol {STEP_ATOL:g} + {STEP_RTOL:g} x |p|); LossAux "
+        f"card {res['cuda'][1]} vs CPU {res['cpu'][1]}")
+
+
+def perutt_step_times(model: str, feats: str, post: str) -> dict:
+    """Warm per-utterance training steps on the card, timed one by one
+    (host clock around a synchronized step), by bucket: {T_b: [ms]}; and
+    a profile of one step at the largest bucket."""
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum
+    from kaldi_lstm_tpu_torch.train.trainer import (
+        TrainOptions,
+        make_train_step,
+    )
+    nnet, params = Nnet.read(model, "cuda")
+    step = make_train_step(nnet, TrainOptions(learn_rate=8e-5,
+                                              grad_clip=50.0),
+                           device="cuda")
+    opt = init_momentum(params)
+    lr = torch.tensor(8e-5, device="cuda")
+    reset = torch.ones((1,), dtype=torch.int32, device="cuda")
+    by_bucket: dict = {}
+    for u in padded_utterances(feats, post):
+        if len(by_bucket.setdefault(u[0].shape[1], [])) < 4:
+            by_bucket[u[0].shape[1]].append(
+                [torch.from_numpy(a).cuda() for a in u])
+        if len(by_bucket) == 3 and all(len(v) == 4
+                                       for v in by_bucket.values()):
+            break
+
+    def run(u):
+        nonlocal params, opt
+        params, opt, _, _ = step(params, opt, nnet.init_states(1, "cuda"),
+                                 None, *u, reset, lr)
+
+    times = {}
+    for T_b, us in sorted(by_bucket.items()):
+        run(us[0])
+        torch.cuda.synchronize()
+        ms = []
+        for u in us[1:]:
+            t0 = time.perf_counter()
+            run(u)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[T_b] = ms
+    big = max(by_bucket)
+    prof = profile(lambda: run(by_bucket[big][1]),
+                   f"one per-utterance step at T={big}")
+    return {"ms": times, "profile": prof}
+
+
+def phase_perutt(work: str, feats: str, post: str) -> dict:
+    """Phases 10b-10d: per-utterance training of the standard net and of
+    the BLSTM through nnet_train_perutt, the BLSTM scored through
+    nnet_forward and refused by the streaming classes, and nnet1's DNN
+    through nnet_train_frmshuff. Returns the launches of each run."""
+    from kaldi_lstm_tpu_torch.decode.online import (
+        OnlineBatchScorer,
+        OnlineRecognizer,
+    )
+    from kaldi_lstm_tpu_torch.decode.scoring import AmScorer
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools import (
+        nnet_forward,
+        nnet_initialize,
+        nnet_train_perutt,
+    )
+    out = {}
+    n_all = 256
+
+    # 10b: the standard variant's trainer
+    log("phase 10b: the standard variant's trainer (nnet_train_perutt "
+        "--device cuda) on the full-width standard net")
+    with open(f"{work}/standard.proto", "w") as f:
+        f.write(PROTO)
+    std0, std1 = f"{work}/standard.init", f"{work}/standard.iter1"
+    if nnet_initialize.main([f"{work}/standard.proto", std0, "--seed", "0",
+                             "--device", "cuda"]) != 0:
+        fail("nnet_initialize of the standard net failed")
+    buckets = utterance_buckets(feats, n_all)
+    counts = {T: buckets.count(T) for T in sorted(set(buckets))}
+    log(f"  corpus: {n_all} utterances, {sum(buckets)} padded frames, "
+        f"buckets {counts}")
+    cv0 = perutt_cv("the standard net, before", feats, post, std0, n_all, 1)
+    predicted = perutt_prediction(buckets, 1)
+    res = {}
+
+    def train():
+        rc, res["stats"] = nnet_train_perutt.run_main(
+            [feats, post, std0, std1, "--device", "cuda"])
+        return rc
+    launches, wall = counted(
+        f"nnet_train_perutt, {n_all} utterances of the standard net (incl. "
+        f"model read, ark I/O, CUDA warm-up)", predicted, train)
+    if launches["lstmp_infer"]:
+        fail("the training pass launched K5")
+    frames = res["stats"].frames
+    log(f"  epoch: {frames:.0f} frames in {wall:.3f} s -> "
+        f"{frames / wall:.1f} frames/s (whole CLI run); "
+        f"{res['stats'].report().splitlines()[0]}")
+    cv1 = perutt_cv("the standard net, after", feats, post, std1, n_all, 1)
+    log(f"  cross-validation AvgLoss: before {cv0.avg_loss():.6f}, after "
+        f"{cv1.avg_loss():.6f}")
+    if not cv1.avg_loss() < cv0.avg_loss():
+        fail("the standard net's CV AvgLoss did not fall after the epoch")
+    nnet_r, params_r = Nnet.read(std1, "cpu")
+    if [c.token for c in nnet_r.components] != [
+            "<TimeShift>", "<LstmProjected>", "<AffineTransform>",
+            "<Softmax>"]:
+        fail("the trained standard model does not read back")
+    perutt_card_vs_cpu("the standard net", std0, feats, post)
+    st = perutt_step_times(std0, feats, post)
+    for T_b, ms in st["ms"].items():
+        log(f"  warm step at T={T_b}: {', '.join(f'{m:.3f}' for m in ms)} "
+            f"ms -> median {statistics.median(ms):.3f} ms, "
+            f"{T_b / statistics.median(ms) * 1e3:.1f} padded frames/s")
+    out["standard"] = {"launches": launches, "wall": wall, "frames": frames,
+                       "step_ms": {T: statistics.median(v)
+                                   for T, v in st["ms"].items()},
+                       "idle": (st["profile"] or {}).get("idle")}
+
+    # 10c: the BLSTM
+    log("phase 10c: the BLSTM (40 -> 2 x 800c/512r -> 8000) through "
+        "nnet_train_perutt and nnet_forward")
+    bfeats, bpost = f"ark:{work}/blstm_feats.ark", f"ark:{work}/blstm_post.ark"
+    tgt = kio.RandomAccessPosteriorReader(post)
+    with kio.MatrixWriter(bfeats) as fw, kio.PosteriorWriter(bpost) as pw:
+        for i, (key, m) in enumerate(kio.SequentialMatrixReader(feats)):
+            if i == BLSTM_UTTS:
+                break
+            fw.write(key, m)
+            pw.write(key, tgt.value(key))
+    with open(f"{work}/blstm.proto", "w") as f:
+        f.write(BLSTM_PROTO)
+    bl0, bl1 = f"{work}/blstm.init", f"{work}/blstm.iter1"
+    if nnet_initialize.main([f"{work}/blstm.proto", bl0, "--seed", "0",
+                             "--device", "cuda"]) != 0:
+        fail("nnet_initialize of the BLSTM failed")
+    bbuckets = buckets[:BLSTM_UTTS]
+    bcv0 = perutt_cv("the BLSTM, before", bfeats, bpost, bl0, BLSTM_UTTS, 2)
+
+    def btrain():
+        rc, res["bstats"] = nnet_train_perutt.run_main(
+            [bfeats, bpost, bl0, bl1, "--device", "cuda"])
+        return rc
+    blaunches, bwall = counted(
+        f"nnet_train_perutt, {BLSTM_UTTS} utterances of the BLSTM (two K1 "
+        f"and two K2 calls a step)", perutt_prediction(bbuckets, 2), btrain)
+    bframes = res["bstats"].frames
+    log(f"  epoch: {bframes:.0f} frames in {bwall:.3f} s -> "
+        f"{bframes / bwall:.1f} frames/s (whole CLI run); "
+        f"{res['bstats'].report().splitlines()[0]}")
+    bcv1 = perutt_cv("the BLSTM, after", bfeats, bpost, bl1, BLSTM_UTTS, 2)
+    log(f"  cross-validation AvgLoss: before {bcv0.avg_loss():.6f}, after "
+        f"{bcv1.avg_loss():.6f}")
+    if not bcv1.avg_loss() < bcv0.avg_loss():
+        fail("the BLSTM's CV AvgLoss did not fall after the epoch")
+    perutt_card_vs_cpu("the BLSTM", bl0, bfeats, bpost)
+    bst = perutt_step_times(bl0, bfeats, bpost)
+    for T_b, ms in bst["ms"].items():
+        log(f"  BLSTM warm step at T={T_b}: median "
+            f"{statistics.median(ms):.3f} ms ({len(ms)} steps)")
+    # scoring: two K5 launches a batch of 8 (one per direction)
+    scores = f"{work}/blstm_loglik.ark"
+    n_batches = -(-BLSTM_UTTS // 8)
+    blaunch_fwd, _ = counted(
+        f"nnet_forward of the BLSTM ({BLSTM_UTTS} utterances, batches of 8)",
+        {"lstmp_infer": 2 * n_batches},
+        lambda: nnet_forward.main([bl1, bfeats, f"ark:{scores}",
+                                   "--apply-log=true", "--device", "cuda"]))
+    got = dict(kio.SequentialMatrixReader(f"ark:{scores}"))
+    utts = dict(kio.SequentialMatrixReader(bfeats))
+    if list(got) != list(utts) or any(
+            got[k].shape != (utts[k].shape[0], 8000)
+            or not np.isfinite(got[k]).all() for k in utts):
+        fail("nnet_forward of the BLSTM wrote bad scores")
+    nnet_c, params_c = Nnet.read(bl1, "cpu")
+    cpu = AmScorer(nnet_c, params_c, apply_log=True, device="cpu")
+    keys = list(utts)[:3]
+    worst = max(float(np.abs(got[k] - y).max())
+                for k, y in cpu.score_stream((k, utts[k]) for k in keys))
+    log(f"  BLSTM scores card vs CPU path on 3 utterances: max_abs_err "
+        f"{worst:.3e} (tol {SCORE_ATOL:g})")
+    if worst > SCORE_ATOL:
+        fail("the BLSTM's card scores disagree with the CPU path")
+    nnet_g, params_g = Nnet.read(bl1, "cuda")
+    for cls, args, msg in (
+            (OnlineBatchScorer, (2,), "bidirectional nets cannot stream"),
+            (OnlineRecognizer, (None,), "bidirectional nets cannot stream "
+             "(the backward pass needs the whole utterance)")):
+        try:
+            cls(nnet_g, params_g, *args)
+        except ValueError as e:
+            if str(e) != msg:
+                fail(f"{cls.__name__} refused the BLSTM with {e!r}")
+            log(f"  {cls.__name__} refuses the BLSTM on the card: {e}")
+        else:
+            fail(f"{cls.__name__} accepted a BLSTM")
+    out["blstm"] = {"launches": blaunches, "wall": bwall, "frames": bframes,
+                    "score_launches": blaunch_fwd["lstmp_infer"],
+                    "step_ms": {T: statistics.median(v)
+                                for T, v in bst["ms"].items()},
+                    "idle": (bst["profile"] or {}).get("idle")}
+
+    log("phase 10d: nnet1's DNN (Splice +-5 -> 4 x 1024 sigmoid -> 8000) "
+        "through nnet_train_frmshuff")
+    out["dnn"] = phase_frmshuff(work, feats, post)
+    return out
+
+
+def phase_frmshuff(work: str, feats: str, post: str) -> dict:
+    """Phase 10d: Kaldi steps/nnet/train.sh's default DNN through
+    nnet_train_frmshuff with its CMVN + Splice feature transform
+    (cmvn_to_nnet, nnet_initialize, nnet_concat)."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools import (
+        cmvn_to_nnet,
+        nnet_concat,
+        nnet_initialize,
+        nnet_train_frmshuff,
+    )
+    from kaldi_lstm_tpu_torch.train import randomizer
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+    # the feature transform: global CMVN of the corpus, then the splice
+    tot = np.zeros((2, 41))
+    lengths = []
+    for _, m in kio.SequentialMatrixReader(feats):
+        m = m.astype(np.float64)
+        tot[0, :40] += m.sum(0)
+        tot[1, :40] += (m * m).sum(0)
+        tot[0, 40] += m.shape[0]
+        lengths.append(m.shape[0])
+    with kio.MatrixWriter(f"ark:{work}/cmvn.ark") as w:
+        w.write("global", tot.astype(np.float32))
+    with open(f"{work}/splice.proto", "w") as f:
+        f.write(f"<NnetProto>\n<Splice> <InputDim> 40 <OutputDim> "
+                f"{40 * (2 * DNN_SPLICE + 1)} <LeftContext> {DNN_SPLICE} "
+                f"<RightContext> {DNN_SPLICE}\n</NnetProto>\n")
+    with open(f"{work}/dnn.proto", "w") as f:
+        f.write(DNN_PROTO)
+    transf, dnn0, dnn1 = (f"{work}/transf.nnet", f"{work}/dnn.init",
+                          f"{work}/dnn.iter1")
+    for what, rc in (
+            ("cmvn_to_nnet", cmvn_to_nnet.main([f"ark:{work}/cmvn.ark",
+                                                f"{work}/cmvn.nnet"])),
+            ("nnet_initialize (splice)", nnet_initialize.main(
+                [f"{work}/splice.proto", f"{work}/splice.nnet", "--device",
+                 "cuda"])),
+            ("nnet_concat", nnet_concat.main([f"{work}/cmvn.nnet",
+                                              f"{work}/splice.nnet",
+                                              transf])),
+            ("nnet_initialize (DNN)", nnet_initialize.main(
+                [f"{work}/dnn.proto", dnn0, "--seed", "0", "--device",
+                 "cuda"]))):
+        if rc != 0:
+            fail(f"{what} failed")
+    common = [f"--feature-transform={transf}",
+              f"--minibatch-size={DNN_MINIBATCH}",
+              f"--randomizer-size={DNN_RANDOMIZER}", "--device", "cuda"]
+    frames = sum(lengths)
+    windows = [min(DNN_RANDOMIZER, frames - lo)
+               for lo in range(0, frames, DNN_RANDOMIZER)]
+    steps = sum(-(-w // DNN_MINIBATCH) for w in windows)
+    predicted = {"xent_affine_fwd": 2 * steps, "xent_affine_bwd": 3 * steps}
+    log(f"  corpus: {frames} frames in windows {windows} -> {steps} "
+        f"minibatches of {DNN_MINIBATCH}")
+
+    def cv(model):
+        out = {}
+
+        def run():
+            rc, out["stats"] = nnet_train_frmshuff.run_main(
+                [feats, post, model, "--cross-validate=true"] + common)
+            return rc
+        counted(f"nnet_train_frmshuff --cross-validate ({model})",
+                {"xent_affine_fwd": 2 * steps}, run)
+        return out["stats"]
+    cv0 = cv(dnn0)
+    # record every drained minibatch, in order (a digest of its arrays)
+    drained: list = []
+    orig = randomizer.FrameRandomizer.drain
+
+    def recording(self):
+        for b in orig(self):
+            drained.append(hashlib.sha256(b"".join(
+                a.tobytes() for a in b)).hexdigest())
+            yield b
+    res = {}
+
+    def train():
+        rc, res["stats"] = nnet_train_frmshuff.run_main(
+            [feats, post, dnn0, dnn1] + common)
+        return rc
+    randomizer.FrameRandomizer.drain = recording
+    try:
+        launches, wall = counted(
+            f"nnet_train_frmshuff, one epoch ({steps} minibatches)",
+            predicted, train)
+    finally:
+        randomizer.FrameRandomizer.drain = orig
+    stats = res["stats"]
+    log(f"  epoch: {stats.frames:.0f} frames in {wall:.3f} s -> "
+        f"{stats.frames / wall:.1f} frames/s (whole CLI run); "
+        f"{stats.report().splitlines()[0]}")
+    if len(drained) != steps:
+        fail(f"{len(drained)} minibatches drained, {steps} predicted")
+    cv1 = cv(dnn1)
+    log(f"  cross-validation AvgLoss: before {cv0.avg_loss():.6f}, after "
+        f"{cv1.avg_loss():.6f}")
+    if not cv1.avg_loss() < cv0.avg_loss():
+        fail("the DNN's CV AvgLoss did not fall after the epoch")
+    # --randomize false on the first utterances: the same minibatches in
+    # the same order on the card and on the CPU path, and the same model
+    sub = f"ark:{work}/dnn_check.ark"
+    with kio.MatrixWriter(sub) as w:
+        for i, (k, m) in enumerate(kio.SequentialMatrixReader(feats)):
+            if i == DNN_CHECK_UTTS:
+                break
+            w.write(k, m)
+    orders, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        drained.clear()
+        randomizer.FrameRandomizer.drain = recording
+        try:
+            rc = nnet_train_frmshuff.main(
+                [sub, post, dnn0, f"{work}/dnn.{dev}", "--randomize=false"]
+                + common[:-1] + [dev])
+        finally:
+            randomizer.FrameRandomizer.drain = orig
+        if rc != 0:
+            fail(f"nnet_train_frmshuff --randomize false on {dev} exited "
+                 f"{rc}")
+        orders[dev] = list(drained)
+        models[dev] = tree_leaves(Nnet.read(f"{work}/dnn.{dev}", "cpu")[1])
+    if orders["cuda"] != orders["cpu"] or not orders["cpu"]:
+        fail("--randomize false: the card's minibatches differ from the "
+             "CPU path's")
+    worst = 0.0
+    for a, b in zip(models["cuda"], models["cpu"]):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= STEP_ATOL + STEP_RTOL * b.abs()).all()):
+            fail("--randomize false: the card's DNN disagrees with the CPU "
+                 "path's")
+    log(f"  --randomize false on {DNN_CHECK_UTTS} utterances: "
+        f"{len(orders['cpu'])} minibatches, the same digests in the same "
+        f"order on the card and the CPU path; params max_abs_err "
+        f"{worst:.3e} (tol {STEP_ATOL:g} + {STEP_RTOL:g} x |p|)")
+    return {"launches": launches, "wall": wall, "frames": stats.frames,
+            "minibatches": steps}
+
+
 def phase_main_path(work: str):
     import torch
     from kaldi_lstm_tpu_torch.decode.scoring import (
@@ -4008,6 +4698,13 @@ def main() -> int:
             "corpus and lattices")
         align = phase_align(work, decode)
 
+    log("phase 10a: K1-K5 vs their plain versions at the per-utterance "
+        "training shapes (S=1, T up to 1024; R=1024; the flipped half)")
+    perutt_recs = phase_perutt_kernels()
+    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
+        feats, post = write_train_corpus(work)
+        perutt = phase_perutt(work, feats, post)
+
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
         "source": "kaldi_lstm_tpu_torch/csrc/lstmp_infer.cu",
@@ -4017,13 +4714,17 @@ def main() -> int:
         "single_stream_launches": stream["single"]["launches"],
         "masked_launches": stream["sticky"]["launches"],
         "align_launches": align["launches"],
-        "max_abs_err": rec["max_abs_err"],
+        "blstm_score_launches": perutt["blstm"]["score_launches"],
+        "max_abs_err": max(rec["max_abs_err"],
+                           perutt_recs["K5"]["max_abs_err"]),
         "ms": rec["ms"], "kernel_ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
         **{k: rec[k] for k in ("us_per_step_s8", "cv_ms", "cv_plain_ms",
                                "cv_bound_ms")},
         **{k: v for k, v in rec.items() if k.startswith("masked_")},
+        **{f"blstm_half_{k}": perutt_recs["K5"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
     }]
     for key, name, source, replaces in (
             ("K1", "lstmp_train_fwd", "lstmp_train.cu",
@@ -4034,14 +4735,24 @@ def main() -> int:
              "kaldi_lstm_tpu/ops/xent_pallas.py:51 (_fwd_kernel)"),
             ("K4", "xent_affine_bwd", "xent_affine.cu",
              "kaldi_lstm_tpu/ops/xent_pallas.py:148 (_bwd_kernel)")):
-        r = train_recs[key]
+        r, pr = train_recs[key], perutt_recs[key]
+        # per-utterance shapes: K1/K2 at S=1, T=1024; K3/K4 at R=1024
+        shapes = {f"s1_t1024_{k}": pr[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "launches_per_call",
+            "us_per_launch") if k in pr}
+        shapes.update({f"r1024_{k}": v for k, v in pr.items()
+                       if k.startswith(("n1024_", "n256_"))})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kaldi_lstm_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": train_launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "perutt_launches": perutt["standard"]["launches"][name],
+            "blstm_perutt_launches": perutt["blstm"]["launches"][name],
+            "frmshuff_launches": perutt["dnn"]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"], pr["max_abs_err"]),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": None, **shapes,
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
     for key, name, replaces in (

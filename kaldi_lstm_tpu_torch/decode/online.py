@@ -47,12 +47,16 @@ from kaldi_lstm_tpu_torch.decode.faster import (
 from kaldi_lstm_tpu_torch.decode.graph import DecodingGraph
 from kaldi_lstm_tpu_torch.decode.scoring import (
     fetch_block,
-    params_device,
     queue_host_copy,
 )
 from kaldi_lstm_tpu_torch.io.native import NativeStreamSession
 from kaldi_lstm_tpu_torch.models import Nnet
-from kaldi_lstm_tpu_torch.models.components import Softmax, TimeShift
+from kaldi_lstm_tpu_torch.models.components import (
+    BLstmProjectedStreams,
+    Softmax,
+    TimeShift,
+)
+from kaldi_lstm_tpu_torch.utils.tree import params_device
 
 
 def strip_leading_timeshift(nnet: Nnet, params, targets_delay: int
@@ -194,6 +198,9 @@ class OnlineRecognizer:
                  targets_delay: Optional[int] = None, device=None):
         comps = list(nnet.components)
         plist = list(params)
+        if any(isinstance(c, BLstmProjectedStreams) for c in comps):
+            raise ValueError("bidirectional nets cannot stream (the "
+                             "backward pass needs the whole utterance)")
         if targets_delay is None:
             targets_delay = 0
             if comps and isinstance(comps[0], TimeShift):
@@ -277,6 +284,8 @@ class OnlineBatchScorer:
                  floor_margin: float = 10.0, pipeline: bool = False,
                  device=None):
         comps = list(nnet.components)
+        if any(isinstance(c, BLstmProjectedStreams) for c in comps):
+            raise ValueError("bidirectional nets cannot stream")
         if comps and isinstance(comps[0], TimeShift):
             raise ValueError("strip the TimeShift and buffer lookahead "
                              "per session (OnlineRecognizer semantics)")

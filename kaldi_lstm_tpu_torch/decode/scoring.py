@@ -19,6 +19,7 @@ import torch
 from kaldi_lstm_tpu_torch.io.kaldi_io import KaldiInput, read_vector
 from kaldi_lstm_tpu_torch.models import Nnet
 from kaldi_lstm_tpu_torch.utils import WARN
+from kaldi_lstm_tpu_torch.utils.tree import params_device
 
 
 def read_class_frame_counts(path: str) -> np.ndarray:
@@ -103,13 +104,6 @@ def fetch_block(y, top_p: int, num_pdfs: int,
         return y.cpu().float().numpy()
     return dense_from_topk(y[0].cpu().float().numpy(), y[1].cpu().numpy(),
                            num_pdfs, floor_margin)
-
-
-def params_device(params) -> torch.device:
-    for p in params:
-        for t in (p.values() if isinstance(p, dict) else p):
-            return t.device
-    return torch.device("cpu")
 
 
 class AmScorer:

@@ -1,6 +1,7 @@
 from kaldi_lstm_tpu_torch.models.components import (
     AddShift,
     AffineTransform,
+    BLstmProjectedStreams,
     Component,
     LstmProjected,
     LstmProjectedStreams,

@@ -36,6 +36,7 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import (
 )
 from kaldi_lstm_tpu_torch.ops.lstm_infer import lstm_infer, needs_grad
 from kaldi_lstm_tpu_torch.ops.lstm_train import lstm_train
+from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
 
 Params = Any   # component parameters ({} when parameter-free)
 State = Any    # recurrent state (None when stateless)
@@ -126,8 +127,7 @@ class Component:
         return ""
 
     def num_params(self, params: Params) -> int:
-        leaves = params.values() if isinstance(params, dict) else params
-        return sum(int(t.numel()) for t in leaves)
+        return sum(int(t.numel()) for t in tree_leaves(params))
 
     def __repr__(self):
         return (f"{type(self).__name__}(in={self.input_dim}, "
@@ -726,3 +726,85 @@ class LstmProjectedStreams(_LstmBase):
         self._config_options(tokens)
         self.nstream = int(tokens.get("<NumStream>", 4))
         return self.init_params(generator, device)
+
+
+@register
+class BLstmProjectedStreams(_LstmBase):
+    """Bidirectional projected LSTM: independent forward and backward
+    cells over the whole chunk, outputs concatenated (output_dim = 2R).
+    No cross-chunk state carry: the backward direction needs the whole
+    future, so each call covers a complete utterance (per-utterance
+    training, whole-utterance scoring). Each direction is one
+    ``_run_scan`` call, the backward one on the time-flipped input: K1/K2
+    for a training call and K5 for an inference call on the card, the
+    plain versions on the CPU. Params are ``{"fw": LstmParams, "bw":
+    LstmParams}``."""
+
+    token = "<BLstmProjectedStreams>"
+
+    def __init__(self, input_dim, output_dim, cell_dim: int = 0,
+                 nstream: int = 4, param_scale: float = 0.02):
+        super().__init__(input_dim, output_dim, cell_dim, param_scale)
+        self.recur_dim = int(output_dim) // 2
+        self.nstream = int(nstream)
+
+    def init_params(self, generator, device=None):
+        return {"fw": super().init_params(generator, device),
+                "bw": super().init_params(generator, device)}
+
+    def apply(self, params, x, state=None, rng=None, train=False,
+              time_major=False, input_grad=True):
+        taxis = 0 if time_major else 1
+        S = x.shape[1] if time_major else x.shape[0]
+        st = zero_state(S, self.cell_dim, self.recur_dim, x.dtype, x.device)
+        m_f = m_b = None
+        if train:
+            # drawn fw then bw from the component's generator
+            m_f = self._dropout_mask(rng, x)
+            m_b = self._dropout_mask(rng, x)
+        x_rev = torch.flip(x, (taxis,))
+        out_f, _ = self._run_scan(params["fw"], x, st, m_f,
+                                  time_major=time_major,
+                                  input_grad=input_grad)
+        out_b, _ = self._run_scan(params["bw"], x_rev, st,
+                                  None if m_b is None else
+                                  torch.flip(m_b, (taxis,)),
+                                  time_major=time_major,
+                                  input_grad=input_grad)
+        return torch.cat([out_f, torch.flip(out_b, (taxis,))], dim=-1), None
+
+    def read_data(self, inp, device=None):
+        tok = kio.read_token(inp)
+        if tok != "<CellDim>":
+            raise ValueError(
+                f"BLstmProjectedStreams: expected <CellDim>, got {tok!r}")
+        self.cell_dim = kio.read_int32(inp)
+        tok = kio.read_token(inp)
+        if tok != "<NumStream>":
+            raise ValueError(
+                f"BLstmProjectedStreams: expected <NumStream>, got {tok!r}")
+        self.nstream = kio.read_int32(inp)
+        return {"fw": self._read_tensors(inp, device),
+                "bw": self._read_tensors(inp, device)}
+
+    def write_data(self, out, params):
+        kio.write_token(out, "<CellDim>")
+        kio.write_int32(out, self.cell_dim)
+        kio.write_token(out, "<NumStream>")
+        kio.write_int32(out, self.nstream)
+        self._write_tensors(out, params["fw"])
+        self._write_tensors(out, params["bw"])
+
+    def init_from_config(self, tokens, generator, device=None):
+        self.cell_dim = int(tokens["<CellDim>"])
+        self.nstream = int(tokens.get("<NumStream>", 4))
+        self.param_scale = float(tokens.get("<ParamScale>", 0.02))
+        return self.init_params(generator, device)
+
+    def info(self, p):
+        return ("forward:\n  " + super().info(p["fw"])
+                + "\n  backward:\n  " + super().info(p["bw"]))
+
+    def info_gradient(self, g):
+        return ("forward:\n  " + super().info_gradient(g["fw"])
+                + "\n  backward:\n  " + super().info_gradient(g["bw"]))

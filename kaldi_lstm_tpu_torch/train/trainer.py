@@ -65,6 +65,7 @@ from kaldi_lstm_tpu_torch.train.streams import (
 )
 from kaldi_lstm_tpu_torch.utils import LOG, VLOG
 from kaldi_lstm_tpu_torch.utils.tree import (
+    params_device,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -281,10 +282,26 @@ def make_train_step(nnet: Nnet, opts: TrainOptions,
     return _make_step_fn(nnet, opts, transf, crossvalidate, device)
 
 
-def _pack_aux(aux: LossAux) -> torch.Tensor:
+def pack_aux(aux: LossAux) -> torch.Tensor:
     """[1, 4] float32 device row (xent, entropy, correct, frames)."""
     return torch.stack([torch.as_tensor(v).to(torch.float32).reshape(())
                         for v in aux]).reshape(1, 4)
+
+
+def flush_aux(pending: list, stats: LossStats, log_fn=None) -> np.ndarray:
+    """Feed the `pack_aux` rows in `pending` to `stats`, in order, with
+    one device-to-host copy, and clear `pending`: the epoch loop and the
+    per-utterance and per-minibatch tools fetch their statistics in
+    blocks instead of syncing on every step. Returns the rows fed."""
+    if not pending:
+        return np.zeros((0, 4), np.float32)
+    block = torch.cat(pending).cpu().numpy()
+    pending.clear()
+    for xent, ent, correct, frames in block:
+        stats.add(LossAux(xent=float(xent), entropy=float(ent),
+                          correct=float(correct), frames=float(frames)),
+                  log_fn=log_fn)
+    return block
 
 
 # replays of grouped-step graphs in this process (a caller can show that
@@ -337,7 +354,7 @@ class _GroupedStep:
             params, opt_state, states, aux = self.step(
                 params, opt_state, states, transf_params,
                 *(t[i] for t in batches), learn_rate, rng=rng)
-            rows.append(_pack_aux(aux))
+            rows.append(pack_aux(aux))
         return params, opt_state, states, torch.cat(rows)
 
     def __call__(self, params, opt_state, states, transf_params, feats,
@@ -520,7 +537,7 @@ def _monitor_first_batch(nnet, params, transf, transf_params,
     """Format and VLOG the moment dumps (reference :232-239 output layout
     at the first minibatch; :251-260 every-25k-frames repeat at vlog-2,
     `level=2`), from fresh zero states."""
-    device = _params_device(params)
+    device = params_device(params)
     monitor = make_monitor_fn(nnet, opts, transf, crossvalidate,
                               device=device)
     S, T = batch.feats.shape[:2]
@@ -574,22 +591,15 @@ STATS_FLUSH = 32  # aux blocks of device stats fetched per host transfer
 
 def _flush_stats(pending: list, stats: LossStats, scheduler,
                  total_frames: float) -> float:
-    """Feed the buffered per-batch stats to the host accumulator with
-    one concatenation and one device-to-host copy, and stop on a
-    non-finite loss."""
-    if not pending:
-        return total_frames
-    block = torch.cat(pending).cpu().numpy()
-    pending.clear()
-    for xent, ent, correct, frames in block:
+    """Feed the buffered per-batch stats to the host accumulator
+    (`flush_aux`) and stop on a non-finite loss."""
+    block = flush_aux(pending, stats, log_fn=lambda m: VLOG(1, m))
+    for xent, _, _, frames in block:
         if not np.isfinite(xent):
             raise FloatingPointError(
                 f"non-finite loss after {scheduler.num_done} utterances "
                 f"— learning rate too high or corrupt input; "
                 f"xent={xent}")
-        stats.add(LossAux(xent=float(xent), entropy=float(ent),
-                          correct=float(correct), frames=float(frames)),
-                  log_fn=lambda m: VLOG(1, m))
         total_frames += float(frames)
     return total_frames
 
@@ -610,11 +620,16 @@ def _to_device(host: tuple, device) -> tuple[torch.Tensor, ...]:
     return tuple(t.to(device, non_blocking=True) for t in host)
 
 
-def place_batch(b: StreamBatch, device) -> tuple[torch.Tensor, ...]:
-    """(feats, tgt_ids, tgt_weights, mask, reset_flags) on `device`; to a
-    card through pinned buffers and non-blocking copies."""
+def place_arrays(arrays, device) -> tuple[torch.Tensor, ...]:
+    """Numpy arrays as tensors on `device`; to a card through pinned
+    buffers and non-blocking copies."""
     cuda = torch.device(device).type == "cuda"
-    return _to_device(_host_tensors(_batch_arrays(b), cuda), device)
+    return _to_device(_host_tensors(arrays, cuda), device)
+
+
+def place_batch(b: StreamBatch, device) -> tuple[torch.Tensor, ...]:
+    """(feats, tgt_ids, tgt_weights, mask, reset_flags) on `device`."""
+    return place_arrays(_batch_arrays(b), device)
 
 
 def _stage_group(group: list, pin: bool) -> tuple[torch.Tensor, ...]:
@@ -622,11 +637,6 @@ def _stage_group(group: list, pin: bool) -> tuple[torch.Tensor, ...]:
     (pinned for a card); the grouped step copies them in."""
     return _host_tensors([np.stack(a) for a in zip(
         *(_batch_arrays(b) for b in group))], pin)
-
-
-def _params_device(params) -> torch.device:
-    leaves = tree_leaves(params)
-    return leaves[0].device if leaves else torch.device("cpu")
 
 
 def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
@@ -647,7 +657,7 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     CUDA-graph replay on the card; identical math, dump and monitor
     checks at group granularity); a tail group shorter than that takes
     the plain step."""
-    device = _params_device(params)
+    device = params_device(params)
     cuda = device.type == "cuda"
     use_group = step_group > 1
     step = None if use_group else make_train_step(
@@ -739,7 +749,7 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
                     *_to_device(host, device), lr, rng=rng)
                 # stats stay on the device and come back in blocks: a
                 # per-step copy would stall the host every step
-                pending.append(_pack_aux(aux))
+                pending.append(pack_aux(aux))
         num_steps += len(group)
         prof["dispatch"] += time.perf_counter() - t0
 

@@ -9,6 +9,7 @@ from kaldi_lstm_tpu_torch.utils.logging import (
     get_verbose_level,
     set_verbose_level,
 )
+from kaldi_lstm_tpu_torch.utils.timer import Timer
 
 
 def device_from_arg(name: str, tool: str) -> torch.device | None:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
+import torch
+
 
 def tree_leaves(tree: Any) -> list:
     if tree is None:
@@ -17,6 +19,13 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def params_device(params: Any) -> torch.device:
+    """The device of a parameter tree's first tensor (the CPU for a tree
+    without tensors)."""
+    leaves = tree_leaves(params)
+    return leaves[0].device if leaves else torch.device("cpu")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

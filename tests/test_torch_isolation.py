@@ -116,6 +116,14 @@ _ALIGN_MODULES = {
     "kaldi_lstm_tpu_torch.tools.nnet_align",
 }
 
+_PERUTT_MODULES = {
+    "kaldi_lstm_tpu_torch.train.randomizer",
+    "kaldi_lstm_tpu_torch.utils.timer",
+    "kaldi_lstm_tpu_torch.tools.cmvn_to_nnet",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_frmshuff",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_perutt",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -129,15 +137,17 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
     assert _STREAM_MODULES <= names and _ALIGN_MODULES <= names
+    assert _PERUTT_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
                                           | _DECODE_MODULES
                                           | _STREAM_MODULES
-                                          | _ALIGN_MODULES))
+                                          | _ALIGN_MODULES
+                                          | _PERUTT_MODULES))
 def test_monitor_modules_import_no_jax(module):
-    """Each of the debug-dump, decode, streaming, alignment and lattice
-    modules alone, in a fresh interpreter, loads neither jax nor the JAX
+    """Each of the debug-dump, decode, streaming, alignment, lattice and
+    per-utterance/frame-shuffled training modules alone, in a fresh interpreter, loads neither jax nor the JAX
     package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

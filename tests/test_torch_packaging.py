@@ -97,6 +97,27 @@ def test_the_alignment_and_lattice_tools_have_console_scripts(tool):
         f"kaldi_lstm_tpu_torch.tools.{tool}:main"
 
 
+_MODEL_TOOLS = ("nnet_train_perutt", "nnet_initialize", "nnet_copy",
+                "nnet_concat", "nnet_edit", "nnet_info", "cmvn_to_nnet",
+                "run_recipe")
+
+
+@pytest.mark.parametrize("tool", _MODEL_TOOLS)
+def test_the_model_and_trainer_tools_have_console_scripts(tool):
+    """Each per-utterance trainer and model tool that the JAX package
+    ships as `klt-<tool>` has its `klt-torch-<tool>` twin, naming a
+    `main`; the frame-shuffled trainer has no JAX script, so no twin."""
+    import importlib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    name = tool.replace("_", "-")
+    assert scripts[f"klt-{name}"] == f"kaldi_lstm_tpu.tools.{tool}:main"
+    target = f"kaldi_lstm_tpu_torch.tools.{tool}:main"
+    assert scripts[f"klt-torch-{name}"] == target
+    assert callable(importlib.import_module(target.split(":")[0]).main)
+    assert "klt-torch-nnet-train-frmshuff" not in scripts
+
+
 @pytest.mark.parametrize("name", sorted(_port_scripts()))
 def test_every_port_console_script_names_a_main(name):
     import importlib

@@ -13,10 +13,25 @@ scores within 1e-5 summed over a few hundred frames); the CLI's
 transcript file equals the JAX CLI's byte for byte.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
-from tests.test_torch_online import make_world
+
+def _sibling(name: str):
+    """A module of this directory loaded by its path: where another
+    installed package is named `tests`, `tests.<name>` would find that
+    one instead."""
+    path = pathlib.Path(__file__).with_name(f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_sibling_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+make_world = _sibling("test_torch_online").make_world
 
 SEARCH = dict(acoustic_scale=1.0, beam=18.0, chunk_frames=7)
 
