@@ -210,11 +210,50 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    as predicted, the CV AvgLoss falls, and with --randomize false the
    card drains the same minibatches in the same order as the CPU path
    and trains the same model;
-11. print one JSON line with every kernel (the bf16 variants as
+11. sequence training in phase 7's work directory (after phase 10, on
+   phase 7's AM, final.mdl and corpus, with phase 9's realignments; no
+   model or graph built again). 11a: `nnet_train_smbr --device cuda` as
+   the recipe runs it (examples/flagship_experiment.sh:286-294:
+   --learn-rate 1e-5 --acoustic-scale 1.0 --length-bucket 64, no feature
+   transform: phase 7's AM has none) for one iteration on the first 32
+   of the 64 realigned utterances (a time cut, printed on the `cuts:`
+   line), with a --cross-validate=true pass before and after;
+   `den_graph_for` must pick the structured phone loop with Ns 7998; the
+   counts zeroed just before and read just after each run: training one
+   K1 and one K2 call (no dx) per utterance, i.e. sum(2T_b + 2) and
+   sum(2T_b + 5) launches over the buckets T_b, a CV pass one K5 launch
+   per utterance, no other kernel (no K3/K4: the senone affine and
+   log-softmax are torch ops) and no plain call; the model reads back; 2
+   utterances on the card against the CPU path (the per-utterance E[A]
+   within 1e-4 of max(E[A], frames), each utterance's gradients within
+   1e-2 of their largest entry, the params after the updates within the
+   step tolerance); warm steps at buckets 128, 256 and 512 split into
+   the net (K1+K2, affine, log-softmax) and the den-graph recursion with
+   its backward and second-order pass, and a profile of one step at 512
+   (launches, idle share). Predicted: the den graph takes >= 0.85 of an
+   sMBR step at T >= 256 (some 60 small launches a frame against the
+   net's 2T + 2 + 2T + 5), the step 150-400 ms at T = 256 against the
+   net's 15-20 ms, the card idle > 0.7 of it (host dispatch). 11b: the
+   same for lattice-free MMI (`nnet_train_mmi`, AvgMMI(den-num)/frame);
+   predicted: first order only, den-graph share >= 0.75. 11c: priors
+   from the ported ali_to_pdf -> ali_to_post -> compute_class_counts on
+   phase 7's training part (--counts-offset 1: equal to phase 7's
+   counts.vec), then `nnet_train_mmi_sequential` and
+   `nnet_train_mpe_sequential` on phase 7's 16 determinized lattices
+   with the corpus's ali.ark as numerator: one K5 launch (the loglik)
+   and one K1 and one K2 call (the update) per utterance, no plain call,
+   every utterance counted as done or skipped with a reason; the loglik
+   and the MMI diff rows on the card against the CPU on 2 lattices
+   (within 1e-3). 11d: den_logprob, num_logprob and expected_accuracy
+   with their gradients on the card against the CPU for the structured,
+   dense and split graphs at small sizes;
+12. print one JSON line with every kernel (the bf16 variants as
    entries of their own; K5's adds its masked entry point's launches,
-   times and error, the realignment's and the BLSTM scoring's launches;
-   K1-K4 add the per-utterance and frame-shuffled launches and their
-   times at the per-utterance shapes), then the device line last.
+   times and error, the realignment's, the BLSTM scoring's and the
+   sequence trainers' launches; K1-K4 add the per-utterance,
+   frame-shuffled and sequence-training launches, their times at the
+   per-utterance shapes and their device ms in one sMBR step), then the
+   device line last.
 """
 
 from __future__ import annotations
@@ -3793,7 +3832,8 @@ def phase_align(work: str, p7: dict) -> dict:
         f"LM phase 7's trigram) keeps the best path's words in "
         f"{same_resc}/{len(lat_keys)}")
     return {"launches": launches, "wall_s": wall, "cli_wall_s": cli_wall,
-            "scoring_ms": scoring_ms, "idle": idle}
+            "scoring_ms": scoring_ms, "idle": idle, "feats": seq_scp,
+            "ali": fused}
 
 
 # ---------------------------------------------------------------------------
@@ -4424,6 +4464,557 @@ def phase_frmshuff(work: str, feats: str, post: str) -> dict:
             "minibatches": steps}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sequence training in phase 7's work directory, on its AM,
+# transition model and corpus, with phase 9's realignments
+# ---------------------------------------------------------------------------
+
+# the recipe's sMBR stage (examples/flagship_experiment.sh:286-294); the
+# lattice-free MMI trainer takes the same flags
+SEQ_BUCKET = 64
+SEQ_FLAGS = ["--learn-rate", "1e-5", "--acoustic-scale", "1.0",
+             "--length-bucket", str(SEQ_BUCKET)]
+SEQ_LR = 1e-5
+SEQ_UTTS = 32          # of phase 9's 64 realignments (a time cut)
+SEQ_CPU_UTTS = 2
+SEQ_TIMED = 2          # warm steps timed per bucket, after one warm-up
+SEQ_TIME_BUCKETS = (128, 256, 512)   # the buckets whose steps are timed
+# card vs CPU: per-utterance statistic within SEQ_STAT_RTOL of max(its
+# value, the utterance's frames);
+# each utterance's gradients within SEQ_GRAD_RTOL of their largest entry
+# and each parameter after the updates within STEP_ATOL + STEP_RTOL x |p|
+# (K1/K2 and the card's logsumexp sum in other orders than the plain
+# versions; the den graph's 7998-state sums round ~1e-7 apart, and E[A]'s
+# gradient gamma * (acc - E[A]) cancels where acc is near E[A])
+SEQ_STAT_RTOL = 1e-4
+SEQ_GRAD_RTOL = 1e-2
+# the lattice trainers' loglik and diff rows, card vs CPU
+SEQ_LAT_ATOL = 1e-3
+
+
+def first_number(pattern: str, text: str) -> float:
+    import re
+    m = re.search(pattern + r"\s*(-?[0-9.]+(?:e[-+]?\d+)?)", text)
+    if m is None:
+        fail(f"no {pattern!r} in the tool's log")
+    return float(m.group(1))
+
+
+def run_logged(main, argv) -> tuple[int, str]:
+    """main(argv) with its stderr captured; its LOG and ERROR lines are
+    echoed into this log."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    for ln in text.splitlines():
+        if ln.startswith(("LOG", "ERROR")):
+            log(f"    | {ln}")
+    return rc, text
+
+
+def counted_only(what: str, predicted: dict, main, argv
+                 ) -> tuple[dict, float, str]:
+    """`counted` on main(argv), and no kernel outside `predicted`
+    launched. Returns (the counts, the wall seconds, the tool's log)."""
+    out = {}
+
+    def call():
+        rc, out["log"] = run_logged(main, argv)
+        return rc
+    got, wall = counted(what, predicted, call)
+    others = {k: v for k, v in got.items()
+              if v and k not in predicted and not k.startswith("plain.")}
+    if others:
+        fail(f"{what} launched kernels outside the prediction: {others}")
+    return got, wall, out["log"]
+
+
+def seq_prediction(buckets: list, k5: int = 0) -> dict:
+    """Launches of a sequence-training pass: per utterance one K1 call
+    (fwd_launches(T_b)) and one K2 call without dx (the LSTM sits on the
+    features); `k5` K5 launches besides (the lattice trainers' loglik)."""
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
+    out = {"lstmp_train_fwd": sum(map(fwd_launches, buckets)),
+           "lstmp_train_bwd": sum(bwd_launches(T, False) for T in buckets)}
+    if k5:
+        out["lstmp_infer"] = k5
+    return out
+
+
+def seq_batches(feats: str, targets, n: int | None = None) -> list:
+    """(key, [feats, targets, mask] padded as the lattice-free trainers
+    pad them) of the first n utterances; targets(key, tids) gives each
+    utterance's per-frame targets."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.tools.nnet_train_mmi import pad_utterance
+    out = []
+    for key, m in kio.SequentialMatrixReader(feats):
+        out.append((key, pad_utterance(m, targets(key), SEQ_BUCKET)))
+        if len(out) == n:
+            break
+    return out
+
+
+def seq_card_vs_cpu(what: str, model: str, tm, objective_for,
+                    batches: list) -> dict:
+    """The first utterances trained on the card and on the port's CPU
+    path from the same model (one update each, momentum 0): the
+    per-utterance statistic, each utterance's gradients (the update
+    itself sits below the weights' float32 resolution at lr 1e-5) and
+    the parameters after the updates."""
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools.nnet_train_mmi import make_sequence_step
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum, \
+        momentum_update
+    from kaldi_lstm_tpu_torch.train.sequence import den_graph_for
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+    res = {}
+    for dev in ("cuda", "cpu"):
+        nnet, params = Nnet.read(model, dev)
+        step = make_sequence_step(nnet, None, None, None,
+                                  objective_for(den_graph_for(tm, device=dev)),
+                                  False)
+        opt = init_momentum(params)
+        stats, grads_seen = [], []
+        t0 = time.perf_counter()
+        for _, b in batches:
+            _, stat, grads = step(params, *(torch.from_numpy(a).to(dev)
+                                            for a in b))
+            grads_seen.append([g.cpu() for g in tree_leaves(grads)])
+            momentum_update(params, grads, opt, SEQ_LR, 0.0, 0.0)
+            stats.append(float(stat[0]))
+        res[dev] = (tree_leaves(params), stats, grads_seen,
+                    time.perf_counter() - t0)
+    (p_g, s_g, g_g, t_g), (p_c, s_c, g_c, t_c) = res["cuda"], res["cpu"]
+    worst = grad_err = grad_max = 0.0
+    for pg, pc in zip(p_g, p_c):
+        d = (pg.cpu() - pc).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= STEP_ATOL + STEP_RTOL * pc.abs()).all()):
+            fail(f"{what}: parameters on the card disagree with the CPU "
+                 f"path (max_abs_err {float(d.max()):.3e})")
+    for gg, gc in zip(g_g, g_c):
+        for a, b in zip(gg, gc):
+            grad_err = max(grad_err, float((a - b).abs().max()))
+            grad_max = max(grad_max, float(b.abs().max()))
+    # MMI's den - num cancels two sums of the utterance's frames, so the
+    # scale of the statistic is the utterance's frames, not its value
+    stat_err = max(abs(a - b) / max(abs(b), float(bt[2].sum()))
+                   for a, b, (_, bt) in zip(s_g, s_c, batches))
+    log(f"  {what}: {len(batches)} utterances on the card ({t_g:.3f} s) "
+        f"against the CPU path ({t_c:.3f} s): statistic card {s_g} vs CPU "
+        f"{s_c} (largest difference over max(|value|, frames) "
+        f"{stat_err:.3e}, tol {SEQ_STAT_RTOL:g}); gradients max_abs_err "
+        f"{grad_err:.3e} of a "
+        f"largest entry {grad_max:.3e} (tol {SEQ_GRAD_RTOL:g} of it); "
+        f"params after the updates max_abs_err {worst:.3e} (tol "
+        f"{STEP_ATOL:g} + {STEP_RTOL:g} x |p|)")
+    if not all(np.isfinite(s_g)) or stat_err > SEQ_STAT_RTOL:
+        fail(f"{what}: the card's per-utterance statistic disagrees with "
+             f"the CPU path's")
+    if grad_max <= 0 or grad_err > SEQ_GRAD_RTOL * grad_max:
+        fail(f"{what}: the card's gradients disagree with the CPU path's")
+    return {"stat_rel_err": stat_err, "param_err": worst,
+            "grad_err": grad_err, "grad_max": grad_max}
+
+
+def seq_step_split(what: str, model: str, tm, objective_for,
+                   batches: list) -> dict:
+    """Warm steps on the card at SEQ_TIME_BUCKETS, split into the net
+    (K1 + K2, the affine and the log-softmax: the forward and a backward
+    from a fixed cotangent) and the den-graph part (the objective on a
+    fixed loglik and its gradient, the second-order pass for sMBR); a
+    profile of one step at the largest of them (launches, idle share)."""
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.tools.nnet_train_mmi import make_sequence_step
+    from kaldi_lstm_tpu_torch.train.optim import init_momentum, \
+        momentum_update
+    from kaldi_lstm_tpu_torch.train.sequence import den_graph_for
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves, tree_map
+    nnet, params = Nnet.read(model, "cuda")
+    objective = objective_for(den_graph_for(tm, device="cuda"))
+    step = make_sequence_step(nnet, None, None, None, objective, False)
+    opt = init_momentum(params)
+    by_bucket: dict = {}
+    for _, b in batches:
+        T = b[0].shape[1]
+        if T in SEQ_TIME_BUCKETS and \
+                len(by_bucket.setdefault(T, [])) < SEQ_TIMED + 1:
+            by_bucket[T].append([torch.from_numpy(a).to("cuda") for a in b])
+
+    def full(b):
+        _, _, grads = step(params, *b)
+        momentum_update(params, grads, opt, SEQ_LR, 0.0, 0.0)
+
+    def net(b):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            logits, _ = nnet.propagate(live, b[0],
+                                       nnet.init_states(1, "cuda"),
+                                       logits=True)
+            ll = torch.log_softmax(logits, dim=-1)
+            torch.autograd.grad(ll, tree_leaves(live),
+                                grad_outputs=torch.full_like(ll, 1e-3),
+                                allow_unused=True)
+        return ll.detach()
+
+    def den(b, ll):
+        x = ll.clone().requires_grad_(True)
+        with torch.enable_grad():
+            obj, _ = objective(x, b[1], b[2])
+            torch.autograd.grad(obj, x)
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*a)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    rows = {}
+    for T, bs in sorted(by_bucket.items()):
+        if len(bs) < 2:
+            continue
+        full(bs[0])
+        den(bs[0], net(bs[0]))
+        ms = {"step": [], "net": [], "den": []}
+        for b in bs[1:]:
+            ms["step"].append(timed(full, b))
+            ll = net(b)
+            ms["net"].append(timed(net, b))
+            ms["den"].append(timed(den, b, ll))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        rows[T] = med
+        log(f"  {what} warm step at T={T} ({len(bs) - 1} timed): "
+            f"{med['step']:.3f} ms; the net (K1+K2, affine, log-softmax) "
+            f"{med['net']:.3f} ms, the den-graph recursion with its "
+            f"backward{' and second-order pass' if 'sMBR' in what else ''}"
+            f" {med['den']:.3f} ms: den-graph share "
+            f"{med['den'] / (med['net'] + med['den']):.3f}")
+    if not rows:
+        fail(f"{what}: no bucket held two utterances to time")
+    big = max(rows)
+    prof = profile(lambda: full(by_bucket[big][1]),
+                   f"one {what} step at T={big}", rows=6)
+    if prof is not None:
+        log(f"    {prof['kernels']} kernel launches in the step, "
+            f"{1e3 * prof['busy_ms'] / max(prof['kernels'], 1):.2f} us of "
+            f"kernel time each")
+    return {"ms": rows, "profile": prof}
+
+
+def phase_sequence(work: str, p7: dict, p9: dict) -> dict:
+    """Phase 11: the sequence trainers on phase 7's AM and transition
+    model: 11a `nnet_train_smbr` as the recipe runs it on phase 9's
+    realignments, 11b `nnet_train_mmi` on the same, 11c the lattice
+    trainers on phase 7's determinized lattices with priors from the
+    ported posterior and count tools, 11d the den-graph functions on the
+    card against the CPU. Returns the launches and times."""
+    import torch
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.io.transition_model import TransitionModel
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.train.sequence import (
+        PhoneLoopDenGraph,
+        alignment_to_states,
+        den_graph_for,
+        mmi_objective,
+        smbr_objective,
+    )
+    from kaldi_lstm_tpu_torch.tools import nnet_train_mmi, nnet_train_smbr
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+
+    lang, final = p7["lang"], p7["final"]
+    mdl = f"{lang}/final.mdl"
+    feats, ali_path = p9["feats"], p9["ali"]
+    tm = TransitionModel.load(mdl)
+    graph = den_graph_for(tm, device="cuda")
+    ns = int(graph.state_pdf.shape[0])
+    log(f"  den_graph_for picked {type(graph).__name__}, Ns {ns} (the "
+        f"transition model's {len(tm.tuples)} tuples, {tm.num_pdfs} pdfs)")
+    if not isinstance(graph, PhoneLoopDenGraph) or ns != LVCSR_PDFS:
+        fail(f"expected the structured phone loop with Ns {LVCSR_PDFS}")
+    alis = dict(kio.SequentialIntVectorReader(f"ark:{ali_path}"))
+    with open(feats.split(":", 1)[1]) as f:
+        lines = f.read().splitlines()
+    feats = "scp:" + os.path.join(work, "seq_train.scp")
+    with open(feats[4:], "w") as f:
+        f.write("\n".join(lines[:SEQ_UTTS]) + "\n")
+    lens = [m.shape[0] for _, m in kio.SequentialMatrixReader(feats)]
+    buckets = [-(-L // SEQ_BUCKET) * SEQ_BUCKET for L in lens]
+    n = len(lens)
+    log(f"  cuts: 11a/11b train on the first {n} of phase 9's {len(lines)} "
+        f"realigned utterances (the recipe: KLT_NSEQ = 400; a time cut: "
+        f"a 64-utterance sMBR pass took 51 s) for one iteration; the card "
+        f"against the CPU on {SEQ_CPU_UTTS}; 11c on phase 7's "
+        f"{DECODE_LAT_UTTS} lattices; {sum(lens)} frames, buckets "
+        f"{ {T: buckets.count(T) for T in sorted(set(buckets))} }")
+    out = {}
+
+    tools = (
+        ("11a", "sMBR", nnet_train_smbr.main, r"ExpectedSMBRAccuracy/frame:",
+         lambda key: tm.transition_ids_to_pdfs(alis[key]),
+         lambda g: lambda ll, refs, mask: smbr_objective(
+             g, ll, refs, mask, 1.0)),
+        ("11b", "MMI", nnet_train_mmi.main, r"AvgMMI\(den-num\)/frame:",
+         lambda key: alignment_to_states(tm, alis[key]),
+         lambda g: lambda ll, states, mask: mmi_objective(
+             g, ll, states, mask, 1.0)))
+    for tag, name, main, stat_re, targets, objective_for in tools:
+        log(f"phase {tag}: {name} (nnet_train_{name.lower()} --device cuda"
+            f" {' '.join(SEQ_FLAGS)}) on phase 7's AM")
+        base = [feats, f"ark:{ali_path}", mdl]
+        model = os.path.join(work, f"nnet.{name.lower()}")
+        rec = out[name] = {}
+        cv = {}
+        for when, m in (("before", final), ("after", model)):
+            if when == "after":
+                got, wall, text = counted_only(
+                    f"nnet_train_{name.lower()}, one iteration on {n} "
+                    f"utterances", seq_prediction(buckets), main,
+                    base + [final, model] + SEQ_FLAGS + ["--device", "cuda"])
+                rec.update(launches=got, wall_s=wall,
+                           fps=sum(lens) / wall,
+                           train_stat=first_number(stat_re, text))
+                log(f"    {sum(lens) / wall:.1f} frames/s")
+            got, _, text = counted_only(
+                f"nnet_train_{name.lower()} --cross-validate=true ({when})",
+                {"lstmp_infer": n}, main, base + [m, "--cross-validate=true"]
+                + SEQ_FLAGS + ["--device", "cuda"])
+            cv[when] = first_number(stat_re, text)
+            rec[f"cv_launches_{when}"] = got["lstmp_infer"]
+        log(f"  {name}: cross-validation {stat_re.replace(chr(92), '')} "
+            f"before {cv['before']!r}, after {cv['after']!r} (not gated: "
+            f"one iteration at lr {SEQ_LR:g})")
+        if not (np.isfinite(cv["before"]) and np.isfinite(cv["after"])):
+            fail(f"{name}: a cross-validation figure is not finite")
+        nnet, params = Nnet.read(model, "cpu")
+        if nnet.output_dim != tm.num_pdfs or not all(
+                bool(torch.isfinite(p).all()) for p in tree_leaves(params)):
+            fail(f"{name}: the trained model does not read back whole")
+        rec["cv"] = cv
+        batches = seq_batches(feats, targets)
+        rec["card_vs_cpu"] = seq_card_vs_cpu(
+            f"{name}, card vs CPU", final, tm, objective_for,
+            batches[:SEQ_CPU_UTTS])
+        rec["steps"] = seq_step_split(name, final, tm, objective_for,
+                                      batches)
+
+    out["lattice"] = phase_sequence_lattice(work, p7, tm)
+    log("phase 11d: the den-graph functions on the card against the CPU "
+        "(three graph types, small sizes)")
+    seq_graph_functions()
+    return out
+
+
+def phase_sequence_lattice(work: str, p7: dict, tm) -> dict:
+    """Phase 11c: priors through the ported ali_to_pdf -> ali_to_post ->
+    compute_class_counts (the recipe's way), then nnet_train_mmi_sequential
+    and nnet_train_mpe_sequential on phase 7's determinized lattices."""
+    import argparse
+    import itertools
+    import torch
+    from kaldi_lstm_tpu_torch.decode.scoring import read_class_frame_counts
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.io.lattice import SequentialLatticeReader
+    from kaldi_lstm_tpu_torch.train.sequence_lattice import mmi_errors
+    from kaldi_lstm_tpu_torch.tools import (
+        ali_to_pdf,
+        ali_to_post,
+        compute_class_counts,
+        nnet_train_mmi_sequential as mmi_seq,
+        nnet_train_mpe_sequential as mpe_seq,
+    )
+    lang, final = p7["lang"], p7["final"]
+    mdl = f"{lang}/final.mdl"
+    log("phase 11c: lattice-based MMI and MPE (nnet_train_mmi_sequential, "
+        "nnet_train_mpe_sequential --device cuda) on phase 7's lattices")
+    with open(f"{lang}/feats.scp") as f:
+        train_keys = {ln.split()[0] for ln in
+                      f.read().splitlines()[:DECODE_TRAIN_UTTS]}
+    ali_tr = os.path.join(work, "ali_train.ark")
+    with kio.TableWriter(f"ark:{ali_tr}", kio.write_int_vector) as w:
+        for k, a in kio.SequentialIntVectorReader(f"ark:{lang}/ali.ark"):
+            if k in train_keys:
+                w.write(k, a)
+    pdf_tr, post_tr = (os.path.join(work, n) for n in
+                       ("pdf_train.ark", "post_train.ark"))
+    counts = os.path.join(work, "counts_seq.vec")
+    t0 = time.perf_counter()
+    for what, rc in (
+            ("ali_to_pdf", ali_to_pdf.main([mdl, f"ark:{ali_tr}",
+                                            f"ark:{pdf_tr}"])),
+            ("ali_to_post", ali_to_post.main([f"ark:{pdf_tr}",
+                                              f"ark:{post_tr}"])),
+            ("compute_class_counts", compute_class_counts.main(
+                [f"ark:{post_tr}", counts, "--num-classes",
+                 str(tm.num_pdfs), "--counts-offset", "1"]))):
+        if rc != 0:
+            fail(f"{what} exited {rc}")
+    mine = read_class_frame_counts(counts)
+    if not np.array_equal(mine, read_class_frame_counts(p7["counts"])):
+        fail("the ported count tools' priors differ from phase 7's counts")
+    log(f"  priors: ali_to_pdf -> ali_to_post -> compute_class_counts "
+        f"--counts-offset 1 on the {len(train_keys)} training utterances "
+        f"({time.perf_counter() - t0:.3f} s): equal to phase 7's counts.vec "
+        f"({int(mine.sum())} frames + one per pdf)")
+
+    feats = f"scp:{work}/lattice.scp"
+    lats = f"ark:{work}/lat_fused.ark"
+    lens = {k: m.shape[0] for k, m in kio.SequentialMatrixReader(feats)}
+    buckets = [-(-L // SEQ_BUCKET) * SEQ_BUCKET for L in lens.values()]
+    arcs = sum(v.num_arcs() for _, v in SequentialLatticeReader(lats))
+    log(f"  {len(lens)} utterances, {sum(lens.values())} frames, "
+        f"{arcs} compact-lattice arcs")
+    base = [feats, lats, f"ark:{lang}/ali.ark", mdl]
+    flags = ["--class-frame-counts", counts, "--learn-rate", str(SEQ_LR),
+             "--length-bucket", str(SEQ_BUCKET)]
+    out = {}
+    for name, main, extra, overall in (
+            ("mmi_sequential", mmi_seq.main, [],
+             r"Overall MMI-objective/frame:"),
+            ("mpe_sequential", mpe_seq.main, [],
+             r"Overall expected-MPE-accuracy/frame:")):
+        model = os.path.join(work, f"nnet.{name}")
+        got, wall, text = counted_only(
+            f"nnet_train_{name}, one iteration on {len(lens)} lattices",
+            seq_prediction(buckets, k5=len(lens)), main,
+            base + [final, model] + flags + extra + ["--device", "cuda"])
+        import re
+        done = re.search(r"Done (\d+) files, (\d+) with no alignment, "
+                         r"(\d+) with no lattice, (\d+) with other errors",
+                         text)
+        if done is None or sum(map(int, done.groups())) != len(lens):
+            fail(f"{name}: not every utterance was counted as done or "
+                 f"skipped: {done and done.group(0)}")
+        obj = first_number(overall, text)
+        line = re.search(r"Overall .*", text).group(0)
+        log(f"  {name}: {line.split(': ', 1)[1]}; {done.group(0)}; "
+            f"{wall:.3f} s")
+        if not np.isfinite(obj):
+            fail(f"{name}: the objective is not finite")
+        out[name] = {"launches": got, "wall_s": wall, "objective": obj}
+
+    # the card against the CPU: the loglik and the MMI diff rows
+    p = argparse.ArgumentParser()
+    mmi_seq.add_common_args(p)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        args = p.parse_args(base + [final, "--cross-validate=true"] + flags
+                            + ["--device", dev])
+        r = mmi_seq.SequentialRunner(args, torch.device(dev))
+        rows = []
+        for key, m, tids, lat in itertools.islice(r.utterances(),
+                                                  SEQ_CPU_UTTS):
+            ll = r.loglik(r.pad(m), m.shape[0])
+            _, diff, _, _ = mmi_errors(lat, r.tm, tids, ll, 0.1)
+            rows.append((ll, diff))
+        res[dev] = rows
+    ll_err = max(float(np.abs(a[0] - b[0]).max())
+                 for a, b in zip(res["cuda"], res["cpu"]))
+    diff_err = max(float(np.abs(a[1] - b[1]).max())
+                   for a, b in zip(res["cuda"], res["cpu"]))
+    log(f"  card vs CPU on {SEQ_CPU_UTTS} lattices: loglik max_abs_err "
+        f"{ll_err:.3e}, MMI diff rows max_abs_err {diff_err:.3e} (tol "
+        f"{SEQ_LAT_ATOL:g} each)")
+    if ll_err > SEQ_LAT_ATOL or diff_err > SEQ_LAT_ATOL:
+        fail("the lattice trainers' loglik or diff on the card disagree "
+             "with the CPU path")
+    out["card_vs_cpu"] = {"loglik_err": ll_err, "diff_err": diff_err}
+    return out
+
+
+def chain_transition_model(num_phones: int):
+    """A chain-style <Tuples> model: one emitting state per phone with a
+    forward pdf 2(p-1) and a self-loop pdf 2(p-1)+1 (split pdfs)."""
+    from kaldi_lstm_tpu_torch.io.transition_model import (
+        K_NO_PDF,
+        HmmState,
+        HmmTopology,
+        TransitionModel,
+    )
+    states = [HmmState(0, 1, [(0, 0.5), (1, 0.5)]),
+              HmmState(K_NO_PDF, K_NO_PDF, [])]
+    topo = HmmTopology(list(range(1, num_phones + 1)),
+                       [-1] + [0] * num_phones, [states])
+    tuples = [(p, 0, 2 * (p - 1), 2 * (p - 1) + 1)
+              for p in range(1, num_phones + 1)]
+    return TransitionModel(topo, tuples,
+                           np.log(np.full(2 * num_phones + 1, 0.5,
+                                          np.float32)))
+
+
+def graph_walk(tm, T: int, rng) -> np.ndarray:
+    """A [T] graph-state path the phone loop allows (a random walk over
+    its arcs from an entry state to one with a final arc)."""
+    from kaldi_lstm_tpu_torch.decode.viterbi import PhoneLoopGraph
+    g = PhoneLoopGraph.from_transition_model(tm)
+    while True:
+        path = [rng.choice(np.flatnonzero(g.start_logp > -1e29))]
+        for _ in range(T - 1):
+            path.append(rng.choice(np.flatnonzero(g.logA[path[-1]] > -1e29)))
+        if g.final_logp[path[-1]] > -1e29:
+            return np.asarray(path, np.int32)
+
+
+def seq_graph_functions() -> None:
+    """den_logprob, num_logprob and expected_accuracy with their
+    gradients w.r.t. loglik, on the card against the CPU, for the
+    structured, dense and split graphs (B=3 ragged utterances, T=24)."""
+    import torch
+    from kaldi_lstm_tpu_torch.io.transition_model import \
+        make_monophone_transition_model
+    from kaldi_lstm_tpu_torch.train import sequence as sq
+    dense = make_monophone_transition_model(3, 3)
+    dense.topo.entries[0][0].transitions.append((2, 0.1))
+    rng = np.random.RandomState(11)
+    for tm in (make_monophone_transition_model(4, 3), dense,
+               chain_transition_model(4)):
+        graphs = {dev: sq.den_graph_for(tm, device=dev)
+                  for dev in ("cpu", "cuda")}
+        ns = int(graphs["cpu"].state_pdf.shape[0])
+        B, T, K = 3, 24, tm.num_pdfs
+        ll = rng.randn(B, T, K).astype(np.float32)
+        mask = np.zeros((B, T), np.float32)
+        for b, L in enumerate((T, 17, 9)):
+            mask[b, :L] = 1
+        states = np.stack([graph_walk(tm, T, rng) for _ in range(B)])
+        refs = rng.randint(0, K, (B, T)).astype(np.int32)
+        worst = {}
+        for fname, fn, extra in (
+                ("den_logprob", sq.den_logprob, ()),
+                ("num_logprob", sq.num_logprob, (states,)),
+                ("expected_accuracy", sq.expected_accuracy, (refs,))):
+            outs = []
+            for dev in ("cpu", "cuda"):
+                x = torch.tensor(ll, device=dev, requires_grad=True)
+                v = fn(graphs[dev], x, *[torch.tensor(e, device=dev)
+                                         for e in extra],
+                       torch.tensor(mask, device=dev))
+                g = torch.autograd.grad(v.sum(), x)[0]
+                outs.append((v.detach().cpu(), g.cpu()))
+            (vc, gc), (vg, gg) = outs
+            worst[fname] = (float(((vg - vc).abs() / vc.abs().clamp_min(
+                1.0)).max()), float((gg - gc).abs().max()
+                                     / max(float(gc.abs().max()), 1e-30)))
+            if worst[fname][0] > SEQ_STAT_RTOL or \
+                    worst[fname][1] > SEQ_STAT_RTOL:
+                fail(f"{type(graphs['cpu']).__name__} {fname}: card vs "
+                     f"CPU {worst[fname]}")
+        log(f"  {type(graphs['cpu']).__name__} (Ns {ns}): card vs CPU "
+            f"(value rel err, gradient err / largest gradient) "
+            + ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
+                        for k, v in worst.items())
+            + f" (tol {SEQ_STAT_RTOL:g})")
+
+
 def phase_main_path(work: str):
     import torch
     from kaldi_lstm_tpu_torch.decode.scoring import (
@@ -4558,6 +5149,19 @@ K1_PROFILE_KEYS = ("interleave_gate_rows", "xw_tc_kernel", "gates_tc_kernel",
                    "contract_tc_kernel<32, 32, true, true")
 
 
+def entry_ms(table: list, entry: str) -> float:
+    """Device ms of the rows of a `device_table` that belong to a counted
+    entry point (a row belongs to the first entry of KERNEL_NAMES whose
+    key its name contains, as in kernel_counts_in_trace)."""
+    us = 0.0
+    for t, _, key in table:
+        for k, keys in KERNEL_NAMES.items():
+            if any(x in key for x in keys):
+                us += t if k == entry else 0.0
+                break
+    return us / 1e3
+
+
 def device_table(prof) -> list:
     """(self device us, count, name) of every device event of a finished
     torch.profiler run."""
@@ -4587,8 +5191,9 @@ def profile(fn, what: str, rows: int = 10):
     copy engines' time is reported apart and counts as idle, since the
     SMs may compute meanwhile: every kernel here runs on one stream);
     then the top `rows` kernels and K1's rows (its projection is the
-    only K-major-by-K-major contract). Returns {wall_ms, busy_ms, idle},
-    or None when the profiler recorded no kernel time."""
+    only K-major-by-K-major contract). Returns {wall_ms, busy_ms, idle,
+    kernels (launches), table (device_table's rows)}, or None when the
+    profiler recorded no kernel time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -4620,7 +5225,9 @@ def profile(fn, what: str, rows: int = 10):
             f"{100 * sum(r[0] for r in k1) / busy:.1f}% of kernels busy")
         for us, count, key in sorted(k1, reverse=True):
             log(f"      {us / 1e3:10.3f} ms x{count:<6d} {key[:90]}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle": idle}
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle": idle,
+            "kernels": sum(r[1] for r in table if r not in copies),
+            "table": table}
 
 
 def main() -> int:
@@ -4687,23 +5294,31 @@ def main() -> int:
 
     log("phase 7: fused score->decode (nnet_decode) at the LVCSR recipe's "
         "operating point")
-    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
-        decode = phase_decode(work)
+    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work7:
+        decode = phase_decode(work7)
         log("phase 8: streaming serving (online_serve_batch, online_decode, "
             "online_serve_sticky) on phase 7's AM")
-        stream = phase_stream(work, decode)
+        stream = phase_stream(work7, decode)
         del decode["graph"]
         log("phase 9: realign and post-process (nnet_align, align_mapped, "
             "ali_to_pdf, ali_to_phones, the lattice tools) on phase 7's AM, "
             "corpus and lattices")
-        align = phase_align(work, decode)
+        align = phase_align(work7, decode)
 
-    log("phase 10a: K1-K5 vs their plain versions at the per-utterance "
-        "training shapes (S=1, T up to 1024; R=1024; the flipped half)")
-    perutt_recs = phase_perutt_kernels()
-    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
-        feats, post = write_train_corpus(work)
-        perutt = phase_perutt(work, feats, post)
+        log("phase 10a: K1-K5 vs their plain versions at the per-utterance "
+            "training shapes (S=1, T up to 1024; R=1024; the flipped half)")
+        perutt_recs = phase_perutt_kernels()
+        with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
+            feats, post = write_train_corpus(work)
+            perutt = phase_perutt(work, feats, post)
+
+        log("phase 11: sequence training (nnet_train_smbr, nnet_train_mmi, "
+            "nnet_train_{mmi,mpe}_sequential) in phase 7's work directory, "
+            "on its AM and transition model, with phase 9's realignments")
+        t0 = time.perf_counter()
+        seq = phase_sequence(work7, decode, align)
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    smbr_prof = seq["sMBR"]["steps"]["profile"] or {"table": []}
 
     kernels = [{
         "name": "lstmp_infer", "route": "cuda",
@@ -4715,6 +5330,12 @@ def main() -> int:
         "masked_launches": stream["sticky"]["launches"],
         "align_launches": align["launches"],
         "blstm_score_launches": perutt["blstm"]["score_launches"],
+        "seq_cv_launches": sum(seq[t][f"cv_launches_{w}"]
+                               for t in ("sMBR", "MMI")
+                               for w in ("before", "after")),
+        "seq_lattice_launches": sum(
+            seq["lattice"][t]["launches"]["lstmp_infer"]
+            for t in ("mmi_sequential", "mpe_sequential")),
         "max_abs_err": max(rec["max_abs_err"],
                            perutt_recs["K5"]["max_abs_err"]),
         "ms": rec["ms"], "kernel_ms": rec["ms"],
@@ -4749,6 +5370,12 @@ def main() -> int:
             "perutt_launches": perutt["standard"]["launches"][name],
             "blstm_perutt_launches": perutt["blstm"]["launches"][name],
             "frmshuff_launches": perutt["dnn"]["launches"][name],
+            "seq_smbr_launches": seq["sMBR"]["launches"][name],
+            "seq_mmi_launches": seq["MMI"]["launches"][name],
+            "seq_lattice_launches": sum(
+                seq["lattice"][t]["launches"][name]
+                for t in ("mmi_sequential", "mpe_sequential")),
+            "seq_smbr_step_ms": entry_ms(smbr_prof["table"], name),
             "max_abs_err": max(r["max_abs_err"], pr["max_abs_err"]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -3,6 +3,7 @@ import sys
 import torch
 
 from kaldi_lstm_tpu_torch.utils.logging import (
+    ERROR,
     LOG,
     VLOG,
     WARN,

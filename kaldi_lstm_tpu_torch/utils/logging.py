@@ -32,6 +32,10 @@ def WARN(msg: str) -> None:
     _emit("WARNING", msg)
 
 
+def ERROR(msg: str) -> None:
+    _emit("ERROR", msg)
+
+
 def VLOG(level: int, msg: str) -> None:
     if _VERBOSE_LEVEL >= level:
         _emit(f"VLOG[{level}]", msg)

@@ -124,6 +124,23 @@ _PERUTT_MODULES = {
     "kaldi_lstm_tpu_torch.tools.nnet_train_perutt",
 }
 
+_SEQUENCE_MODULES = {
+    "kaldi_lstm_tpu_torch.train.sequence",
+    "kaldi_lstm_tpu_torch.train.sequence_lattice",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_mmi",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_mmi_sequential",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_mpe_sequential",
+    "kaldi_lstm_tpu_torch.tools.nnet_train_smbr",
+    "kaldi_lstm_tpu_torch.tools.ali_to_post",
+    "kaldi_lstm_tpu_torch.tools.analyze_counts",
+    "kaldi_lstm_tpu_torch.tools.compute_class_counts",
+    "kaldi_lstm_tpu_torch.tools.copy_int_vector",
+    "kaldi_lstm_tpu_torch.tools.post_to_weights",
+    "kaldi_lstm_tpu_torch.tools.scale_post",
+    "kaldi_lstm_tpu_torch.tools.sum_post",
+    "kaldi_lstm_tpu_torch.tools.weight_silence_post",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -137,18 +154,20 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert _TRAIN_MODULES <= names and _STACK_MODULES <= names
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
     assert _STREAM_MODULES <= names and _ALIGN_MODULES <= names
-    assert _PERUTT_MODULES <= names
+    assert _PERUTT_MODULES <= names and _SEQUENCE_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
                                           | _DECODE_MODULES
                                           | _STREAM_MODULES
                                           | _ALIGN_MODULES
-                                          | _PERUTT_MODULES))
+                                          | _PERUTT_MODULES
+                                          | _SEQUENCE_MODULES))
 def test_monitor_modules_import_no_jax(module):
-    """Each of the debug-dump, decode, streaming, alignment, lattice and
-    per-utterance/frame-shuffled training modules alone, in a fresh interpreter, loads neither jax nor the JAX
-    package."""
+    """Each of the debug-dump, decode, streaming, alignment, lattice,
+    per-utterance/frame-shuffled training, sequence training and
+    posterior/count modules alone, in a fresh interpreter, loads neither
+    jax nor the JAX package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'kaldi_lstm_tpu'))\n"

@@ -118,6 +118,29 @@ def test_the_model_and_trainer_tools_have_console_scripts(tool):
     assert "klt-torch-nnet-train-frmshuff" not in scripts
 
 
+_SEQUENCE_TOOLS = ("nnet_train_mmi", "nnet_train_smbr", "ali_to_post",
+                   "compute_class_counts", "analyze_counts", "scale_post",
+                   "sum_post", "copy_int_vector")
+
+
+@pytest.mark.parametrize("tool", _SEQUENCE_TOOLS)
+def test_the_sequence_and_posterior_tools_have_console_scripts(tool):
+    """Each sequence trainer and posterior/count tool that the JAX
+    package ships as `klt-<tool>` has its `klt-torch-<tool>` twin; the
+    lattice-based trainers, post_to_weights and weight_silence_post have
+    no JAX script, so no twin."""
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    name = tool.replace("_", "-")
+    assert scripts[f"klt-{name}"] == f"kaldi_lstm_tpu.tools.{tool}:main"
+    assert scripts[f"klt-torch-{name}"] == \
+        f"kaldi_lstm_tpu_torch.tools.{tool}:main"
+    for other in ("nnet-train-mmi-sequential", "nnet-train-mpe-sequential",
+                  "post-to-weights", "weight-silence-post"):
+        assert f"klt-{other}" not in scripts
+        assert f"klt-torch-{other}" not in scripts
+
+
 @pytest.mark.parametrize("name", sorted(_port_scripts()))
 def test_every_port_console_script_names_a_main(name):
     import importlib
