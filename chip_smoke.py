@@ -41,16 +41,20 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    print bounds (both the f32 CUDA-core and the 3xTF32 tensor-core bound)
    and, as context, cuBLAS f32 times of K1's three products, K2's four
    and K3/K4's three;
-3c. hold the wavefront two-layer kernels K6/K7 against their plain
-   versions at the deep config's width (S=512, T=20, tb 5/4/2/1, nonzero
-   states), on a ragged clipped case and K7 at the serving shape (S=8,
-   T=1000); K6's residuals through K2 against K1's; time kernel, plain
-   and the serial two-kernel schedule (K1 x 2, K5 x 2) and print their
-   ratio (K1's rounding differs from K6's since K1 moved to the tensor
-   cores, so K6-vs-K1 through K2 holds at TRAIN_TOL); then drive the
-   port's
-   `tools/bench_wavefront` (A/B, ablation, profile) with the K6/K7
-   counts zeroed before its A/B and read after;
+3c. hold the wavefront two-layer kernels K6 (K1's tensor-core tiles
+   over both layers) and K7 (K5's persistent kernel over both layers)
+   against their plain versions at the deep config's width (S=512,
+   T=20, tb 5/4/2/1, nonzero states), on a ragged clipped case and K7 at
+   the serving shape (S=8, T=1000), every call's launches gated exactly
+   against `wavefront_launches` (no other kernel, no plain call), K6's
+   `phases` ablation; K6's residuals through K2 against K1's (held at
+   TRAIN_TOL, bit equality printed); time K6 at S=64, 256 and 512 (every
+   tb) against K1 x 2 and K7 at S=8, T=1000 and S=512, T=20 against
+   K5 x 2, each kernel and its serial schedule in turns (CUDA events,
+   median of 5), the plain versions apart, with the f32 CUDA-core,
+   3xTF32 and bf16 bounds; then drive the port's `tools/bench_wavefront`
+   (A/B in f32 and bf16, ablation, profile) with every count zeroed
+   before its A/B and read after;
 3d. hold the bf16 variants of K1-K5 (the --bf16 path: K1-K4's products
    on the mainloop's bf16 mma, K1's gate residual in bf16, K5's weights
    in shared memory as bf16) against their bf16 plain versions, each
@@ -64,7 +68,10 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    ragged at T=2 (every ragged case on the 4-byte-copy instances), and
    K5's masked bf16 entry point at S=64, T=20; time
    kernel and plain and print bounds at 989 TFLOP/s and 3.35 TB/s and,
-   as context, cuBLAS bf16 times of the products;
+   as context, cuBLAS bf16 times of the products; then K6/K7's bf16
+   entry points at S=512, T=20 (tb 5/4/2/1), K7's at S=8, T=1000 and
+   both on a ragged T=2 case, by the same rule, each call's launches
+   gated, and timed as in 3c against K1 x 2 and K5 x 2 in bf16;
 4. drive the serving path: `nnet_forward` scoring of the full-width
    standard decode net (TimeShift(5) -> LstmProjected 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax, random weights from a seed) over
@@ -389,18 +396,20 @@ LVCSR_PROTO = TRAIN_PROTO.replace("8000", str(LVCSR_PDFS))
 LVCSR_SEARCH = ["--acoustic-scale", "0.1", "--beam", "13",
                 "--max-active", "7000", "--num-threads", "2"]
 LVCSR_LATTICE = ["--lattice-beam", "6"]
-# cut to the time limit: a brief AM training, 32 utterances decoded (16
+# cut to the time limit: a brief AM training, 16 utterances decoded (all
 # of them also by the CLI and into lattices, 4 also on the CPU, the 2
-# shortest also by the numpy decoder); the host search takes 0.5-0.8
-# core-s an audio-s on the card's machine, so each 32-utterance pass
-# takes 25-45 s on the 2 decoder threads
+# shortest also by the numpy decoder); the host search takes 0.4-1.0
+# core-s an audio-s on the card's machines (their hosts differ 2.3x), so
+# a 32-utterance pass took 25-60 s on the 2 decoder threads and the
+# whole script 1037 s on the slowest host seen: 16 keeps it well inside
+# the time limit
 DECODE_TRAIN_UTTS = 2048
 DECODE_EPOCHS = 4
 # the recipe's rate, targets delay and gradient clip (lvcsr_experiment.sh
 # :47,140-153); without the clip the rate diverged in epoch 5 on the card
 DECODE_LR = 1e-4
 DECODE_DELAY = 0
-DECODE_UTTS = 32
+DECODE_UTTS = 16
 DECODE_LAT_UTTS = 16
 DECODE_CPU_UTTS = 4
 DECODE_PY_UTTS = 2
@@ -1671,6 +1680,70 @@ def phase_bf16_kernels():
     return recs
 
 
+def phase_stack_bf16():
+    """K6/K7's bf16 entry points vs their bf16 plain versions on the card
+    (the phase's bf16 rule, bf16_compare), their launch counts, then
+    their times against K1 x 2 and K5 x 2 in bf16. Returns {"K6": record,
+    "K7": record}."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
+    bf = torch.bfloat16
+    worst = {"K6": 0.0, "K7": 0.0}
+    for i, (name, dims, tbs, clip, extra) in enumerate([
+            ("deep, full width", (512, 20, 40, 800, 512), STACK_TBS, 50.0,
+             {}),
+            ("serving S=8 T=1000 (K7)", (8, 1000, 40, 800, 512), (5,),
+             50.0, {}),
+            ("ragged S=3 T=2 I=37 C=200 R=130 (4-byte copies), clip "
+             "active", (3, 2, 37, 200, 130), (1, 2), 1.0,
+             {"x_scale": 20.0, "param_scale": 0.2})]):
+        args = stack_case(*dims, seed=170 + i, **extra)
+        T = dims[1]
+        log(f"  [K6/K7 bf16, {name}] tb {tbs}; K7 plan "
+            f"{ls.infer2_plan(dims[0], *dims[2:], bf16=True)}")
+        with torch.inference_mode():
+            k6 = T <= 20
+            if k6:
+                want = ls.lstm_stack_fwd2_plain(*args, clip, compute_dtype=bf)
+                want32 = ls.lstm_stack_fwd2_plain(*args, clip)
+                want64 = ls.lstm_stack_fwd2_plain(*f64(args), clip,
+                                                  compute_dtype=bf)
+            ref = ls.lstm_stack_infer2_plain(*args, clip, compute_dtype=bf)
+            ref32 = ls.lstm_stack_infer2_plain(*args, clip)
+            ref64 = ls.lstm_stack_infer2_plain(*f64(args), clip,
+                                               compute_dtype=bf)
+            for tb in tbs:
+                if k6:
+                    got = stack_counted(
+                        f"K6 bf16 {name} tb{tb}",
+                        lambda: ls.lstm_stack_fwd2_cuda(
+                            *args, clip, tb=tb, compute_dtype=bf),
+                        "lstmp_stack_fwd2_bf16", ls.wavefront_launches(T, tb))
+                    if got[0].dtype != bf or got[3].dtype != bf:
+                        fail("K6 bf16 did not write gifo in bf16")
+                    for what, a, b, c, d in zip(
+                            ("gifo1", "c1", "r1", "gifo2", "c2", "r2"), got,
+                            want, want32, want64):
+                        worst["K6"] = bf16_compare(f"K6 tb{tb} {what}", a,
+                                                   b, c, d, worst["K6"])
+                r2, f1, f2 = stack_counted(
+                    f"K7 bf16 {name} tb{tb}",
+                    lambda: ls.lstm_stack_infer2_cuda(
+                        *args, clip, tb=tb, compute_dtype=bf),
+                    "lstmp_stack_infer2_bf16",
+                    ls.wavefront_launches(T, tb, kernel="infer2"))
+                for what, a, pick in (("r2", r2, lambda o: o[0]),
+                                      ("c1T", f1.c, lambda o: o[1].c),
+                                      ("r1T", f1.r, lambda o: o[1].r),
+                                      ("c2T", f2.c, lambda o: o[2].c)):
+                    worst["K7"] = bf16_compare(
+                        f"K7 tb{tb} {what}", a, pick(ref), pick(ref32),
+                        pick(ref64), worst["K7"])
+        log("    launch counts met for every call above "
+            "(wavefront_launches; no other kernel, no plain call)")
+    return stack_timings(bf, worst)
+
+
 def stack_case(S, T, I, C, R, seed, param_scale=0.04, x_scale=1.0,
                device="cuda"):
     """Two stack-compatible layers, x [T, S, I] and nonzero initial
@@ -1691,34 +1764,180 @@ def stack_case(S, T, I, C, R, seed, param_scale=0.04, x_scale=1.0,
     return p1, p2, x, LstmState(st[0], st[1]), LstmState(st[2], st[3])
 
 
-def stack_bound(T, S, I, C, R, train: bool):
-    """Least time of K6 (train) or K7: both layers' f32 operations, and
-    each input read once and each output written once (K6: both layers'
-    residuals; K7: r2 and the final c1, r1, c2)."""
+def stack_bounds(T, S, I, C, R, train: bool, bf16: bool = False) -> dict:
+    """Least times of K6 (train) or K7 on this card, each the larger of
+    the operations and the compulsory bytes (each input read once, each
+    output written once: K6 both layers' residuals, gifo in bf16 under
+    bf16; K7 r2 and the final c1, r1, c2): the operations of both layers'
+    products on the f32 CUDA cores (67 TFLOP/s), as 3xTF32 (3 passes at
+    495 TFLOP/s) and in bf16 (989 TFLOP/s). Returns {unit: (ms, by)}."""
     ops = 2.0 * T * S * ((4 * C * (I + R) + C * R) + (4 * C * 2 * R + C * R))
     n_in = (T * S * I + (I + R) * 4 * C + 2 * R * 4 * C
             + 2 * (7 * C + C * R) + 2 * S * (C + R))
-    n_out = 2 * T * S * (4 * C + C + R) if train \
-        else T * S * R + S * (2 * C + R)
-    return bound_ms(ops, 4.0 * (n_in + n_out))
+    if train:
+        nbytes = 4.0 * (n_in + 2 * T * S * (C + R)) \
+            + (2.0 if bf16 else 4.0) * 2 * T * S * 4 * C
+    else:
+        nbytes = 4.0 * (n_in + T * S * R + S * (2 * C + R))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    out = {}
+    for unit, t_ops in (("f32", ops / PEAK_F32_FLOPS),
+                        ("3xtf32", 3 * ops / PEAK_TF32_FLOPS),
+                        ("bf16", ops / PEAK_BF16_FLOPS)):
+        out[unit] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def bounds_text(b: dict, own: str) -> str:
+    """The bound in the design's own unit first, the others beside it."""
+    names = {"f32": "f32 CUDA-core", "3xtf32": "3xTF32", "bf16": "bf16"}
+    rest = ", ".join(f"{names[u]} {b[u][0]:.4f}" for u in b if u != own)
+    return (f"bound {b[own][0]:.4f} ms ({names[own]}, {b[own][1]}; {rest} "
+            f"ms)")
+
+
+def turns_ms(fns: dict, reps: int = 5) -> dict:
+    """CUDA-event times of each fn() taken in turns (a, b, a, b, ...)
+    after one warm-up call each: {name: median ms of reps}."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def stack_counted(what, fn, key, predicted):
+    """fn() with every kernel count zeroed just before and read just
+    after; fail unless the count `key` equals `predicted` and no other
+    kernel and no plain version ran. Returns fn's result."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import counts
+    counts.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts.snapshot_counts().items() if v}
+    if got != {key: predicted}:
+        fail(f"{what}: counts {got}, predicted {{{key!r}: {predicted}}}")
+    return out
+
+
+STACK_TBS = (5, 4, 2, 1)
+STACK_TIMED_S = (64, 256, 512)
+
+
+def stack_timings(cd, worst_recs: dict) -> dict:
+    """K6 at S=64, 256, 512 (T=20, every tb) against K1 x 2, K7 at S=512,
+    T=20 and S=8, T=1000 against K5 x 2, in the precision `cd`, each
+    kernel and its serial schedule in turns (CUDA events, median of 5);
+    the plain versions timed apart. Returns {"K6": record, "K7": record}
+    with the S=512 (K6: best tb) and S=8, T=1000 (K7) times first."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
+    from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
+    from kaldi_lstm_tpu_torch.ops import lstm_train as lt
+    tag = "bf16" if cd is not None else "f32"
+    I, C, R, clip = 40, 800, 512, 50.0
+    recs = {"K6": {}, "K7": {}}
+    for S in STACK_TIMED_S:
+        args = stack_case(S, 20, I, C, R, seed=300 + S)
+        p1, p2, x, s1, s2 = args
+        fns = {f"tb{tb}": (lambda tb=tb: ls.lstm_stack_fwd2_cuda(
+            *args, clip, tb=tb, compute_dtype=cd)) for tb in STACK_TBS}
+        fns["serial"] = lambda: lt.lstm_fwd_residuals_cuda(
+            p2, lt.lstm_fwd_residuals_cuda(p1, x, s1.c, s1.r,
+                                           cell_clip=clip,
+                                           compute_dtype=cd)[2],
+            s2.c, s2.r, cell_clip=clip, compute_dtype=cd)
+        with torch.inference_mode():
+            t = turns_ms(fns)
+        best = min(STACK_TBS, key=lambda tb: t[f"tb{tb}"])
+        b = stack_bounds(20, S, I, C, R, True, cd is not None)
+        own = "bf16" if cd is not None else "3xtf32"
+        log(f"  [K6 {tag} S={S} T=20] " + ", ".join(
+            f"tb{tb} {t[f'tb{tb}']:.3f}" for tb in STACK_TBS)
+            + f" ms; serial K1 x 2 {t['serial']:.3f} ms; best tb{best}: "
+            f"the serial schedule takes {t['serial'] / t[f'tb{best}']:.3f}x "
+            f"its time; {bounds_text(b, own)}")
+        rec = {"ms": t[f"tb{best}"], "best_tb": best,
+               "serial_ms": t["serial"], "bound_ms": b[own][0],
+               "bound_by": b[own][1], "f32_bound_ms": b["f32"][0],
+               "tf32x3_bound_ms": b["3xtf32"][0],
+               "bf16_bound_ms": b["bf16"][0],
+               **{f"tb{tb}_ms": t[f"tb{tb}"] for tb in STACK_TBS}}
+        if S == 512:
+            with torch.inference_mode():
+                rec["plain_ms"] = cuda_ms(lambda: ls.lstm_stack_fwd2_plain(
+                    *args, clip, compute_dtype=cd), reps=3)
+            log(f"  [K6 {tag} S=512 T=20] plain {rec['plain_ms']:.3f} ms; "
+                f"library: n/a (no single PyTorch call computes a stacked "
+                f"LSTMP with peepholes and the clip)")
+            recs["K6"].update(rec)
+        else:
+            recs["K6"].update({f"s{S}_{k}": v for k, v in rec.items()})
+    for S, T in ((8, 1000), (512, 20)):
+        args = stack_case(S, T, I, C, R, seed=400 + S)
+        p1, p2, x, s1, s2 = args
+        fns = {"kernel": lambda: ls.lstm_stack_infer2_cuda(
+            *args, clip, compute_dtype=cd),
+            "serial": lambda: li.lstm_infer(
+                p2, li.lstm_infer(p1, x, s1, clip, time_major=True,
+                                  compute_dtype=cd)[0], s2, clip,
+                time_major=True, compute_dtype=cd)}
+        with torch.inference_mode():
+            t = turns_ms(fns)
+            p_ms = cuda_ms(lambda: ls.lstm_stack_infer2_plain(
+                *args, clip, compute_dtype=cd), reps=3)
+        b = stack_bounds(T, S, I, C, R, False)
+        own = "bf16" if cd is not None else "f32"
+        log(f"  [K7 {tag} S={S} T={T}] kernel {t['kernel']:.3f} ms, serial "
+            f"K5 x 2 {t['serial']:.3f} ms (the serial schedule takes "
+            f"{t['serial'] / t['kernel']:.3f}x the kernel's time), plain "
+            f"{p_ms:.3f} ms; {bounds_text(b, own)}; {1e3 * t['kernel'] / (T + 1):.2f} "
+            f"us a wavefront step; library: n/a")
+        rec = {"ms": t["kernel"], "serial_ms": t["serial"], "plain_ms": p_ms,
+               "bound_ms": b[own][0], "bound_by": b[own][1],
+               "f32_bound_ms": b["f32"][0],
+               "tf32x3_bound_ms": b["3xtf32"][0],
+               "bf16_bound_ms": b["bf16"][0]}
+        if S == 8:
+            recs["K7"].update(rec)
+        else:
+            recs["K7"].update({f"s512_t20_{k}": v for k, v in rec.items()})
+    for k in recs:
+        recs[k]["max_abs_err"] = worst_recs[k]
+    return recs
 
 
 def phase_stack_kernels():
-    """K6/K7 vs plain on the card, K6's residuals through K2, timings,
-    then the bench with the K6/K7 counts. Returns {"K6": record,
-    "K7": record, "launches": {...}}."""
+    """K6/K7 vs plain on the card with their launch counts, K6's
+    residuals through K2, timings against the serial schedules, then the
+    bench with the K6/K7 counts. Returns {"K6": record, "K7": record,
+    "launches": {...}}."""
     import torch
     from kaldi_lstm_tpu_torch.ops import counts
-    from kaldi_lstm_tpu_torch.ops import lstm_infer as li
     from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
     from kaldi_lstm_tpu_torch.ops import lstm_train as lt
     from kaldi_lstm_tpu_torch.tools import bench_wavefront as bw
 
+    log("  design: K6 runs K1's tensor-core tiles (3xTF32) over both layers "
+        "(one gates and one projection launch a wavefront step, layer 2's "
+        "input projection hoisted per time block); K7 is K5's persistent "
+        "cooperative kernel over both layers (one launch a call)")
     worst = {"K6": 0.0, "K7": 0.0}
-    recs = {}
     cases = [
         # name, (S, T, I, C, R), time blocks, clip, extra, kernels
-        ("deep, full width", (512, 20, 40, 800, 512), (5, 4, 2, 1), 50.0,
+        ("deep, full width", (512, 20, 40, 800, 512), STACK_TBS, 50.0,
          {}, "K6 K7"),
         ("ragged S=3 I=37 C=200 R=130 T=23, clip active",
          (3, 23, 37, 200, 130), (1,), 1.0,
@@ -1728,8 +1947,10 @@ def phase_stack_kernels():
     ]
     for i, (name, dims, tbs, clip, extra, which) in enumerate(cases):
         args = stack_case(*dims, seed=70 + i, **extra)
-        log(f"  [{name}] S={dims[0]} T={dims[1]} I={dims[2]} C={dims[3]} "
-            f"R={dims[4]} clip {clip:g} tb {tbs}")
+        T = dims[1]
+        log(f"  [{name}] S={dims[0]} T={T} I={dims[2]} C={dims[3]} "
+            f"R={dims[4]} clip {clip:g} tb {tbs}; K7 plan "
+            f"{ls.infer2_plan(dims[0], *dims[2:])}")
         want_f = ls.lstm_stack_fwd2_plain(*args, clip) if "K6" in which \
             else None
         want_i = ls.lstm_stack_infer2_plain(*args, clip)
@@ -1737,14 +1958,19 @@ def phase_stack_kernels():
             fail(f"{name}: the clip never engaged")
         for tb in tbs:
             if want_f is not None:
-                got = ls.lstm_stack_fwd2_cuda(*args, clip, tb=tb)
-                torch.cuda.synchronize()
+                got = stack_counted(
+                    f"K6 {name} tb{tb}",
+                    lambda: ls.lstm_stack_fwd2_cuda(*args, clip, tb=tb),
+                    "lstmp_stack_fwd2", ls.wavefront_launches(T, tb))
                 for what, a, b in zip(("gifo1", "c1", "r1", "gifo2", "c2",
                                        "r2"), got, want_f):
                     worst["K6"] = compare(f"K6 tb{tb} {what}", a, b,
                                           worst["K6"])
-            r2, f1, f2 = ls.lstm_stack_infer2_cuda(*args, clip, tb=tb)
-            torch.cuda.synchronize()
+            r2, f1, f2 = stack_counted(
+                f"K7 {name} tb{tb}",
+                lambda: ls.lstm_stack_infer2_cuda(*args, clip, tb=tb),
+                "lstmp_stack_infer2",
+                ls.wavefront_launches(T, tb, kernel="infer2"))
             for what, a, b in (("r2", r2, want_i[0]),
                                ("c1T", f1.c, want_i[1].c),
                                ("r1T", f1.r, want_i[1].r),
@@ -1752,76 +1978,56 @@ def phase_stack_kernels():
                                ("r2T", f2.r, want_i[2].r)):
                 worst["K7"] = compare(f"K7 tb{tb} {what}", a, b,
                                       worst["K7"])
+        log(f"    launch counts met for every call above "
+            f"(wavefront_launches; no other kernel, no plain call)")
         if i == 0:
             worst["K6"] = stack_residuals_through_k2(args, clip,
                                                      worst["K6"])
-        T, S = dims[1], dims[0]
-        p1, p2, x, s1, s2 = args
-        tb = ls.time_block(T)
-        timings = []
-        if "K6" in which:
-            timings.append((
-                "K6", lambda: ls.lstm_stack_fwd2_cuda(*args, clip, tb=tb),
-                lambda: ls.lstm_stack_fwd2_plain(*args, clip),
-                lambda: lt.lstm_fwd_residuals_cuda(
-                    p2, lt.lstm_fwd_residuals_cuda(
-                        p1, x, s1.c, s1.r, cell_clip=clip)[2],
-                    s2.c, s2.r, cell_clip=clip),
-                "K1 x 2", stack_bound(T, S, *dims[2:], True)))
-        timings.append((
-            "K7", lambda: ls.lstm_stack_infer2_cuda(*args, clip, tb=tb),
-            lambda: ls.lstm_stack_infer2_plain(*args, clip),
-            lambda: li.lstm_infer(p2, li.lstm_infer(
-                p1, x, s1, clip, time_major=True)[0], s2, clip,
-                time_major=True),
-            "K5 x 2", stack_bound(T, S, *dims[2:], False)))
-        if i == 1:
-            continue
-        for key, kfn, pfn, sfn, serial, bnd in timings:
-            with torch.inference_mode():
-                k_ms = cuda_ms(kfn)
-                p_ms = cuda_ms(pfn, reps=3)
-                s_ms = cuda_ms(sfn)
-            log(f"  [{name}] {key} tb{tb}: kernel {k_ms:.3f} ms, plain "
-                f"{p_ms:.3f} ms, serial two-kernel schedule ({serial}) "
-                f"{s_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
-                f"library: n/a (no single PyTorch call computes a stacked "
-                f"LSTMP with peepholes and the clip)")
-            log(f"  [{name}] {key} vs {serial}: the serial schedule takes "
-                f"{s_ms / k_ms:.3f}x the wavefront kernel's time")
-            if i == 0:
-                recs[key] = {"ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": bnd[0], "bound_by": bnd[1],
-                             "serial_ms": s_ms}
-    for k in recs:
-        recs[k]["max_abs_err"] = worst[k]
+        if want_f is not None:
+            for phases in ("l1", "l2"):
+                got = stack_counted(
+                    f"K6 {name} phases={phases}",
+                    lambda: ls.lstm_stack_fwd2_cuda(
+                        *args, clip, tb=tbs[0], phases=phases),
+                    "lstmp_stack_fwd2",
+                    ls.wavefront_launches(T, tbs[0], phases))
+                want = ls.lstm_stack_fwd2_plain(*args, clip, phases=phases)
+                live = range(3) if phases == "l1" else range(3, 6)
+                for j in live:
+                    worst["K6"] = compare(f"K6 {phases} output {j}", got[j],
+                                          want[j], worst["K6"])
+    recs = stack_timings(None, worst)
 
     G, reps = 8, 3
     calls = bw.calls_per_bench(G, reps)
-    predicted = {
-        "lstmp_stack_fwd2": calls * sum(ls.wavefront_launches(bw.T, tb)
-                                        for tb in bw.FWD_TBS),
-        "lstmp_stack_infer2": calls * sum(ls.wavefront_launches(bw.T, tb)
-                                          for tb in bw.INFER_TBS),
-        "lstmp_train_fwd": calls * 2 * lt.fwd_launches(bw.T),
-        "lstmp_infer": calls * 2}
+    predicted = {}
+    for suffix in ("", "_bf16"):
+        predicted.update({
+            f"lstmp_stack_fwd2{suffix}": calls * sum(
+                ls.wavefront_launches(bw.T, tb) for tb in bw.FWD_TBS),
+            f"lstmp_stack_infer2{suffix}": calls * sum(
+                ls.wavefront_launches(bw.T, tb, kernel="infer2")
+                for tb in bw.INFER_TBS),
+            f"lstmp_train_fwd{suffix}": calls * 2 * lt.fwd_launches(bw.T),
+            f"lstmp_infer{suffix}": calls * 2})
     counts.reset_counts()
     torch.cuda.synchronize()
     rc = bw.main(["512", str(G), str(reps), "ab"])
     torch.cuda.synchronize()
     launches = {k: v for k, v in counts.snapshot_counts().items()
                 if k in predicted}
-    plain = counts.plain_calls()
+    others = {k: v for k, v in counts.snapshot_counts().items()
+              if v and k not in predicted}
     if rc != 0:
         fail(f"bench_wavefront exited {rc}")
     for k in predicted:
         log(f"    bench {k}: launches {launches[k]} (predicted "
             f"{predicted[k]})")
-    log(f"    plain-version calls: {plain}")
+    log(f"    other counts (plain-version calls included): {others}")
     if launches != predicted:
         fail("the bench did not launch K6/K7 (and K1/K5) as predicted")
-    if plain != 0:
-        fail("the bench took a plain version on the card")
+    if others:
+        fail("the bench ran another kernel or a plain version on the card")
     recs["launches"] = launches
     for mode in ("ablate", "profile"):
         if bw.main(["512", str(G), str(reps), mode]) != 0:
@@ -1845,9 +2051,10 @@ def stack_residuals_through_k2(args, clip, worst):
     wave = ls.lstm_stack_fwd2_cuda(*args, clip, tb=5)
     k1a = lt.lstm_fwd_residuals_cuda(p1, x, s1.c, s1.r, cell_clip=clip)
     k1b = lt.lstm_fwd_residuals_cuda(p2, k1a[2], s2.c, s2.r, cell_clip=clip)
-    log("    K6 residuals through K2 vs K1 residuals through K2 (K1's "
-        "products run on the tensor cores and K6's on the CUDA cores, so "
-        "they round differently: held at TRAIN_TOL):")
+    log("    K6 residuals through K2 vs K1 residuals through K2 (K6 runs "
+        "K1's tiles, so they may agree bit for bit; held at TRAIN_TOL):")
+    same = all(bool(torch.equal(u, v)) for u, v in zip((*k1a, *k1b), wave))
+    log(f"    K6's residuals bit-equal to K1 x 2's: {same}")
     for n, p, xw, xk, s, res_w, res_k, dx in (
             (1, p1, x, x, s1, wave[:3], k1a, False),
             (2, p2, wave[2], k1a[2], s2, wave[3:], k1b, True)):
@@ -5267,8 +5474,9 @@ def main() -> int:
         "versions, and the wavefront bench")
     stack_recs = phase_stack_kernels()
 
-    log("phase 3d: the bf16 variants of K1-K5 vs their bf16 plain versions")
+    log("phase 3d: the bf16 variants of K1-K7 vs their bf16 plain versions")
     bf16_recs = phase_bf16_kernels()
+    bf16_recs.update({f"{k} stack": v for k, v in phase_stack_bf16().items()})
 
     log("phase 4: serving path (nnet_forward, full-width standard net)")
     with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
@@ -5387,15 +5595,19 @@ def main() -> int:
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:70 (_fwd2_kernel)"),
             ("K7", "lstmp_stack_infer2",
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:247 (_infer2_kernel)")):
-        r = stack_recs[key]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "kaldi_lstm_tpu_torch/csrc/lstmp_stack.cu",
-            "replaces": replaces,
-            "launches": stack_recs["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+        for suffix, r in (("", stack_recs[key]),
+                          ("_bf16", bf16_recs[f"{key} stack"])):
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "kaldi_lstm_tpu_torch/csrc/lstmp_stack.cu",
+                "replaces": replaces,
+                "launches": stack_recs["launches"][name + suffix],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                **{k: v for k, v in r.items() if k not in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}})
     for key, name, source, replaces in (
             ("K1", "lstmp_train_fwd_bf16", "lstmp_train.cu",
              "kaldi_lstm_tpu/ops/lstm_pallas.py:120 (_fwd_kernel)"),

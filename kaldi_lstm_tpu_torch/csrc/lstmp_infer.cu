@@ -95,6 +95,10 @@
 // stream's cells or projection quads all read it). Two grid barriers a
 // step, as without the mask.
 //
+// The block product, the cell math, the grid barrier and the cooperative
+// launch live in csrc/persistent.cuh, shared with K7's two-layer
+// wavefront (csrc/lstmp_stack.cu).
+//
 // Built with nvcc into a shared library with plain C entry points, loaded
 // by kaldi_lstm_tpu_torch/ops/lstm_infer.py through ctypes; that module's
 // `k5_plan` and `lstm_infer_sliced_plain` mirror the plan and the sums.
@@ -104,15 +108,14 @@
 
 #include <algorithm>
 
+#include "persistent.cuh"
 #include "precision.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBufFloats = 8192;     // one of two 32 KB staging buffers
-constexpr int kStageFloats = 2 * kBufFloats;
-constexpr int kMaxGroups = 8;        // stream groups of 8 per tile (64)
-constexpr int kMaxKSplit = kThreads; // threads sharing one contraction
+using pk::kStageFloats;
+using pk::kThreads;
+using pk::round4;
 
 struct Params {
   const float* x;       // [T, S, I]
@@ -134,221 +137,6 @@ struct Params {
   const unsigned char* amask;  // advance mask at (t, s), or null (all set)
   long long mts, mss;          // its strides (bytes) along t and along s
 };
-
-__host__ __device__ __forceinline__ size_t round4(size_t n) {
-  return (n + 3) / 4 * 4;
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, through L2 only (.cg): data that other CTAs
-// wrote before the grid barrier is never read from a stale L1 line.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Threads splitting one contraction: a power of two, so that a unit's
-// threads are an aligned group of lanes of one warp, or whole warps.
-__device__ __forceinline__ int k_split(int units) {
-  int ksn = 1;
-  while (2 * ksn <= kMaxKSplit && 2 * ksn * units <= kThreads) ksn *= 2;
-  return ksn;
-}
-
-// sums(s, quad, g) = sum_k A(s, k) W(k, 4 quad + g), g < 4, for the S
-// streams and nquad quads of output columns. A(s, k) = *src(s, k) in
-// device memory (VEC: 16-byte aligned runs of 4 k), W(k, 4 quad + .) from
-// load_w(k, quad, w[4]); epi(s, quad, sums[4]) once per (s, quad).
-// Quads go in blocks of at most kThreads, streams in tiles of 8 ng (up to
-// 64). A unit (8 streams x 1 quad) is summed by ksn threads over
-// k = ks (mod ksn), chunk by chunk through two staging buffers
-// ([stream][k], the next chunk's cp.async in flight while the current one
-// is summed); the sums of a warp's lanes are added by a fixed xor
-// butterfly, those of a unit's warps (ksn > 32) in warp order through
-// shared memory. Under tc::Bf16 each staged A value is rounded to bf16 as
-// it is read. Uniform over the CTA.
-template <bool VEC, class P, class Src, class LoadW, class Epi>
-__device__ __forceinline__ void block_product(float* stage, int S, int K,
-                                              int nquad, Src src,
-                                              LoadW load_w, Epi epi) {
-  const int tid = threadIdx.x;
-  for (int cb0 = 0; cb0 < nquad; cb0 += kThreads) {
-    const int ncb = min(kThreads, nquad - cb0);
-    const int groups_max = min(kMaxGroups, max(1, kThreads / ncb));
-    for (int s0 = 0; s0 < S; s0 += 8 * groups_max) {
-      const int sn = min(8 * groups_max, S - s0);
-      const int ng = (sn + 7) / 8;
-      const int units = ncb * ng;
-      const int ksn = k_split(units);
-      const int step = max(4, ksn);
-      const int kc = min((K + step - 1) / step * step,
-                         kBufFloats / (8 * ng) / step * step);
-      const int nch = (K + kc - 1) / kc;
-      const int unit = tid / ksn, ks = tid % ksn;
-      const bool active = unit < units;
-      const int sg = active ? unit / ncb : 0;
-      const int col = active ? unit % ncb : 0;
-
-      // rows s0 .. s0 + sn, k in [k0, k0 + kn) of chunk ch -> buffer
-      auto issue = [&](int ch) {
-        float* buf = stage + (ch & 1) * kBufFloats;
-        const int k0 = ch * kc, kn = min(kc, K - k0);
-        if (VEC) {
-          const int nv = kn / 4;
-          int s = tid / nv, v = tid % nv;
-          while (s < sn) {
-            cp_async16(buf + s * kc + 4 * v, src(s0 + s, k0 + 4 * v));
-            v += kThreads;
-            while (v >= nv && s < sn) {
-              v -= nv;
-              ++s;
-            }
-          }
-        } else {
-          const int total = sn * kn;
-          for (int e0 = tid; e0 < total; e0 += 8 * kThreads) {
-            float val[8];
-            #pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              const int e = e0 + u * kThreads;
-              val[u] = e < total ? __ldcg(src(s0 + e / kn, k0 + e % kn))
-                                 : 0.f;
-            }
-            #pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              const int e = e0 + u * kThreads;
-              if (e < total) buf[(e / kn) * kc + e % kn] = val[u];
-            }
-          }
-        }
-        cp_async_commit();
-      };
-
-      float acc[8][4];
-      #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
-      }
-      __syncthreads();   // the previous users of the buffers are done
-      issue(0);
-      for (int ch = 0; ch < nch; ++ch) {
-        if (ch + 1 < nch) {
-          issue(ch + 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (active) {
-          const int k0 = ch * kc, kn = min(kc, K - k0);
-          const float* arow =
-              stage + (ch & 1) * kBufFloats + 8 * sg * kc;
-          for (int k = ks; k < kn; k += ksn) {
-            float w[4];
-            load_w(k0 + k, cb0 + col, w);
-            #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float a = tc::at_use<P>(arow[i * kc + k]);
-              #pragma unroll
-              for (int g = 0; g < 4; ++g) acc[i][g] = fmaf(a, w[g], acc[i][g]);
-            }
-          }
-        }
-        __syncthreads();   // before the buffer is refilled
-      }
-      // The unit's lane sums, in a fixed order: a reduce-scatter over the
-      // stream index along lane bits 0-2 (after it, entry i of a lane with
-      // (i & (L - 1)) == 0, L = min(ksn, 8), holds stream i + (lane &
-      // (L - 1))), then an all-reduce along lane bits 3-4. The two lanes
-      // of an exchange add the same two values, so they agree.
-      const int lane = tid & 31;
-      #pragma unroll
-      for (int o = 4; o >= 1; o >>= 1) {
-        if (o < ksn) {
-          const bool up = (lane & o) != 0;
-          #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            if (i & o) continue;
-            #pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              const float send = up ? acc[i][g] : acc[i | o][g];
-              const float keep = up ? acc[i | o][g] : acc[i][g];
-              acc[i][g] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-            }
-          }
-        }
-      }
-      #pragma unroll
-      for (int o = 8; o <= 16; o <<= 1) {
-        if (o < ksn) {
-          #pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            acc[0][g] += __shfl_xor_sync(0xffffffffu, acc[0][g], o);
-          }
-        }
-      }
-      const int lmask = min(ksn, 8) - 1;
-      if (ksn > 32) {
-        // lanes 0-7 of each of the unit's warps hold its 8 streams: in
-        // buffer 0 (free: the chunk loop ended on a barrier) as
-        // [unit][warp of the unit][stream], then warp 0 adds them in order
-        const int wpu = ksn / 32, wu = ks / 32;
-        float4* red = reinterpret_cast<float4*>(stage);
-        if (active && lane < 8) {
-          red[(unit * wpu + wu) * 8 + lane] =
-              make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-        }
-        __syncthreads();
-        if (active && wu == 0 && lane < 8) {
-          float4 v = red[unit * wpu * 8 + lane];
-          for (int w = 1; w < wpu; ++w) {
-            const float4 u = red[(unit * wpu + w) * 8 + lane];
-            v.x += u.x;
-            v.y += u.y;
-            v.z += u.z;
-            v.w += u.w;
-          }
-          acc[0][0] = v.x;
-          acc[0][1] = v.y;
-          acc[0][2] = v.z;
-          acc[0][3] = v.w;
-        }
-      }
-      if (active && ks <= lmask) {
-        #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int s = s0 + 8 * sg + i + ks;
-          if ((i & lmask) == 0 && s < S) epi(s, cb0 + col, acc[i]);
-        }
-      }
-    }
-  }
-}
-
-// The bf16 pair of a 32-bit word as floats: element 0 is the low half.
-__device__ __forceinline__ float bf16_lo(unsigned v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
 
 template <bool RESIDENT, bool VEC, class P>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -413,20 +201,9 @@ lstmp_infer_kernel(Params p) {
     // (block_product synchronises before its first read)
   }
 
-  // four resident weights at ws: one 16-byte (f32) or 8-byte (bf16) load
-  auto load4 = [](const W* ws, float (&w)[4]) {
-    if constexpr (P::kBf16) {
-      const uint2 v = *reinterpret_cast<const uint2*>(ws);
-      w[0] = bf16_lo(v.x); w[1] = bf16_hi(v.x);
-      w[2] = bf16_lo(v.y); w[3] = bf16_hi(v.y);
-    } else {
-      const float4 v = *reinterpret_cast<const float4*>(ws);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    }
-  };
   auto load_wg = [&](int k, int c, float (&w)[4]) {
     if (RESIDENT) {
-      load4(wg + (size_t)k * p.wld + 4 * c, w);
+      pk::load4<P>(wg + (size_t)k * p.wld + 4 * c, w);
     } else {
       const float* row = p.w_cat + (size_t)k * C4 + j0 + c;
       #pragma unroll
@@ -437,7 +214,7 @@ lstmp_infer_kernel(Params p) {
   };
   auto load_wq = [&](int k, int quad, float (&w)[4]) {
     if (RESIDENT) {
-      load4(wq + (size_t)k * p.qld + 4 * quad, w);
+      pk::load4<P>(wq + (size_t)k * p.qld + 4 * quad, w);
     } else {
       #pragma unroll
       for (int g = 0; g < 4; ++g) {
@@ -448,26 +225,7 @@ lstmp_infer_kernel(Params p) {
     }
   };
 
-  // Grid barrier: after the CTA's own barrier, thread 0 adds its arrival
-  // with release semantics (publishing the CTA's writes, ordered before
-  // it by __syncthreads) and polls the count with acquire loads until
-  // every CTA of this barrier has arrived. The cooperative launch keeps
-  // every CTA resident, so the poll cannot wait on a CTA that never runs.
-  unsigned target = 0;
-  auto grid_sync = [&]() {
-    __syncthreads();
-    target += gridDim.x;
-    if (threadIdx.x == 0) {
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
-                   :: "l"(p.bar) : "memory");
-      unsigned v;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                     : "=r"(v) : "l"(p.bar) : "memory");
-      } while (static_cast<int>(v - target) < 0);   // wraps safely
-    }
-    __syncthreads();
-  };
+  pk::GridBarrier grid{p.bar, 0};
   const size_t r_step = (size_t)S * R;
   int t = 0;
   // whether stream s advances at step t: one byte load in each epilogue
@@ -485,42 +243,34 @@ lstmp_infer_kernel(Params p) {
     float* r_t = p.r_out + (size_t)t * r_step;
 
     if (nc > 0) {
-      block_product<VEC, P>(
-          stage, S, K, nc,
+      pk::block_product<VEC, P>(
+          stage, pk::kBufFloats, S, K, nc,
           [&](int s, int k) {
             return k < I ? x_t + (size_t)s * I + k
                          : r_prev + (size_t)s * R + (k - I);
           },
-          load_wg,
+          pk::FullRange{K}, load_wg,
           [&](int s, int c, const float (&a)[4]) {
             float* cp = csrc + (size_t)s * cstr + c;
             const float c_prev = *cp;
-            const float g = tanhf(a[0] + bsrc[c]);
-            const float i = sigmoid_f(a[1] + bsrc[bstr + c] +
-                                      c_prev * psrc[c]);
-            const float f = sigmoid_f(a[2] + bsrc[2 * bstr + c] +
-                                      c_prev * psrc[bstr + c]);
-            float cn = g * i + c_prev * f;
-            if (p.cell_clip > 0.f) {
-              // written out (not fminf/fmaxf) so that a NaN propagates
-              // like clip
-              cn = cn < -p.cell_clip ? -p.cell_clip
-                                     : (cn > p.cell_clip ? p.cell_clip : cn);
-            }
-            const float o = sigmoid_f(a[3] + bsrc[3 * bstr + c] +
-                                      cn * psrc[2 * bstr + c]);
+            float cn;
+            const float mv = pk::cell_step(
+                a[0] + bsrc[c], a[1] + bsrc[bstr + c],
+                a[2] + bsrc[2 * bstr + c], a[3] + bsrc[3 * bstr + c], c_prev,
+                psrc[c], psrc[bstr + c], psrc[2 * bstr + c], p.cell_clip,
+                &cn);
             // a masked stream keeps its c; its m is written all the
             // same, and the projection epilogue discards what it gives
             if (advances(s)) *cp = cn;
-            p.m[(size_t)s * C + j0 + c] = tanhf(cn) * o;
+            p.m[(size_t)s * C + j0 + c] = mv;
           });
     }
-    grid_sync();
+    grid.sync();
     if (nquad > 0) {
-      block_product<VEC, P>(
-          stage, S, C, nquad,
+      pk::block_product<VEC, P>(
+          stage, pk::kBufFloats, S, C, nquad,
           [&](int s, int k) { return p.m + (size_t)s * C + k; },
-          load_wq,
+          pk::FullRange{C}, load_wq,
           [&](int s, int quad, const float (&a)[4]) {
             // a masked stream carries r_{t-1} into row t, where the next
             // step (and the caller, at t = T-1) reads the carried r;
@@ -536,7 +286,7 @@ lstmp_infer_kernel(Params p) {
             }
           });
     }
-    grid_sync();
+    grid.sync();
   }
   if (p.c_smem) {   // every thread passed the last barrier
     for (int e = threadIdx.x; e < S * nc; e += kThreads) {
@@ -554,17 +304,9 @@ struct Plan {
 // slices take 2 bytes an element in shared memory.
 cudaError_t make_plan(int S, int I, int C, int R, bool bf16, Plan* pl) {
   if (S <= 0 || I <= 0 || C <= 0 || R <= 0) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0, optin = 0;
+  const cudaError_t err = pk::device_limits(&sms, &optin);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
   pl->sms = sms;
   pl->ncell = (C + sms - 1) / sms;
   pl->nq = (R + sms - 1) / sms;
@@ -618,41 +360,13 @@ int infer(const float* x, const float* w_cat, const float* bias,
                        lstmp_infer_kernel<false, true, P>)
                  : reinterpret_cast<const void*>(
                        lstmp_infer_kernel<false, false, P>));
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             pl.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, pl.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm * pl.sms < pl.grid) {
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  }
   Params prm{x, w_cat, bias, peep, wrm_t, r0, c, m, r_out, T, S, I, C, R,
              cell_clip, pl.ncell, pl.nq, pl.wld, pl.qld, pl.cst_smem,
              pl.c_smem, bar, amask, mts, mss};
-  err = cudaMemsetAsync(bar, 0, sizeof(unsigned),
-                        static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&prm};
-  // cudaLaunchKernelEx with the cooperative attribute is the form of a
-  // cooperative launch that stream capture takes (the grouped CV step
-  // replays K5 inside a CUDA graph); outside a capture it launches the
-  // same grid as cudaLaunchCooperativeKernel.
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(pl.smem);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pk::launch_cooperative(
+      kernel, pl.grid, pl.smem, pl.sms, bar, args,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -31,6 +31,8 @@ _COUNTERS = {
     "lstmp_infer_masked_bf16": (lstm_infer, "MASKED_BF16_LAUNCHES"),
     "lstmp_stack_fwd2": (lstm_stack, "FWD2_LAUNCHES"),
     "lstmp_stack_infer2": (lstm_stack, "INFER2_LAUNCHES"),
+    "lstmp_stack_fwd2_bf16": (lstm_stack, "FWD2_BF16_LAUNCHES"),
+    "lstmp_stack_infer2_bf16": (lstm_stack, "INFER2_BF16_LAUNCHES"),
     "plain.lstm_train": (lstm_train, "PLAIN_CALLS"),
     "plain.xent_affine": (xent_affine, "PLAIN_CALLS"),
     "plain.lstm_infer": (lstm_infer, "PLAIN_CALLS"),

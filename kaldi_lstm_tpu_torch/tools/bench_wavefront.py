@@ -15,8 +15,10 @@ called ``calls_per_bench(G, reps)`` times. Modes:
 * ``ab`` (default): the serial training forward (K1 per layer, layer 2
   fed layer 1's r) against the wavefront forward (K6) at tb 5, 4, 2;
   then the serial inference forward (K5 per layer) against the
-  wavefront inference (K7) at tb 5, 4. float32 (the bf16 rows wait for
-  ROADMAP B.3).
+  wavefront inference (K7) at tb 5, 4; first in float32, then the same
+  rows in bf16 (``compute_dtype=torch.bfloat16``: the ``_bf16`` entry
+  points of K1, K5, K6 and K7), as the reference's bench runs its rows
+  under ``set_matmul_dtype`` None and bfloat16.
 * ``ablate``: K6 with only layer 1's work, only layer 2's, both, and the
   single-layer kernel K1: whether the two layers' work overlaps.
 * ``profile``: device time per kernel and call of the serial and the
@@ -70,34 +72,36 @@ class Bench:
         self.s1 = zero_state(S, C, R, device=device)
         self.s2 = zero_state(S, C, R, device=device)
 
-    # --- the schedules ------------------------------------------------
-    def serial_fwd(self):
+    # --- the schedules (products in compute dtype cd: None or bf16) ----
+    def serial_fwd(self, cd=None):
         """Production schedule: K1 over layer 1, r1 through device
         memory, K1 over layer 2."""
         r1 = lt.lstm_fwd_residuals(self.p1, self.x, self.s1.c, self.s1.r,
-                                   cell_clip=CLIP)[2]
+                                   cell_clip=CLIP, compute_dtype=cd)[2]
         return lt.lstm_fwd_residuals(self.p2, r1, self.s2.c, self.s2.r,
-                                     cell_clip=CLIP)[2]
+                                     cell_clip=CLIP, compute_dtype=cd)[2]
 
     def serial_one_layer(self):
         return lt.lstm_fwd_residuals(self.p1, self.x, self.s1.c, self.s1.r,
                                      cell_clip=CLIP)[2]
 
-    def wave_fwd(self, tb: int, phases: str = "both"):
+    def wave_fwd(self, tb: int, phases: str = "both", cd=None):
         out = ls.lstm_stack_fwd2(self.p1, self.p2, self.x, self.s1, self.s2,
-                                 CLIP, tb=tb, phases=phases)
+                                 CLIP, tb=tb, phases=phases,
+                                 compute_dtype=cd)
         return out[2] if phases == "l1" else out[5]
 
-    def serial_infer(self):
+    def serial_infer(self, cd=None):
         with torch.no_grad():
             r1, _ = li.lstm_infer(self.p1, self.x, self.s1, CLIP,
-                                  time_major=True)
+                                  time_major=True, compute_dtype=cd)
             return li.lstm_infer(self.p2, r1, self.s2, CLIP,
-                                 time_major=True)[0]
+                                 time_major=True, compute_dtype=cd)[0]
 
-    def wave_infer(self, tb: int):
+    def wave_infer(self, tb: int, cd=None):
         return ls.lstm_stack_infer2(self.p1, self.p2, self.x, self.s1,
-                                    self.s2, CLIP, tb=tb)[0]
+                                    self.s2, CLIP, tb=tb,
+                                    compute_dtype=cd)[0]
 
     # --- timing -------------------------------------------------------
     def time(self, name: str, fn) -> float:
@@ -127,21 +131,28 @@ class Bench:
         return med
 
 
+PRECISIONS = (("f32", None), ("bf16", torch.bfloat16))
+
+
 def run_ab(b: Bench) -> dict:
-    res = {"serial fwd": b.time("serial fwd f32 (K1 x 2)", b.serial_fwd)}
-    for tb in FWD_TBS:
-        m = b.time(f"wave   fwd f32 tb{tb}", lambda: b.wave_fwd(tb))
-        res[f"wave fwd tb{tb}"] = m
-        print(f"  -> wavefront speedup {res['serial fwd'] / m:.3f}x",
-              flush=True)
-    res["serial infer"] = b.time("serial infer f32 (K5 x 2)", b.serial_infer)
-    for tb in INFER_TBS:
-        m = b.time(f"wave   infer f32 tb{tb}", lambda: b.wave_infer(tb))
-        res[f"wave infer tb{tb}"] = m
-        print(f"  -> wavefront speedup {res['serial infer'] / m:.3f}x",
-              flush=True)
-    print("bf16 rows: not run (bf16 K6/K7 are ROADMAP B.3)",
-          flush=True)
+    res = {}
+    for name, cd in PRECISIONS:
+        base = b.time(f"serial fwd {name} (K1 x 2)",
+                      lambda: b.serial_fwd(cd))
+        res[f"serial fwd {name}"] = base
+        for tb in FWD_TBS:
+            m = b.time(f"wave   fwd {name} tb{tb}",
+                       lambda: b.wave_fwd(tb, cd=cd))
+            res[f"wave fwd {name} tb{tb}"] = m
+            print(f"  -> wavefront speedup {base / m:.3f}x", flush=True)
+        base = b.time(f"serial infer {name} (K5 x 2)",
+                      lambda: b.serial_infer(cd))
+        res[f"serial infer {name}"] = base
+        for tb in INFER_TBS:
+            m = b.time(f"wave   infer {name} tb{tb}",
+                       lambda: b.wave_infer(tb, cd))
+            res[f"wave infer {name} tb{tb}"] = m
+            print(f"  -> wavefront speedup {base / m:.3f}x", flush=True)
     return res
 
 

@@ -175,12 +175,20 @@ def test_time_block(t, tb, want):
 
 
 def test_launch_counts_per_call():
-    # K blocks of a layer-2 projection + one gates and one projection
-    # launch per wavefront step (T + tb of them with both layers)
-    assert ls.wavefront_launches(20, 5) == 4 + 2 * 25
-    assert ls.wavefront_launches(20, 1) == 20 + 2 * 21
-    assert ls.wavefront_launches(20, 5, "l1") == 40
-    assert ls.wavefront_launches(20, 5, "l2") == 44
+    # K6: the Wr interleave of the running layers, layer 1's hoisted input
+    # projection, layer 2's per time block (K of them), and one gates and
+    # one projection launch per wavefront step (T + tb of them with both
+    # layers, T with one); K7: one persistent launch whatever tb is
+    assert ls.wavefront_launches(20, 5) == 2 + 4 + 2 * 25
+    assert ls.wavefront_launches(20, 1) == 2 + 20 + 2 * 21
+    assert ls.wavefront_launches(20, 5, "l1") == 2 + 40
+    assert ls.wavefront_launches(20, 5, "l2") == 1 + 4 + 40
+    for tb in (5, 4, 2, 1):
+        assert ls.wavefront_launches(20, tb, kernel="infer2") == 1
+    with pytest.raises(ValueError):
+        ls.wavefront_launches(20, 5, "l1", kernel="infer2")
+    with pytest.raises(ValueError):
+        ls.wavefront_launches(20, 5, kernel="fwd3")
 
 
 def test_dispatch_rejects_bad_operands():
@@ -228,8 +236,9 @@ def test_cuda_fwd2_and_infer2_match_plain(cuda_device, tb):
     r2, f1, f2 = ls.lstm_stack_infer2(*port, CLIP, tb=tb)
     ref = ls.lstm_stack_infer2_plain(*port, CLIP)
     torch.cuda.synchronize()
-    assert ls.FWD2_LAUNCHES == ls.INFER2_LAUNCHES == \
-        ls.wavefront_launches(T, tb)
+    assert ls.FWD2_LAUNCHES == ls.wavefront_launches(T, tb)
+    assert ls.INFER2_LAUNCHES == ls.wavefront_launches(T, tb,
+                                                       kernel="infer2")
     assert ls.PLAIN_CALLS == 0
     for a, b in zip(got, want):
         _close(a, b)
@@ -241,7 +250,7 @@ def test_cuda_fwd2_and_infer2_match_plain(cuda_device, tb):
 @pytest.mark.gpu
 def test_cuda_fwd2_residuals_give_k1_gradients(cuda_device):
     """K6's residuals through K2 give the gradients of K1's residuals
-    through K2, for both layers (layer 2 with dx)."""
+    through K2, for both layers (layer 2 with dx): K6 runs K1's tiles."""
     p1, p2, x, s1, s2 = make(seed=40, s=9, i=37, c=200, r=130,
                              device=cuda_device)[1]
     g1, c1, r1, g2, c2, r2 = ls.lstm_stack_fwd2(p1, p2, x, s1, s2, CLIP, tb=5)

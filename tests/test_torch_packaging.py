@@ -47,10 +47,25 @@ def test_every_local_include_ships(name):
             (name, inc, globs)
 
 
+def _reaches(name: str) -> set[str]:
+    """Every local header that csrc/<name> includes, directly or through
+    another header."""
+    seen, todo = set(), list(_includes(name))
+    while todo:
+        inc = todo.pop()
+        if inc not in seen:
+            seen.add(inc)
+            todo.extend(_includes(inc))
+    return seen
+
+
 def test_the_tensor_core_header_is_included_and_shipped():
-    """tc_gemm.cuh is the header that a wheel once left out."""
-    users = [n for n in _sources() if "tc_gemm.cuh" in _includes(n)]
-    assert {"lstmp_train.cu", "xent_affine.cu"} <= set(users)
+    """tc_gemm.cuh is the header that a wheel once left out. K1/K2 and K6
+    reach it through lstmp_tc.cuh (K1's tiles), K3/K4 directly."""
+    users = [n for n in _sources() if "tc_gemm.cuh" in _reaches(n)]
+    assert {"lstmp_train.cu", "xent_affine.cu", "lstmp_stack.cu"} <= \
+        set(users)
+    assert "tc_gemm.cuh" in _includes("lstmp_tc.cuh")
     assert "csrc/*.cuh" in _package_data()
 
 
