@@ -254,13 +254,34 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    (within 1e-3). 11d: den_logprob, num_logprob and expected_accuracy
    with their gradients on the card against the CPU for the structured,
    dense and split graphs at small sizes;
-12. print one JSON line with every kernel (the bf16 variants as
+12. the flagship recipe's front end from wav (examples/
+   flagship_experiment.sh:72-95) in phase 7's work directory, on its
+   final.mdl and ali.ark, through the port's tools only, as a user runs
+   them: the first FROMWAV_UTTS alignments -> `synth_wavs` ->
+   `wav_to_duration` (hours printed) -> `compute_fbank_feats
+   --num-mel-bins 40` into ark,scp (synthesis seconds and the host's
+   fbank frames/s printed; every utterance's frame count equal to its
+   alignment length, dim 40, all finite) -> `compute_cmvn_transform` on
+   the training part (the last FROMWAV_CV utterances are CV) ->
+   `ali_to_pdf` -> `ali_to_post`; then on the card `train_lstm_streams
+   --device cuda --feature-transform` trains the flagship net at full
+   width (Transmit -> LSTMP 40 -> 800c/512r -> 7998 -> Softmax, Tbptt 20,
+   64 streams) for one epoch between two CV passes, the counts zeroed
+   just before and read just after each run: K1-K4 as phase 5's formulas
+   predict for the epoch, K5 and K3 once and twice a step for CV, no
+   other kernel and no plain call; the CV AvgLoss falls (both printed);
+   `nnet_forward --device cuda --feature-transform` scores the CV
+   utterances from fbank of their wavs (one K5 launch per batch of 8,
+   nothing else), 3 utterances against `--device cpu` within
+   SCORE_ATOL; printed: audio-s/s from wav to scores and the phase's
+   wall;
+13. print one JSON line with every kernel (the bf16 variants as
    entries of their own; K5's adds its masked entry point's launches,
-   times and error, the realignment's, the BLSTM scoring's and the
-   sequence trainers' launches; K1-K4 add the per-utterance,
-   frame-shuffled and sequence-training launches, their times at the
-   per-utterance shapes and their device ms in one sMBR step), then the
-   device line last.
+   times and error, the realignment's, the BLSTM scoring's, the
+   sequence trainers' and phase 12's launches; K1-K4 add the
+   per-utterance, frame-shuffled, sequence-training and phase 12's
+   launches, their times at the per-utterance shapes and their device
+   ms in one sMBR step), then the device line last.
 """
 
 from __future__ import annotations
@@ -5138,6 +5159,232 @@ def phase_sequence_lattice(work: str, p7: dict, tm) -> dict:
     return out
 
 
+# phase 12: the flagship recipe's front end (examples/flagship_experiment.sh
+# :72-95) from wav, in phase 7's work directory on its final.mdl (7998
+# pdfs) and ali.ark: the port's synth_wavs -> wav_to_duration ->
+# compute_fbank_feats --num-mel-bins 40 -> compute_cmvn_transform (train
+# part) -> ali_to_pdf -> ali_to_post -> train_lstm_streams --device cuda
+# --feature-transform (one epoch, CV before and after) -> nnet_forward
+# --device cuda --feature-transform on the CV part. Most of the phase is
+# host work: 256 utterances (853 audio-s) took 11.2 s to synthesize and
+# 2.2 s of fbank on one of the card's machines, 20 s for the phase. The
+# rate is the recipe's (flagship_experiment.sh:153, 3e-4 at 256 streams;
+# here 64 streams, so a quarter of its frames a step); at phase 5's 2e-5
+# an epoch on 160 utterances moved the CV AvgLoss only 8.9869 -> 8.9822.
+FROMWAV_UTTS = 256
+FROMWAV_CV = 32
+FROMWAV_S = 64
+FROMWAV_LR = 3e-4
+FROMWAV_CPU_UTTS = 3
+
+
+def phase_from_wav(work: str) -> dict:
+    """Phase 12: the front end on the host and the AM on the card, from
+    wav to scores; returns the K1-K5 launches of its CV, training and
+    scoring runs."""
+    import torch
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.ops.lstm_train import (
+        bwd_launches,
+        fwd_launches,
+    )
+    from kaldi_lstm_tpu_torch.tools import (
+        ali_to_pdf,
+        ali_to_post,
+        compute_cmvn_transform,
+        compute_fbank_feats,
+        nnet_forward,
+        synth_wavs,
+        train_lstm_streams,
+        wav_to_duration,
+    )
+    from kaldi_lstm_tpu_torch.train.streams import StreamScheduler
+
+    t_phase = time.perf_counter()
+    lang = os.path.join(work, "lang")
+    d = os.path.join(work, "fromwav")
+    os.makedirs(d)
+    mdl = f"{lang}/final.mdl"
+    lens = {}
+    with kio.TableWriter(f"ark:{d}/ali.ark", kio.write_int_vector) as w:
+        for key, ali in kio.SequentialIntVectorReader(f"ark:{lang}/ali.ark"):
+            w.write(key, ali)
+            lens[key] = len(ali)
+            if len(lens) == FROMWAV_UTTS:
+                break
+    log(f"  cuts: the first {len(lens)} of phase 7's utterances "
+        f"({FROMWAV_UTTS - FROMWAV_CV} to train, the last {FROMWAV_CV} for "
+        f"CV and scoring; the recipe renders all 10240), one epoch")
+
+    def step(what, main, argv):
+        t0 = time.perf_counter()
+        rc = main(argv)
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{what} exited {rc}")
+        return dt
+
+    t_synth = step("synth_wavs", synth_wavs.main,
+                   [mdl, f"ark:{d}/ali.ark", f"{d}/wav"])
+    step("wav_to_duration", wav_to_duration.main,
+         [f"scp:{d}/wav/wav.scp", f"ark,t:{d}/dur.txt"])
+    with open(f"{d}/dur.txt") as f:
+        dur = {ln.split()[0]: float(ln.split()[1]) for ln in f if ln.strip()}
+    audio_s = sum(dur.values())
+    t_fbank = step("compute_fbank_feats", compute_fbank_feats.main,
+                   [f"scp:{d}/wav/wav.scp",
+                    f"ark,scp:{d}/fbank.ark,{d}/fbank.scp",
+                    "--num-mel-bins", "40"])
+    feats = dict(kio.SequentialMatrixReader(f"scp:{d}/fbank.scp"))
+    frames = sum(m.shape[0] for m in feats.values())
+    log(f"  synth_wavs: {len(dur)} wavs, {audio_s:.1f} audio-s "
+        f"({audio_s / 3600:.4f} h) in {t_synth:.3f} s; compute_fbank_feats "
+        f"(host numpy): {frames} frames in {t_fbank:.3f} s -> "
+        f"{frames / t_fbank:.1f} frames/s")
+    if list(feats) != list(lens):
+        fail(f"fbank keys differ from the alignments': {len(feats)} of "
+             f"{len(lens)}")
+    for k, m in feats.items():
+        if m.shape != (lens[k], 40) or not np.isfinite(m).all():
+            fail(f"{k}: fbank {m.shape} against {lens[k]} alignment "
+                 f"frames x 40, or non-finite values")
+    log(f"  every utterance's fbank frames equal its alignment length; "
+        f"dim 40, all finite")
+
+    with open(f"{d}/fbank.scp") as f:
+        lines = f.readlines()
+    with open(f"{d}/tr.scp", "w") as f:
+        f.writelines(lines[:-FROMWAV_CV])
+    with open(f"{d}/cv.scp", "w") as f:
+        f.writelines(lines[-FROMWAV_CV:])
+    transf = f"{d}/feature_transform.nnet"
+    step("compute_cmvn_transform", compute_cmvn_transform.main,
+         [f"scp:{d}/tr.scp", transf])
+    step("ali_to_pdf", ali_to_pdf.main,
+         [mdl, f"ark:{d}/ali.ark", f"ark:{d}/pdf.ark"])
+    step("ali_to_post", ali_to_post.main,
+         [f"ark:{d}/pdf.ark", f"ark:{d}/post.ark"])
+    post = f"ark:{d}/post.ark"
+
+    model_in, model_out = f"{d}/am.init", f"{d}/am.iter1"
+    nnet, params = Nnet.init_from_proto(
+        LVCSR_PROTO, torch.Generator().manual_seed(0), "cuda")
+    nnet.write(model_in, params, binary=True)
+    common = [f"--num-stream={FROMWAV_S}", f"--batch-size={TRAIN_T}",
+              "--targets-delay=0", f"--feature-transform={transf}",
+              "--device", "cuda"]
+
+    def steps_of(scp):
+        return len(list(StreamScheduler(
+            kio.SequentialMatrixReader(scp),
+            kio.RandomAccessPosteriorReader(post), 40, FROMWAV_S, TRAIN_T,
+            0)))
+    tr_steps, cv_steps = steps_of(f"scp:{d}/tr.scp"), steps_of(
+        f"scp:{d}/cv.scp")
+    T = TRAIN_T
+    train_pred = {"lstmp_train_fwd": fwd_launches(T) * tr_steps,
+                  "lstmp_train_bwd": bwd_launches(T, False) * tr_steps,
+                  "xent_affine_fwd": 2 * tr_steps,
+                  "xent_affine_bwd": 3 * tr_steps}
+    cv_pred = {"lstmp_infer": cv_steps, "xent_affine_fwd": 2 * cv_steps}
+    launches = {}
+
+    def only(what, got, predicted):
+        extra = {k: got[k] for k in ("lstmp_train_fwd", "lstmp_train_bwd",
+                                     "xent_affine_fwd", "xent_affine_bwd",
+                                     "lstmp_infer") if k not in predicted
+                 and got[k]}
+        if extra:
+            fail(f"{what} launched kernels outside the prediction: {extra}")
+        for k, v in got.items():
+            if not k.startswith("plain."):
+                launches[k] = launches.get(k, 0) + v
+
+    res = {}
+
+    def cv(model, tag):
+        def run():
+            rc, res[tag] = train_lstm_streams.run_main(
+                [f"scp:{d}/cv.scp", post, model, "--cross-validate=true"]
+                + common)
+            return rc
+        got, _ = counted(f"train_lstm_streams --cross-validate=true "
+                         f"--feature-transform ({tag}, {cv_steps} steps)",
+                         cv_pred, run)
+        only(f"the CV pass {tag}", got, cv_pred)
+
+    def train():
+        rc, res["train"] = train_lstm_streams.run_main(
+            [f"scp:{d}/tr.scp", post, model_in, model_out,
+             f"--learn-rate={FROMWAV_LR}", "--momentum=0.9"] + common)
+        return rc
+
+    cv(model_in, "before")
+    got, t_train = counted(
+        f"train_lstm_streams --feature-transform, {tr_steps} steps of "
+        f"{FROMWAV_S}x{T} (incl. model read, ark I/O)", train_pred, train)
+    only("the training epoch", got, train_pred)
+    cv(model_out, "after")
+    st = res["train"]
+    log(f"  epoch on fbank features: {st.frames:.0f} frames in "
+        f"{t_train:.3f} s -> {st.frames / t_train:.1f} frames/s; AvgLoss "
+        f"{st.avg_loss():.6f}, frame accuracy "
+        f"{100 * st.correct / st.frames:.2f}%")
+    before, after = res["before"].avg_loss(), res["after"].avg_loss()
+    log(f"  cross-validation AvgLoss: before {before:.6f}, after {after:.6f}")
+    if not after < before:
+        fail("cross-validation AvgLoss did not fall after the epoch")
+
+    # from wav to scores as a user runs it on the CV part: fbank of its
+    # wavs on the host (the dither stream restarts, so these features are
+    # not the epoch's CV features bit for bit), then scoring on the card
+    cv_keys = [ln.split()[0] for ln in lines[-FROMWAV_CV:]]
+    cv_audio = sum(dur[k] for k in cv_keys)
+    with open(f"{d}/wav/wav.scp") as f, open(f"{d}/cv_wav.scp", "w") as out:
+        out.writelines(f.readlines()[-FROMWAV_CV:])
+    t_cvfb = step("compute_fbank_feats (CV wavs)", compute_fbank_feats.main,
+                  [f"scp:{d}/cv_wav.scp",
+                   f"ark,scp:{d}/cv_fbank.ark,{d}/cv_fbank.scp",
+                   "--num-mel-bins", "40"])
+    argv = ["--apply-log=true", f"--feature-transform={transf}", model_out]
+    fwd_pred = {"lstmp_infer": -(-len(cv_keys) // 8)}
+    got, t_fwd = counted(
+        f"nnet_forward --feature-transform on {len(cv_keys)} CV utterances",
+        fwd_pred, lambda: nnet_forward.main(
+            argv + [f"scp:{d}/cv_fbank.scp", f"ark:{d}/scores.ark",
+                    "--device", "cuda"]))
+    only("nnet_forward", got, fwd_pred)
+    scores = dict(kio.SequentialMatrixReader(f"ark:{d}/scores.ark"))
+    if list(scores) != cv_keys:
+        fail(f"scores for {len(scores)} of {len(cv_keys)} CV utterances")
+    for k in cv_keys:
+        if scores[k].shape != (lens[k], LVCSR_PDFS) or not np.isfinite(
+                scores[k]).all():
+            fail(f"{k}: scores {scores[k].shape} or non-finite values")
+    with open(f"{d}/cv_fbank.scp") as f, open(f"{d}/cpu.scp", "w") as out:
+        out.writelines(f.readlines()[:FROMWAV_CPU_UTTS])
+    if nnet_forward.main(argv + [f"scp:{d}/cpu.scp", f"ark:{d}/cpu.ark",
+                                 "--device", "cpu"]) != 0:
+        fail("nnet_forward --device cpu exited nonzero")
+    worst = max(float(np.abs(scores[k] - m).max())
+                for k, m in kio.SequentialMatrixReader(f"ark:{d}/cpu.ark"))
+    log(f"  card vs --device cpu on {FROMWAV_CPU_UTTS} utterances: "
+        f"max_abs_err {worst:.3e} (tol {SCORE_ATOL:g})")
+    if worst > SCORE_ATOL:
+        fail("card scores disagree with the CPU path")
+    wall = time.perf_counter() - t_phase
+    rate = cv_audio / (t_cvfb + t_fwd)
+    log(f"  from wav to scores (compute_fbank_feats on the host, then "
+        f"nnet_forward on the card, two CLI runs): {cv_audio:.1f} audio-s "
+        f"in {t_cvfb:.3f} + {t_fwd:.3f} s -> {rate:.2f} audio-s/s; phase "
+        f"wall {wall:.1f} s")
+    return {"launches": launches, "synth_s": t_synth,
+            "fbank_frames_per_s": frames / t_fbank, "audio_s": audio_s,
+            "wav_to_scores_audio_s_per_s": rate, "wall_s": wall,
+            "cv_before": before, "cv_after": after}
+
+
 def chain_transition_model(num_phones: int):
     """A chain-style <Tuples> model: one emitting state per phone with a
     forward pdf 2(p-1) and a self-loop pdf 2(p-1)+1 (split pdfs)."""
@@ -5526,6 +5773,12 @@ def main() -> int:
         t0 = time.perf_counter()
         seq = phase_sequence(work7, decode, align)
         log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+        log("phase 12: from wav in phase 7's work directory (synth_wavs, "
+            "wav_to_duration, compute_fbank_feats, compute_cmvn_transform on "
+            "the host; train_lstm_streams and nnet_forward "
+            "--feature-transform on the card)")
+        fromwav = phase_from_wav(work7)
     smbr_prof = seq["sMBR"]["steps"]["profile"] or {"table": []}
 
     kernels = [{
@@ -5544,6 +5797,7 @@ def main() -> int:
         "seq_lattice_launches": sum(
             seq["lattice"][t]["launches"]["lstmp_infer"]
             for t in ("mmi_sequential", "mpe_sequential")),
+        "fromwav_launches": fromwav["launches"]["lstmp_infer"],
         "max_abs_err": max(rec["max_abs_err"],
                            perutt_recs["K5"]["max_abs_err"]),
         "ms": rec["ms"], "kernel_ms": rec["ms"],
@@ -5584,6 +5838,7 @@ def main() -> int:
                 seq["lattice"][t]["launches"][name]
                 for t in ("mmi_sequential", "mpe_sequential")),
             "seq_smbr_step_ms": entry_ms(smbr_prof["table"], name),
+            "fromwav_launches": fromwav["launches"][name],
             "max_abs_err": max(r["max_abs_err"], pr["max_abs_err"]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -2,8 +2,9 @@
 
 * importing every module of `kaldi_lstm_tpu_torch` (the training slice
   among them) loads neither `jax` nor the JAX package (checked in a
-  fresh interpreter; the debug-dump modules also each alone), and
-  `chip_smoke.py` imports neither;
+  fresh interpreter; the debug-dump modules also each alone), and no
+  `import` statement anywhere in the port's sources or `chip_smoke.py`
+  names either, not even one inside a function body;
 * `lstm_infer` on a CPU tensor takes the plain version and counts no
   kernel launch;
 * `--device cuda` without CUDA exits 1 and writes nothing;
@@ -141,6 +142,30 @@ _SEQUENCE_MODULES = {
     "kaldi_lstm_tpu_torch.tools.weight_silence_post",
 }
 
+_FEATS_MODULES = {
+    "kaldi_lstm_tpu_torch.feats",
+    "kaldi_lstm_tpu_torch.feats.fbank",
+    "kaldi_lstm_tpu_torch.io.wav",
+    "kaldi_lstm_tpu_torch.tools.add_deltas",
+    "kaldi_lstm_tpu_torch.tools.apply_cmvn",
+    "kaldi_lstm_tpu_torch.tools.compute_cmvn_stats",
+    "kaldi_lstm_tpu_torch.tools.compute_cmvn_transform",
+    "kaldi_lstm_tpu_torch.tools.compute_fbank_feats",
+    "kaldi_lstm_tpu_torch.tools.compute_mfcc_feats",
+    "kaldi_lstm_tpu_torch.tools.copy_feats",
+    "kaldi_lstm_tpu_torch.tools.extract_segments",
+    "kaldi_lstm_tpu_torch.tools.feat_to_dim",
+    "kaldi_lstm_tpu_torch.tools.feat_to_len",
+    "kaldi_lstm_tpu_torch.tools.make_hmm_synth_data",
+    "kaldi_lstm_tpu_torch.tools.make_synth_data",
+    "kaldi_lstm_tpu_torch.tools.paste_feats",
+    "kaldi_lstm_tpu_torch.tools.select_feats",
+    "kaldi_lstm_tpu_torch.tools.splice_feats",
+    "kaldi_lstm_tpu_torch.tools.subset_feats",
+    "kaldi_lstm_tpu_torch.tools.synth_wavs",
+    "kaldi_lstm_tpu_torch.tools.wav_to_duration",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -155,6 +180,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
     assert _STREAM_MODULES <= names and _ALIGN_MODULES <= names
     assert _PERUTT_MODULES <= names and _SEQUENCE_MODULES <= names
+    assert _FEATS_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
@@ -162,12 +188,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                                           | _STREAM_MODULES
                                           | _ALIGN_MODULES
                                           | _PERUTT_MODULES
-                                          | _SEQUENCE_MODULES))
+                                          | _SEQUENCE_MODULES
+                                          | _FEATS_MODULES))
 def test_monitor_modules_import_no_jax(module):
     """Each of the debug-dump, decode, streaming, alignment, lattice,
-    per-utterance/frame-shuffled training, sequence training and
-    posterior/count modules alone, in a fresh interpreter, loads neither
-    jax nor the JAX package."""
+    per-utterance/frame-shuffled training, sequence training,
+    posterior/count and front-end modules alone, in a fresh interpreter,
+    loads neither jax nor the JAX package."""
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'kaldi_lstm_tpu'))\n"
@@ -178,9 +205,10 @@ def test_monitor_modules_import_no_jax(module):
     assert res.returncode == 0, res.stderr
 
 
-def test_chip_smoke_imports_no_jax():
-    import ast
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def imported_names(path: str) -> set:
+    """Every module an `import` or `from ... import` statement of the file
+    names, at any depth (function bodies included)."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
@@ -188,10 +216,44 @@ def test_chip_smoke_imports_no_jax():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
-    bad = sorted(n for n in names if n == "jax" or n.startswith("jax.")
-                 or n == "kaldi_lstm_tpu" or n.startswith("kaldi_lstm_tpu."))
-    assert not bad, bad
+    return names
+
+
+def jax_names(names: set) -> list:
+    return sorted(n for n in names if n.split(".")[0] in
+                  ("jax", "kaldi_lstm_tpu"))
+
+
+def test_chip_smoke_imports_no_jax():
+    names = imported_names(os.path.join(REPO, "chip_smoke.py"))
+    assert not jax_names(names), jax_names(names)
     assert "kaldi_lstm_tpu_torch.train.trainer" in names
+
+
+def _port_sources() -> list:
+    root = os.path.join(REPO, "kaldi_lstm_tpu_torch")
+    return sorted(os.path.relpath(os.path.join(d, n), REPO)
+                  for d, _, files in os.walk(root)
+                  for n in files if n.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_port_source_imports_no_jax(path):
+    """No import statement of a port module names jax or the JAX package,
+    not even a lazy one inside a function (the fresh-interpreter checks
+    see only what importing the module runs)."""
+    bad = jax_names(imported_names(os.path.join(REPO, path)))
+    assert not bad, bad
+
+
+def test_port_source_scan_sees_lazy_imports(tmp_path):
+    """The scan above reports an import inside a function body."""
+    src = tmp_path / "lazy.py"
+    src.write_text("def f():\n    from kaldi_lstm_tpu.io.kaldi_io import "
+                   "_read_key\n    import jax.numpy as jnp\n")
+    assert jax_names(imported_names(str(src))) == [
+        "jax.numpy", "kaldi_lstm_tpu.io.kaldi_io"]
+    assert len(_port_sources()) > 100
 
 
 _DECODE_MAPS = r"""

@@ -156,6 +156,39 @@ def test_the_sequence_and_posterior_tools_have_console_scripts(tool):
         assert f"klt-torch-{other}" not in scripts
 
 
+_FRONT_END_TOOLS = {
+    "compute-fbank-feats": "compute_fbank_feats",
+    "compute-mfcc-feats": "compute_mfcc_feats",
+    "copy-feats": "copy_feats", "add-deltas": "add_deltas",
+    "feat-to-len": "feat_to_len", "feat-to-dim": "feat_to_dim",
+    "paste-feats": "paste_feats", "splice-feats": "splice_feats",
+    "select-feats": "select_feats", "subset-feats": "subset_feats",
+    "extract-segments": "extract_segments",
+    "wav-to-duration": "wav_to_duration",
+    "compute-cmvn": "compute_cmvn_transform",
+    "make-synth-data": "make_synth_data"}
+
+
+@pytest.mark.parametrize("name", sorted(_FRONT_END_TOOLS))
+def test_the_front_end_tools_have_console_scripts(name):
+    """Each front-end and feature-table tool that the JAX package ships
+    as `klt-<name>` has its `klt-torch-<name>` twin, naming a `main`;
+    the tools without a JAX script (synth_wavs, apply_cmvn, ...) have no
+    twin."""
+    import importlib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    tool = _FRONT_END_TOOLS[name]
+    assert scripts[f"klt-{name}"] == f"kaldi_lstm_tpu.tools.{tool}:main"
+    target = f"kaldi_lstm_tpu_torch.tools.{tool}:main"
+    assert scripts[f"klt-torch-{name}"] == target
+    assert callable(importlib.import_module(target.split(":")[0]).main)
+    for other in ("synth-wavs", "apply-cmvn", "compute-cmvn-stats",
+                  "make-hmm-synth-data"):
+        assert f"klt-{other}" not in scripts
+        assert f"klt-torch-{other}" not in scripts
+
+
 @pytest.mark.parametrize("name", sorted(_port_scripts()))
 def test_every_port_console_script_names_a_main(name):
     import importlib
