@@ -275,13 +275,37 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    nothing else), 3 utterances against `--device cpu` within
    SCORE_ATOL; printed: audio-s/s from wav to scores and the phase's
    wall;
-13. print one JSON line with every kernel (the bf16 variants as
+13. the native I/O half and the sharded step, in a work directory of
+   their own on phase 5's corpus and initial model (the same seeds).
+   13a: phase 5's training ark through the native scan
+   (csrc/kltio.cc) key for key and byte for byte against the Python
+   parse, its posteriors likewise, an epoch's batches of the native
+   fill byte for byte against the numpy fill (the scheduler's host
+   seconds with each printed), and the `-v 2` epoch profile of a CV
+   pass with each fill. 13b: K3/K4 against their plain versions at a
+   class shard's shape (N=2560, R=512, K=4000, and the odd K=3999 of
+   7998 classes over model=2; every other row's target id -1, i.e. in
+   another shard), timed. 13c: train_lstm_streams with --mesh model=2
+   (the TP loss: K3/K4 on 4000 classes a rank; --step-group 2) and
+   --mesh data=2, two ranks on cuda:0 joined by gloo through
+   --coordinator-address/--num-processes/--process-id (`chip_smoke.py
+   --mesh-rank`; NCCL refuses two ranks on one card), at the flagship
+   widths on the first 128 utterances of phase 5's corpus (model=2:
+   both ranks on all of them, 128 streams; data=2: a half each, 64
+   streams), then each mode's --cross-validate pass: both ranks'
+   gathered parameters bit-identical and equal to rank 0's written
+   model, within the step tolerance of one process's CLI run over the
+   same global batches, the global statistics equal on both ranks and
+   to that run's, every rank's K1-K5 launches as predicted with no
+   plain call; ms per step and the collectives' ms a step printed;
+14. print one JSON line with every kernel (the bf16 variants as
    entries of their own; K5's adds its masked entry point's launches,
    times and error, the realignment's, the BLSTM scoring's, the
-   sequence trainers' and phase 12's launches; K1-K4 add the
-   per-utterance, frame-shuffled, sequence-training and phase 12's
-   launches, their times at the per-utterance shapes and their device
-   ms in one sMBR step), then the device line last.
+   sequence trainers', phase 12's and phase 13's CV launches; K1-K4 add
+   the per-utterance, frame-shuffled, sequence-training, phase 12's and
+   phase 13's launches per rank, their times at the per-utterance shapes
+   and their device ms in one sMBR step; K3/K4 their times at the class
+   shard shapes), then the device line last.
 """
 
 from __future__ import annotations
@@ -1111,11 +1135,12 @@ def lstm_function_case():
 
 
 def xent_case(name, N, R, K, Km, seed, bias_scale=0.1, mask_p=0.8,
-              tie_at=None, timed=False):
+              tie_at=None, timed=False, foreign=False):
     """K3 and K4 against their plain versions on one input; returns
     (worst abs error, timing record or None). Timed cases also print
     cuBLAS f32 times of the three products (context, not used by the
-    port)."""
+    port). With `foreign` every other row's targets are -1, an id of
+    another class shard (the tensor-parallel loss's input)."""
     import torch
     from kaldi_lstm_tpu_torch.ops import xent_affine as xa
     g = torch.Generator().manual_seed(seed)
@@ -1130,6 +1155,8 @@ def xent_case(name, N, R, K, Km, seed, bias_scale=0.1, mask_p=0.8,
         b = torch.zeros(K)
         w[tie_at] = w[tie_at + 1] = 8.0 * r.abs().amax(0) * torch.sign(r[0])
     ids = torch.randint(0, K, (N, Km), generator=g).to(torch.int32)
+    if foreign:
+        ids[::2] = -1
     tw = torch.rand(N, Km, generator=g)
     mask = (torch.rand(N, generator=g) < mask_p).float()
     r, w, b, ids, tw, mask = (t.cuda() for t in (r, w, b, ids, tw, mask))
@@ -5603,6 +5630,433 @@ K1_PROFILE_KEYS = ("interleave_gate_rows", "xw_tc_kernel", "gates_tc_kernel",
                    "contract_tc_kernel<32, 32, true, true")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the native I/O half and the sharded step on the card
+# ---------------------------------------------------------------------------
+# the sharded CLI runs train on the first MESH_S utterances of phase 5's
+# corpus: --mesh model=2 both ranks on all of them with MESH_S streams,
+# --mesh data=2 each rank on its half with MESH_S / 2 streams (one
+# utterance a stream either way, so the global batches are those of one
+# process with MESH_S streams over all of them)
+MESH_S = 128
+MESH_TIMEOUT_S = 300
+# the trainer's default --sync-every (continue-flag agreement cadence)
+MESH_SYNC = 8
+
+
+def python_matrix_table(path: str) -> dict:
+    """{key: matrix} of a binary ark by the Python parse (the reference
+    for the native scan)."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    out = {}
+    with open(path, "rb") as f:
+        stream = kio._buffered(f)
+        while (key := kio._read_key(stream)) is not None:
+            out[key] = kio.read_matrix(kio._read_value_header(stream))
+    return out
+
+
+def phase_native_io(work: str, feats: str, post: str, model: str) -> dict:
+    """13a: phase 5's training ark through the native scan against the
+    Python parse, an epoch's batches of the native fill against the numpy
+    fill, and the epoch profile's times with each fill."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.tools import train_lstm_streams
+    from kaldi_lstm_tpu_torch.train.streams import StreamScheduler
+
+    from kaldi_lstm_tpu_torch.io import native
+    path = feats.split(":", 1)[1]
+    t0 = time.perf_counter()
+    native.get_io_lib()
+    log(f"  the native I/O library (csrc/kltio.cc) built or loaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    scanned = list(kio.SequentialMatrixReader(feats))
+    t_scan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = python_matrix_table(path)
+    t_parse = time.perf_counter() - t0
+    if [k for k, _ in scanned] != list(parsed):
+        fail("the native scan's keys differ from the Python parse's")
+    if any(m.tobytes() != parsed[k].tobytes() or m.shape != parsed[k].shape
+           for k, m in scanned):
+        fail("a scanned matrix differs from the Python parse")
+    targets = kio.RandomAccessPosteriorReader(post)
+    for k, p in kio.SequentialPosteriorReader(post):
+        ids, w = targets.value_dense(k)
+        ref = np.array([[f[0][0]] for f in p], np.int32)
+        if ids.tobytes() != ref.tobytes() or not np.all(w == 1.0) \
+                or targets.value(k) != p:
+            fail(f"the posterior scan differs from the Python parse at {k}")
+    log(f"  readers: {len(scanned)} matrices scanned natively in "
+        f"{t_scan:.3f} s (Python parse {t_parse:.3f} s), key for key and "
+        f"byte for byte equal; posteriors equal")
+
+    class PlainFill(StreamScheduler):
+        _fill_native = StreamScheduler._fill_plain
+
+    times, epochs = {}, {}
+    for tag, cls in (("numpy", PlainFill), ("native", StreamScheduler)):
+        sched = cls(kio.SequentialMatrixReader(feats),
+                    kio.RandomAccessPosteriorReader(post), 40, TRAIN_S,
+                    TRAIN_T, 0)
+        t0 = time.perf_counter()
+        epochs[tag] = list(sched)
+        times[tag] = time.perf_counter() - t0
+    if len(epochs["native"]) != len(epochs["numpy"]) or any(
+            np.asarray(x).tobytes() != np.asarray(y).tobytes()
+            for a, b in zip(epochs["native"], epochs["numpy"])
+            for x, y in zip(a, b)):
+        fail("the native fill's batches differ from the numpy fill's")
+    log(f"  fill: {len(epochs['native'])} batches of {TRAIN_S}x{TRAIN_T} "
+        f"byte for byte equal; scheduler epoch {times['numpy']:.3f} s with "
+        f"the numpy fill, {times['native']:.3f} s with the native fill "
+        f"(host clock; {nvidia_smi_line()})")
+    profiles = {}
+    common = [feats, post, model, "--cross-validate=true",
+              f"--num-stream={TRAIN_S}", f"--batch-size={TRAIN_T}",
+              "--targets-delay=0", "--device", "cuda", "--verbose=2"]
+    saved = StreamScheduler._fill_native
+    # a first pass warms the card up; then one pass with each fill
+    for tag in ("warm-up", "numpy", "native"):
+        if tag == "numpy":
+            StreamScheduler._fill_native = StreamScheduler._fill_plain
+        try:
+            rc, text = run_logged(train_lstm_streams.main, common)
+        finally:
+            StreamScheduler._fill_native = saved
+        if rc != 0:
+            fail(f"the -v 2 cross-validation pass ({tag} fill) exited {rc}")
+        line = [ln for ln in text.splitlines() if "epoch profile" in ln]
+        profiles[tag] = line[-1] if line else ""
+        log(f"  -v 2 epoch profile, {tag} fill: {profiles[tag]}")
+    return {"scan_s": t_scan, "parse_s": t_parse,
+            "fill_numpy_s": times["numpy"], "fill_native_s": times["native"]}
+
+
+def mesh_prediction(steps: int) -> dict:
+    """K1-K4 launches of `steps` sharded training steps on one rank (one
+    LSTMP layer, no dx below it; K3/K4 once a step on the rank's classes)."""
+    from kaldi_lstm_tpu_torch.ops.lstm_train import bwd_launches, fwd_launches
+    return {"lstmp_train_fwd": fwd_launches(TRAIN_T) * steps,
+            "lstmp_train_bwd": bwd_launches(TRAIN_T, False) * steps,
+            "xent_affine_fwd": 2 * steps, "xent_affine_bwd": 3 * steps}
+
+
+def mesh_argv(work: str, part: str, streams: int) -> list:
+    """train_lstm_streams' arguments on one part of the sharded runs'
+    corpus (all, shard0, shard1), without the output model."""
+    return [f"ark:{work}/mesh_{part}_feats.ark",
+            f"ark:{work}/mesh_{part}_post.ark",
+            os.path.join(work, "flagship.init"), "--device", "cuda",
+            f"--num-stream={streams}", f"--batch-size={TRAIN_T}",
+            "--targets-delay=0", f"--learn-rate={TRAIN_LR}"]
+
+
+def stats_list(stats) -> list:
+    return [stats.loss, stats.entropy, stats.correct, stats.frames]
+
+
+def mesh_rank(mode: str, rank: int, port: int, work: str) -> int:
+    """One of two ranks of a sharded run on cuda:0, started by
+    `spawn_mesh`: train_lstm_streams with --mesh {mode}=2 and the
+    multi-process flags on this rank's part of the corpus (model=2 with
+    --step-group 2, so the grouped sharded step runs too), then its
+    cross-validation pass on the model rank 0 wrote, the launch counts
+    zeroed just before and read just after each. The probes only
+    observe: each step call and each all-reduce is timed with the card
+    synced around it, and the parameters gather_params hands this rank
+    are kept. Writes those parameters, the counts, the statistics and
+    the times."""
+    import torch
+    import torch.distributed as dist
+    from kaldi_lstm_tpu_torch.ops.counts import reset_counts, snapshot_counts
+    from kaldi_lstm_tpu_torch.parallel import mesh as mesh_mod
+    from kaldi_lstm_tpu_torch.parallel import sharded_trainer
+    from kaldi_lstm_tpu_torch.tools import train_lstm_streams
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    part, streams = (("all", MESH_S) if mode == "model"
+                     else (f"shard{rank}", MESH_S // 2))
+    base = mesh_argv(work, part, streams)
+    model_out = os.path.join(work, f"mesh_{mode}.nnet")
+    multi = ["--mesh", f"{mode}=2", "--coordinator-address",
+             f"localhost:{port}", "--num-processes", "2", "--process-id",
+             str(rank)] + (["--step-group", "2"] if mode == "model" else [])
+
+    coll = {"ms": 0.0, "calls": 0}
+    calls = []  # (ms, collectives' ms, steps) of each step call
+    reduce = dist.all_reduce
+
+    def timed_all_reduce(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(*a, **k)
+        torch.cuda.synchronize()
+        coll["ms"] += 1e3 * (time.perf_counter() - t0)
+        coll["calls"] += 1
+        return out
+
+    def timed(make, grouped):
+        def factory(*a, **k):
+            fn = make(*a, **k)
+
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), coll["ms"]
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                calls.append((1e3 * (time.perf_counter() - t0),
+                              coll["ms"] - c0,
+                              int(args[4].shape[0]) if grouped else 1))
+                return out
+            return call
+        return factory
+
+    gathered = {}
+    gather = mesh_mod.MeshPlan.gather_params
+
+    def kept_gather(self, p):
+        gathered["params"] = gather(self, p)
+        return gathered["params"]
+
+    dist.all_reduce = timed_all_reduce
+    sharded_trainer.make_sharded_train_step = timed(
+        sharded_trainer.make_sharded_train_step, False)
+    sharded_trainer.make_sharded_grouped_train_step = timed(
+        sharded_trainer.make_sharded_grouped_train_step, True)
+    mesh_mod.MeshPlan.gather_params = kept_gather
+
+    reset_counts()
+    rc, tr = train_lstm_streams.run_main(base[:3] + [model_out] + base[3:]
+                                         + multi)
+    torch.cuda.synchronize()
+    train_counts = snapshot_counts()
+    if rc != 0:
+        return rc
+    train_calls, train_coll = list(calls), coll["calls"]
+    reset_counts()
+    rc, cv = train_lstm_streams.run_main(
+        [base[0], base[1], model_out] + base[3:] + multi
+        + ["--cross-validate=true"])
+    torch.cuda.synchronize()
+    cv_counts = snapshot_counts()
+    if rc != 0:
+        return rc
+    flat = np.concatenate([t.detach().cpu().numpy().ravel()
+                           for t in tree_leaves(gathered["params"])])
+    np.save(os.path.join(work, f"mesh_{mode}_{rank}.npy"), flat)
+    with open(os.path.join(work, f"mesh_{mode}_{rank}.json"), "w") as f:
+        json.dump({"backend": dist.get_backend(), "train": train_counts,
+                   "cv": cv_counts, "calls": train_calls,
+                   "coll_calls": train_coll, "stats": stats_list(tr),
+                   "cv_stats": stats_list(cv)}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_mesh(mode: str, work: str) -> list:
+    """Run the two ranks of `mode` to the end; kill both and fail if one
+    fails or the time runs out. Returns their outputs."""
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, KLT_DIST_TIMEOUT=str(MESH_TIMEOUT_S),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", mode,
+         str(r), str(port), work], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, env=env) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0].decode(
+                errors="replace"))
+    except subprocess.TimeoutExpired:
+        fail(f"the {mode}=2 ranks did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.strip().splitlines()
+        for ln in [x for x in lines if "process group:" in x or
+                   "sharded training on mesh" in x][:2] + lines[-3:]:
+            log(f"    rank {r} | {ln}")
+        if p.returncode != 0:
+            log(out[-4000:])
+            fail(f"rank {r} of the {mode}=2 run exited {p.returncode}")
+    return outs
+
+
+def write_mesh_corpus(work: str, feats: str, post: str) -> list:
+    """The first MESH_S utterances of phase 5's corpus, whole (mesh_all)
+    and in halves (mesh_shard0, mesh_shard1); returns their lengths."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    targets = kio.RandomAccessPosteriorReader(post)
+    items = [kv for _, kv in zip(range(MESH_S),
+                                 kio.SequentialMatrixReader(feats))]
+    half = MESH_S // 2
+    for part, sub in (("all", items), ("shard0", items[:half]),
+                      ("shard1", items[half:])):
+        with kio.MatrixWriter(f"ark:{work}/mesh_{part}_feats.ark") as fw, \
+                kio.PosteriorWriter(f"ark:{work}/mesh_{part}_post.ark") as pw:
+            for key, m in sub:
+                fw.write(key, m)
+                pw.write(key, targets.value(key))
+    return [len(m) for _, m in items]
+
+
+def phase_sharded(work: str, feats: str, post: str) -> dict:
+    """13c: train_lstm_streams --mesh model=2 (K3/K4 on 4000 classes a
+    rank, --step-group 2) and --mesh data=2 at the flagship widths, two
+    gloo ranks of cuda:0 through the multi-process flags, each followed
+    by its --cross-validate pass; rank 0's model against one process's
+    CLI run over the same global batches."""
+    from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+    from kaldi_lstm_tpu_torch.models import Nnet
+    from kaldi_lstm_tpu_torch.parallel.multihost import count_batches
+    from kaldi_lstm_tpu_torch.tools import train_lstm_streams
+    from kaldi_lstm_tpu_torch.utils.tree import tree_leaves
+
+    def flat_model(path):
+        return np.concatenate([t.detach().cpu().numpy().ravel()
+                               for t in tree_leaves(Nnet.read(path,
+                                                              "cpu")[1])])
+
+    lengths = write_mesh_corpus(work, feats, post)
+    # one process with MESH_S streams over the same utterances
+    base = mesh_argv(work, "all", MESH_S)
+    ref_model = os.path.join(work, "mesh_ref.nnet")
+    t0 = time.perf_counter()
+    rc, ref_tr = train_lstm_streams.run_main(base[:3] + [ref_model]
+                                             + base[3:])
+    if rc != 0:
+        fail(f"the one-process reference run exited {rc}")
+    rc, ref_cv = train_lstm_streams.run_main(
+        [base[0], base[1], ref_model] + base[3:] + ["--cross-validate=true"])
+    if rc != 0:
+        fail(f"the one-process reference CV pass exited {rc}")
+    ref = flat_model(ref_model)
+    ref_tr, ref_cv = stats_list(ref_tr), stats_list(ref_cv)
+    log(f"  one process, {MESH_S} streams over {len(lengths)} utterances: "
+        f"{count_batches(lengths, MESH_S, TRAIN_T)} steps, AvgLoss "
+        f"{ref_tr[0] / ref_tr[3]!r}, CV AvgLoss {ref_cv[0] / ref_cv[3]!r} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    half = MESH_S // 2
+    local = {"model": [count_batches(lengths, MESH_S, TRAIN_T)] * 2,
+             "data": [count_batches(lengths[:half], half, TRAIN_T),
+                      count_batches(lengths[half:], half, TRAIN_T)]}
+    out = {}
+    for mode in ("model", "data"):
+        # the ranks agree every MESH_SYNC steps, so they run the longer
+        # shard's batches rounded up to it (the rest are no-op fillers)
+        steps = -(-max(local[mode]) // MESH_SYNC) * MESH_SYNC
+        pred = mesh_prediction(steps)
+        cv_pred = {"lstmp_infer": steps, "xent_affine_fwd": 2 * steps}
+        t0 = time.perf_counter()
+        spawn_mesh(mode, work)
+        wall = time.perf_counter() - t0
+        flats = [np.load(os.path.join(work, f"mesh_{mode}_{r}.npy"))
+                 for r in range(2)]
+        recs = []
+        for r in range(2):
+            with open(os.path.join(work, f"mesh_{mode}_{r}.json")) as f:
+                recs.append(json.load(f))
+        if not np.array_equal(flats[0], flats[1]):
+            fail(f"{mode}=2: the two ranks' parameters differ")
+        written = flat_model(os.path.join(work, f"mesh_{mode}.nnet"))
+        if not np.array_equal(written, flats[0]):
+            fail(f"{mode}=2: rank 0's written model differs from its "
+                 f"gathered parameters")
+        d = np.abs(written - ref)
+        worst = float(d.max())
+        if not bool(np.all(d <= STEP_ATOL + STEP_RTOL * np.abs(ref))):
+            fail(f"{mode}=2: the parameters differ from one process's "
+                 f"beyond {STEP_ATOL:g} + {STEP_RTOL:g} x |p| (max "
+                 f"{worst:.3e})")
+        for r, rec in enumerate(recs):
+            for what, got, want in (("training", rec["train"], pred),
+                                    ("cross-validation", rec["cv"],
+                                     cv_pred)):
+                plain = {k: v for k, v in got.items()
+                         if k.startswith("plain.") and v}
+                others = {k: v for k, v in got.items() if v and k not in
+                          want and not k.startswith("plain.")}
+                log(f"  {mode}=2 rank {r} {what}: "
+                    f"{ {k: got[k] for k in want} } (predicted {want}); "
+                    f"plain calls {plain}, others {others}")
+                if any(got[k] != want[k] for k in want) or plain or others:
+                    fail(f"{mode}=2 rank {r}: {what} launches differ from "
+                         f"the prediction")
+            for what, got, want in (("training", rec["stats"], ref_tr),
+                                    ("CV", rec["cv_stats"], ref_cv)):
+                if got != recs[0]["stats" if what == "training"
+                                  else "cv_stats"]:
+                    fail(f"{mode}=2: the ranks' global {what} statistics "
+                         f"differ")
+                if not (abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+                        and got[3] == want[3]):
+                    fail(f"{mode}=2 rank {r}: {what} statistics {got} "
+                         f"differ from one process's {want}")
+        # the first call pays gloo's and the kernels' warm-up
+        per = [[(ms / n, c / n) for ms, c, n in rec["calls"][1:]]
+               for rec in recs]
+        ms = [statistics.median(x[0] for x in p) for p in per]
+        coll = [statistics.median(x[1] for x in p) for p in per]
+        log(f"  {mode}=2 ({recs[0]['backend']} on cuda:0, two ranks, "
+            f"{steps} steps): parameters bit-identical on both ranks and in "
+            f"rank 0's model, max abs diff from one process "
+            f"{worst:.3e} (tol {STEP_ATOL:g} + {STEP_RTOL:g} x |p|); "
+            f"AvgLoss {recs[0]['stats'][0] / recs[0]['stats'][3]!r}, CV "
+            f"AvgLoss {recs[0]['cv_stats'][0] / recs[0]['cv_stats'][3]!r} "
+            f"(global, both ranks); ms per step (median of "
+            f"{len(per[0])} step calls after the first; ranks 0 / 1) "
+            f"{ms[0]:.3f} / {ms[1]:.3f}, of which in the collectives "
+            f"{coll[0]:.3f} / {coll[1]:.3f} ms ({recs[0]['coll_calls']} "
+            f"all-reduce calls in training); wall {wall:.1f} s; "
+            f"{nvidia_smi_line()}")
+        out[mode] = {"launches": recs[0]["train"], "cv": recs[0]["cv"],
+                     "ms": ms[0], "coll_ms": coll[0], "max_abs_diff": worst,
+                     "steps": steps}
+    return out
+
+
+def phase_native_and_sharded() -> dict:
+    """Phase 13 in its own work directory on phase 5's corpus and model
+    (the same seeds)."""
+    import torch
+    from kaldi_lstm_tpu_torch.models import Nnet
+    with tempfile.TemporaryDirectory(prefix="klt_chip_smoke_") as work:
+        t0 = time.perf_counter()
+        feats, post = write_train_corpus(work)
+        model = os.path.join(work, "flagship.init")
+        nnet, params = Nnet.init_from_proto(
+            TRAIN_PROTO, torch.Generator().manual_seed(0), "cuda")
+        nnet.write(model, params, binary=True)
+        del params
+        log("phase 13a: the native I/O half on phase 5's corpus")
+        io_rec = phase_native_io(work, feats, post, model)
+        log("phase 13b: K3/K4 at a class shard's shape (N=2560, K=4000, "
+            "and K=3999, the odd shard of 7998 classes over model=2; every "
+            "other row's target in another shard)")
+        _, shard = xent_case("shard", MESH_S * TRAIN_T, 512, 4000, 1, 21,
+                             timed=True, foreign=True)
+        _, odd = xent_case("odd shard", MESH_S * TRAIN_T, 512, 3999, 1, 22,
+                           timed=True, foreign=True)
+        log("phase 13c: train_lstm_streams --mesh model=2 / data=2, two "
+            "gloo ranks on cuda:0")
+        mesh = phase_sharded(work, feats, post)
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return {"io": io_rec, "shard": shard, "odd": odd, "mesh": mesh}
+
+
 def entry_ms(table: list, entry: str) -> float:
     """Device ms of the rows of a `device_table` that belong to a counted
     entry point (a row belongs to the first entry of KERNEL_NAMES whose
@@ -5779,6 +6233,11 @@ def main() -> int:
             "the host; train_lstm_streams and nnet_forward "
             "--feature-transform on the card)")
         fromwav = phase_from_wav(work7)
+
+    log("phase 13: the native I/O half and the sharded step (two gloo "
+        "ranks on the card, --mesh model=2 and data=2)")
+    p13 = phase_native_and_sharded()
+    mesh = p13["mesh"]
     smbr_prof = seq["sMBR"]["steps"]["profile"] or {"table": []}
 
     kernels = [{
@@ -5798,6 +6257,8 @@ def main() -> int:
             seq["lattice"][t]["launches"]["lstmp_infer"]
             for t in ("mmi_sequential", "mpe_sequential")),
         "fromwav_launches": fromwav["launches"]["lstmp_infer"],
+        "mesh_model2_cv_launches": mesh["model"]["cv"]["lstmp_infer"],
+        "mesh_data2_cv_launches": mesh["data"]["cv"]["lstmp_infer"],
         "max_abs_err": max(rec["max_abs_err"],
                            perutt_recs["K5"]["max_abs_err"]),
         "ms": rec["ms"], "kernel_ms": rec["ms"],
@@ -5825,6 +6286,12 @@ def main() -> int:
             "us_per_launch") if k in pr}
         shapes.update({f"r1024_{k}": v for k, v in pr.items()
                        if k.startswith(("n1024_", "n256_"))})
+        if key in ("K3", "K4"):
+            # a model rank's class shard: N=2560, K=4000, foreign ids
+            shapes.update({f"shard_k4000_{k}": v
+                           for k, v in p13["shard"][key].items()})
+            shapes.update({f"shard_k3999_{k}": v
+                           for k, v in p13["odd"][key].items()})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kaldi_lstm_tpu_torch/csrc/{source}",
@@ -5839,6 +6306,8 @@ def main() -> int:
                 for t in ("mmi_sequential", "mpe_sequential")),
             "seq_smbr_step_ms": entry_ms(smbr_prof["table"], name),
             "fromwav_launches": fromwav["launches"][name],
+            "mesh_model2_launches": mesh["model"]["launches"][name],
+            "mesh_data2_launches": mesh["data"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"], pr["max_abs_err"]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5893,4 +6362,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--mesh-rank":
+        # one rank of phase 13c's sharded run (started by spawn_mesh)
+        sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3]),
+                           int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

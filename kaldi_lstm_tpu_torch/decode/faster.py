@@ -2,6 +2,10 @@
 equivalent of upstream Kaldi's `decode-faster-mapped`; this package's
 copy of ``kaldi_lstm_tpu.decode.faster``.
 
+`decode_faster_tokens` is the reference-style token-passing loop
+(ProcessEmitting / ProcessNonemitting over a hash of active tokens), kept
+as the independent cross-check that `decode_faster` is tested against.
+
 The graph is compiled once to CSR arc arrays (`CompiledGraph`). The frame
 loop runs in the native core (csrc/kltdecode.cc through io/native.py):
 dense backpointers for small graphs, sparse ones with an in-C++
@@ -22,8 +26,10 @@ not tensor-core work — the card scores, the host decodes.
 
 from __future__ import annotations
 
+import heapq
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -37,10 +43,40 @@ NEG = -1e30
 
 
 @dataclass
+class Trace:
+    __slots__ = ("prev", "word")
+    prev: Optional["Trace"]
+    word: int
+
+
+@dataclass
 class DecodeResult:
     words: list[int]      # word ids (symbol-table resolvable)
     score: float          # total path ln prob (graph + scaled acoustic)
     reached_final: bool
+
+
+def _process_nonemitting(graph: DecodingGraph, tokens: dict,
+                         cutoff: float) -> None:
+    """Epsilon closure of the current token set, in place. Epsilon arcs
+    have weight <= 0 and the epsilon subgraph's only cycles go through
+    emitting states, so a work-queue relaxation terminates; the score
+    check also guards pathological zero-weight loops."""
+    queue = list(tokens.keys())
+    while queue:
+        s = queue.pop()
+        sc, tr = tokens[s]
+        for arc in graph.arcs[s]:
+            if arc.pdf != -1:
+                continue
+            ns = sc + arc.weight
+            if ns <= cutoff:
+                continue
+            old = tokens.get(arc.dst)
+            if old is None or ns > old[0]:
+                tokens[arc.dst] = (
+                    ns, Trace(tr, arc.word) if arc.word else tr)
+                queue.append(arc.dst)
 
 
 class CompiledGraph:
@@ -261,3 +297,58 @@ def decode_faster(graph: DecodingGraph, loglik: np.ndarray,
     score = float(total[state] if reached else alpha[state])
     words = _traceback(cg, bps, state, T)
     return DecodeResult(words=words, score=score, reached_final=reached)
+
+
+def decode_faster_tokens(graph: DecodingGraph, loglik: np.ndarray,
+                         acoustic_scale: float = 1.0, beam: float = 16.0,
+                         max_active: int = 0) -> DecodeResult:
+    """Token-passing reference implementation (hash of active tokens,
+    linked-trace backpointers) — the independent cross-check for
+    decode_faster."""
+    em = acoustic_scale * np.asarray(loglik, np.float64)
+    tokens: dict = {graph.start: (0.0, None)}
+    _process_nonemitting(graph, tokens, -np.inf)
+
+    for t in range(em.shape[0]):
+        frame = em[t]
+        nxt: dict = {}
+        best = NEG
+        for s, (sc, tr) in tokens.items():
+            for arc in graph.arcs[s]:
+                if arc.pdf < 0:
+                    continue
+                ns = sc + arc.weight + frame[arc.pdf]
+                old = nxt.get(arc.dst)
+                if old is None or ns > old[0]:
+                    nxt[arc.dst] = (
+                        ns, Trace(tr, arc.word) if arc.word else tr)
+                    if ns > best:
+                        best = ns
+        cutoff = best - beam
+        if max_active and len(nxt) > max_active:
+            cutoff = max(cutoff, heapq.nlargest(
+                max_active, (sc for sc, _ in nxt.values()))[-1])
+        tokens = {s: v for s, v in nxt.items() if v[0] >= cutoff}
+        _process_nonemitting(graph, tokens, cutoff)
+        if not tokens:
+            raise RuntimeError(
+                f"decode_faster: no tokens survived at frame {t} — "
+                "beam too tight or loglik/graph mismatch")
+
+    # terminate: prefer tokens at final states (+ final weight)
+    best_s, best_sc, reached = None, NEG, False
+    for s, (sc, _tr) in tokens.items():
+        f = graph.final[s]
+        if f > NEG / 2 and sc + f > best_sc:
+            best_s, best_sc, reached = s, sc + f, True
+    if best_s is None:  # upstream fallback when no final state is active
+        for s, (sc, _tr) in tokens.items():
+            if sc > best_sc:
+                best_s, best_sc = s, sc
+    words = []
+    tr = tokens[best_s][1]
+    while tr is not None:
+        words.append(tr.word)
+        tr = tr.prev
+    words.reverse()
+    return DecodeResult(words=words, score=best_sc, reached_final=reached)

@@ -615,7 +615,8 @@ def read_matrix_from_rxfilename(rxfilename: str) -> np.ndarray:
 # parse per record.
 
 _MMAP_CACHE: dict = {}
-_MMAP_CACHE_LIMIT = 256     # mappings kept open (ark shards)
+# mappings kept open (ark shards)
+_MMAP_CACHE_LIMIT = int(os.environ.get("KLT_MMAP_CACHE_LIMIT", "256"))
 
 
 def _mmap_file(path: str):
@@ -656,14 +657,47 @@ def read_matrix_view(path: str, offset: int):
                          offset=offset + 15).reshape(rows, cols)
 
 
+def _plain_ark(kind: str, rspecifier: str) -> str | None:
+    """The file of an `ark:` rspecifier that names a plain file (not a
+    pipe, not stdin), which the native scans can map; else None."""
+    rest = rspecifier.partition(":")[2]
+    if kind != "ark" or rest.endswith("|") or rest in ("-", ""):
+        return None
+    return rest
+
+
+def _scan_matrices(kind: str, rspecifier: str, stream):
+    """The native scan's [(key, read-only view)] of a plain binary ark of
+    float matrices, the stream then closed; None for any other table (a
+    text ark, compressed matrices, a pipe, an scp), which the Python
+    reader reads. A library that fails to build raises."""
+    path = _plain_ark(kind, rspecifier)
+    if path is None:
+        return None
+    from kaldi_lstm_tpu_torch.io import native
+    try:
+        records = native.scan_matrix_ark(path)
+    except ValueError:
+        return None  # a format the scan does not parse
+    stream.close()
+    return records
+
+
 class SequentialMatrixReader:
     """Sequential reader over `ark:`/`scp:` float-matrix tables (the
-    feature source of the scoring tools)."""
+    feature source of the trainers and the scoring tools). A plain binary
+    `ark:` file is offset-scanned natively and its matrices come back as
+    read-only views of a mapping of the file (`io/native.py`)."""
 
     def __init__(self, rspecifier: str):
         self.kind, self.stream = _open_rspecifier(rspecifier)
+        self._native_records = _scan_matrices(self.kind, rspecifier,
+                                              self.stream)
 
     def __iter__(self) -> Iterator[tuple[str, np.ndarray]]:
+        if self._native_records is not None:
+            yield from self._native_records
+            return
         if self.kind == "ark":
             stream = self.stream \
                 if isinstance(self.stream, io.BufferedReader) \
@@ -807,16 +841,34 @@ class SequentialPosteriorReader:
 
 
 class RandomAccessPosteriorReader:
-    """Random-access posterior reader: an `ark:` table is read whole into
-    memory (an epoch's targets fit on the host); `scp:` values are read
-    lazily by offset. `max_entries` is the sparse-target width Kmax that
-    `value_dense` defaults to."""
+    """Random-access posterior reader. A plain binary `ark:` file is
+    scanned natively once (`io/native.py::scan_posterior_ark`) into dense
+    [T, Kmax] id/weight arrays, which `value_dense` hands out without a
+    conversion, and the offset of each record, from which `value` reads
+    the record whole (every entry of every frame). Other `ark:` tables
+    (text, pipes, stdin) are read whole into memory; `scp:` values are
+    read lazily by offset. `max_entries` is the sparse-target width Kmax
+    that `value_dense` defaults to."""
 
     def __init__(self, rspecifier: str, max_entries: int = 1):
         self.kind, stream = _open_rspecifier(rspecifier)
         self.max_entries = max_entries
         self._table: dict[str, Posterior] = {}
+        self._dense: dict[str, tuple[np.ndarray, np.ndarray]] = {}
         self._scp: dict[str, str] = {}
+        path = _plain_ark(self.kind, rspecifier)
+        if path is not None:
+            from kaldi_lstm_tpu_torch.io import native
+            offsets: dict = {}
+            try:
+                self._dense = native.scan_posterior_ark(path, max_entries,
+                                                        offsets)
+            except ValueError:
+                offsets = {}  # a format the scan does not parse
+            else:
+                stream.close()
+                self._scp = {k: f"{path}:{o}" for k, o in offsets.items()}
+                return
         if self.kind == "ark":
             buffered = _buffered(stream)
             while True:
@@ -852,6 +904,9 @@ class RandomAccessPosteriorReader:
         """Targets as ([T, Kmax] int32 ids, [T, Kmax] float32 weights);
         entries past Kmax are dropped, missing ones have weight 0."""
         k = self.max_entries if max_entries is None else max_entries
+        dense = self._dense.get(key)
+        if dense is not None and dense[0].shape[1] >= k:
+            return dense[0][:, :k], dense[1][:, :k]
         post = self.value(key)
         ids = np.zeros((len(post), k), np.int32)
         w = np.zeros((len(post), k), np.float32)
@@ -860,6 +915,13 @@ class RandomAccessPosteriorReader:
                 ids[t, j] = pdf
                 w[t, j] = weight
         return ids, w
+
+
+    def num_frames(self, key: str) -> int:
+        """The record's frame count (from the scan when there was one)."""
+        if key in self._dense:
+            return self._dense[key][0].shape[0]
+        return len(self.value(key))
 
 
 def read_float_vectors(rspecifier: str) -> dict[str, np.ndarray]:
@@ -898,13 +960,19 @@ class SequentialInt32Reader:
 class RandomAccessMatrixReader:
     """Random-access float-matrix reader (upstream
     RandomAccessBaseFloatMatrixReader), the secondary input of tools like
-    paste-feats. `scp:` sources stay lazy (mmap views by offset); `ark:`
-    sources are read whole into memory."""
+    paste-feats. `scp:` sources stay lazy (mmap views by offset); a plain
+    binary `ark:` file is offset-scanned natively once and its records are
+    read-only views of a mapping of the file; other `ark:` tables (text,
+    compressed, pipes) are read whole into memory."""
 
     def __init__(self, rspecifier: str):
         self.kind, stream = _open_rspecifier(rspecifier)
         self._table: dict[str, np.ndarray] = {}
         self._scp: dict[str, str] = {}
+        records = _scan_matrices(self.kind, rspecifier, stream)
+        if records is not None:
+            self._table = dict(records)
+            return
         if self.kind == "ark":
             buffered = _buffered(stream)
             while True:

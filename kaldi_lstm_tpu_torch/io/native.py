@@ -1,7 +1,9 @@
-"""ctypes bindings to the native decoder core (``csrc/kltdecode.cc``) —
-this package's copy of the decoder half of ``kaldi_lstm_tpu.io.native``.
+"""ctypes bindings to the two native host libraries: the decoder core
+(``csrc/kltdecode.cc``, the decoder half of ``kaldi_lstm_tpu.io.native``)
+and the I/O library (``csrc/kltio.cc``, its I/O half: the zero-copy ark
+scans and the one-call batch fill of the stream scheduler).
 
-The core is host code, built at first use with ``g++ -O3 -fPIC
+Each library is host code, built at first use with ``g++ -O3 -fPIC
 -std=c++17 -shared`` (``CXX`` names another compiler) into
 ``kaldi_lstm_tpu_torch/_build/``, which ``.gitignore`` lists. The
 library's file name carries a hash of the source and the flags, so an
@@ -9,10 +11,13 @@ edit rebuilds it; a build is written to a temporary name and renamed
 into place under a file lock, so concurrent processes neither race the
 compiler nor load a half-written library.
 
-There is no fallback: a core that fails to build or load raises
+There is no fallback: a library that fails to build or load raises
 RuntimeError naming the compiler's or the loader's error. The numpy
 decoders in decode/faster.py, decode/lattice_faster.py and
-decode/online.py run only when asked for with ``KLT_DECODE_IMPL=python``.
+decode/online.py run only when asked for with ``KLT_DECODE_IMPL=python``;
+the I/O functions have no numpy twin in the readers (io/kaldi_io.py reads
+a table in Python only when its format is one the scan does not parse,
+such as a text ark, a pipe or a compressed matrix).
 
 ctypes releases the GIL for the length of each call, so decoder threads
 (``--num-threads``) search in parallel while the main thread feeds the
@@ -24,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import mmap
 import os
 import subprocess
 import threading
@@ -32,21 +38,38 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "kltdecode.cc")
+IO_SOURCE = os.path.join(_PKG_DIR, "csrc", "kltio.cc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_IO_LIB: ctypes.CDLL | None = None
+
+# what each library is called in an error, and what its failure means
+_ROLE = {
+    "kltdecode": ("native decoder core",
+                  "the decoders need g++; they do not fall back to numpy, "
+                  "KLT_DECODE_IMPL=python asks for the numpy decoders"),
+    "kltio": ("native I/O library",
+              "the ark scans and the batch fill need g++; they do not "
+              "fall back to Python"),
+}
+
+
+def _stem(source: str) -> str:
+    return os.path.splitext(os.path.basename(source))[0]
 
 
 def lib_path(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
-    """Where the library built from `source` lives: named by a hash of
-    the source's bytes and the flags."""
+    """Where the library built from `source` lives: named by the
+    source's stem and a hash of its bytes and the flags."""
     h = hashlib.sha256()
     with open(source, "rb") as f:
         h.update(f.read())
     h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(build_dir, f"libkltdecode.{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir,
+                        f"lib{_stem(source)}.{h.hexdigest()[:16]}.so")
 
 
 def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
@@ -55,8 +78,9 @@ def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
     path = lib_path(source, build_dir)
     if os.path.exists(path):
         return path
+    what, need = _ROLE.get(_stem(source), ("native library", "it needs g++"))
     os.makedirs(build_dir, exist_ok=True)
-    with open(os.path.join(build_dir, "kltdecode.lock"), "a") as lock:
+    with open(os.path.join(build_dir, f"{_stem(source)}.lock"), "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if os.path.exists(path):          # another process built it
             return path
@@ -67,17 +91,25 @@ def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
                                  timeout=600)
         except (OSError, subprocess.TimeoutExpired) as e:
             raise RuntimeError(
-                f"native decoder core: could not run {' '.join(cmd)}: {e} "
-                "(the decoders need g++; they do not fall back to numpy, "
-                "KLT_DECODE_IMPL=python asks for the numpy decoders)") from e
+                f"{what}: could not run {' '.join(cmd)}: {e} "
+                f"({need})") from e
         if res.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError(
-                f"native decoder core: {' '.join(cmd)} failed (exit "
+                f"{what}: {' '.join(cmd)} failed (exit "
                 f"{res.returncode}):\n{res.stdout}{res.stderr}")
         os.replace(tmp, path)
     return path
+
+
+def _load(source: str) -> ctypes.CDLL:
+    path = build(source, BUILD_DIR)
+    try:
+        return ctypes.CDLL(path)
+    except OSError as e:
+        what = _ROLE.get(_stem(source), ("native library",))[0]
+        raise RuntimeError(f"{what}: cannot load {path}: {e}") from e
 
 
 def get_lib() -> ctypes.CDLL:
@@ -89,15 +121,46 @@ def get_lib() -> ctypes.CDLL:
         return lib
     with _LOCK:
         if _LIB is None:
-            path = build(SOURCE, BUILD_DIR)
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError as e:
-                raise RuntimeError(
-                    f"native decoder core: cannot load {path}: {e}") from e
+            lib = _load(SOURCE)
             _declare(lib)
             _LIB = lib
         return _LIB
+
+
+def get_io_lib() -> ctypes.CDLL:
+    """The loaded I/O library (``csrc/kltio.cc``), built first if needed;
+    raises RuntimeError when it cannot be built or loaded."""
+    global _IO_LIB
+    lib = _IO_LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _IO_LIB is None:
+            lib = _load(IO_SOURCE)
+            _declare_io(lib)
+            _IO_LIB = lib
+        return _IO_LIB
+
+
+def _declare_io(lib: ctypes.CDLL) -> None:
+    L = ctypes.c_long
+    I = ctypes.c_int  # noqa: E741
+    PL = ctypes.POINTER(L)
+    PI = ctypes.POINTER(I)
+    PF = ctypes.POINTER(ctypes.c_float)
+    P64 = ctypes.POINTER(ctypes.c_int64)
+    lib.klt_scan_matrix_ark.restype = L
+    lib.klt_scan_matrix_ark.argtypes = [
+        ctypes.c_void_p, L, L, PL, PI, PL, PI, PI]
+    lib.klt_scan_posterior_ark.restype = L
+    lib.klt_scan_posterior_ark.argtypes = [
+        ctypes.c_void_p, L, I, L, L, PL, PI, PL, PI, PI, PF]
+    lib.klt_fill_stream.restype = L
+    lib.klt_fill_stream.argtypes = [
+        L, L, L, L, PF, L, PI, PF, L, PF, PI, PF, PF]
+    lib.klt_fill_batch.restype = L
+    lib.klt_fill_batch.argtypes = [
+        L, L, L, L, L, P64, P64, P64, P64, P64, PF, PI, PF, PF]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -407,3 +470,170 @@ class NativeStreamSession:
 
     def __del__(self):
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# the I/O half: ark scans and the batch fill (csrc/kltio.cc)
+# ---------------------------------------------------------------------------
+
+def scan_matrix_ark(path: str) -> list:
+    """[(key, [rows, cols] float32 view)] of a binary float-matrix ark, in
+    file order. The views alias a read-only mapping of the file (no copy;
+    they may be unaligned). Raises ValueError when the file is not a
+    binary ark of "FM" matrices (a text ark, a compressed matrix)."""
+    lib = get_io_lib()
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        if size == 0:
+            return []
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    buf = np.frombuffer(mm, np.uint8)
+    cap = max(16, size // 64)  # records are >= ~64 bytes in practice
+    while True:
+        key_off = np.zeros(cap, np.int64)
+        key_len = np.zeros(cap, np.int32)
+        data_off = np.zeros(cap, np.int64)
+        rows = np.zeros(cap, np.int32)
+        cols = np.zeros(cap, np.int32)
+        n = lib.klt_scan_matrix_ark(
+            buf.ctypes.data, size, cap,
+            _ptr(key_off, ctypes.c_long), _ptr(key_len, ctypes.c_int),
+            _ptr(data_off, ctypes.c_long), _ptr(rows, ctypes.c_int),
+            _ptr(cols, ctypes.c_int))
+        if n == -2:
+            cap *= 4
+            continue
+        if n < 0:
+            raise ValueError(f"malformed matrix ark: {path}")
+        break
+    out = []
+    for i in range(n):
+        key = bytes(mm[key_off[i]:key_off[i] + key_len[i]]).decode()
+        r, c = int(rows[i]), int(cols[i])
+        out.append((key, np.frombuffer(mm, np.float32, count=r * c,
+                                       offset=int(data_off[i])
+                                       ).reshape(r, c)))
+    return out
+
+
+def scan_posterior_ark(path: str, max_entries: int = 1,
+                       offsets: dict | None = None) -> dict:
+    """{key: ([T, K] int32 ids, [T, K] float32 weights)} of a binary
+    posterior ark, K = `max_entries`: entries past K are dropped, missing
+    ones are 0. With `offsets`, that dict also gets each key's byte offset
+    of its value (the ``\\0B`` header, an scp offset), so a caller can read
+    a record whole. Raises ValueError when the file is not a binary
+    posterior ark."""
+    lib = get_io_lib()
+    with open(path, "rb") as f:
+        data = f.read()
+    size = len(data)
+    if size == 0:
+        return {}
+    cap_rec = max(16, size // 32)
+    # first pass counts records and frames (retried with a larger record
+    # capacity on -2: short keys and short records beat the estimate)
+    while True:
+        key_off = np.zeros(cap_rec, np.int64)
+        key_len = np.zeros(cap_rec, np.int32)
+        frame_off = np.zeros(cap_rec, np.int64)
+        num_frames = np.zeros(cap_rec, np.int32)
+        n = lib.klt_scan_posterior_ark(
+            data, size, max_entries, cap_rec, 1 << 62,
+            _ptr(key_off, ctypes.c_long), _ptr(key_len, ctypes.c_int),
+            _ptr(frame_off, ctypes.c_long), _ptr(num_frames, ctypes.c_int),
+            None, None)
+        if n == -2:
+            cap_rec *= 4
+            continue
+        if n < 0:
+            raise ValueError(f"malformed posterior ark: {path}")
+        break
+    total = int(frame_off[n - 1] + num_frames[n - 1]) if n > 0 else 0
+    ids = np.zeros((total, max_entries), np.int32)
+    weights = np.zeros((total, max_entries), np.float32)
+    n2 = lib.klt_scan_posterior_ark(
+        data, size, max_entries, cap_rec, total,
+        _ptr(key_off, ctypes.c_long), _ptr(key_len, ctypes.c_int),
+        _ptr(frame_off, ctypes.c_long), _ptr(num_frames, ctypes.c_int),
+        _ptr(ids, ctypes.c_int), _ptr(weights, ctypes.c_float))
+    if n2 != n:
+        raise ValueError(f"posterior ark changed while scanned: {path}")
+    out = {}
+    for i in range(n):
+        key = data[key_off[i]:key_off[i] + key_len[i]].decode()
+        a = int(frame_off[i])
+        b = a + int(num_frames[i])
+        out[key] = (ids[a:b], weights[a:b])
+        if offsets is not None:
+            offsets[key] = int(key_off[i] + key_len[i]) + 1
+    return out
+
+
+def _check_arrays(fn: str, specs) -> None:
+    """Raise unless each (name, array, dtype, shape) is a C-contiguous
+    array of that dtype and shape, and each output is writable: the
+    native code reads and writes them through raw pointers."""
+    for name, a, dt, shape in specs:
+        if (a.dtype != dt or a.shape != shape or not a.flags.c_contiguous
+                or (name.startswith(("out", "curt"))
+                    and not a.flags.writeable)):
+            raise ValueError(f"{fn}: {name} must be a C-contiguous "
+                             f"{np.dtype(dt).name} array of shape {shape}, "
+                             f"got {a.dtype} {a.shape}")
+
+
+def fill_batch(T: int, delay: int, feats_p: np.ndarray, ids_p: np.ndarray,
+               w_p: np.ndarray, lent: np.ndarray, curt: np.ndarray,
+               D: int, K: int,
+               out_feats: np.ndarray, out_ids: np.ndarray,
+               out_w: np.ndarray, out_mask: np.ndarray) -> bool:
+    """Fill the whole [S, T] batch in one native call. `feats_p`, `ids_p`
+    and `w_p` are [S] int64 arrays of raw data pointers (0 = a stream that
+    was never fed: its rows are zeroed), which must stay valid for the
+    call; `curt` [S] int64 advances in place. The outputs are C-contiguous
+    [S, T, D] / [S, T, K] / [S, T, K] / [S, T]. Returns True (the JAX
+    package's value when its library is present)."""
+    S = curt.shape[0]
+    _check_arrays("fill_batch", (
+        ("feats_p", feats_p, np.int64, (S,)),
+        ("ids_p", ids_p, np.int64, (S,)), ("w_p", w_p, np.int64, (S,)),
+        ("lent", lent, np.int64, (S,)), ("curt", curt, np.int64, (S,)),
+        ("out_feats", out_feats, np.float32, (S, T, D)),
+        ("out_ids", out_ids, np.int32, (S, T, K)),
+        ("out_w", out_w, np.float32, (S, T, K)),
+        ("out_mask", out_mask, np.float32, (S, T))))
+    lib = get_io_lib()
+    p64 = ctypes.c_int64
+    lib.klt_fill_batch(
+        S, T, D, K, delay, _ptr(feats_p, p64), _ptr(ids_p, p64),
+        _ptr(w_p, p64), _ptr(lent, p64), _ptr(curt, p64),
+        _ptr(out_feats, ctypes.c_float), _ptr(out_ids, ctypes.c_int),
+        _ptr(out_w, ctypes.c_float), _ptr(out_mask, ctypes.c_float))
+    return True
+
+
+def fill_stream(T: int, delay: int, feats: np.ndarray, tgt_ids: np.ndarray,
+                tgt_w: np.ndarray, curt: int, out_feats: np.ndarray,
+                out_ids: np.ndarray, out_w: np.ndarray,
+                out_mask: np.ndarray) -> int:
+    """One stream's [T] batch rows from its utterance (feats [L, D]
+    float32, targets [L, K]); returns the new curt. Arrays must be
+    C-contiguous float32 / int32."""
+    lent, D = feats.shape
+    K = tgt_ids.shape[1]
+    _check_arrays("fill_stream", (
+        ("feats", feats, np.float32, (lent, D)),
+        ("tgt_ids", tgt_ids, np.int32, (lent, K)),
+        ("tgt_w", tgt_w, np.float32, (lent, K)),
+        ("out_feats", out_feats, np.float32, (T, D)),
+        ("out_ids", out_ids, np.int32, (T, K)),
+        ("out_w", out_w, np.float32, (T, K)),
+        ("out_mask", out_mask, np.float32, (T,))))
+    lib = get_io_lib()
+    return int(lib.klt_fill_stream(
+        T, D, K, delay,
+        _ptr(feats, ctypes.c_float), lent,
+        _ptr(tgt_ids, ctypes.c_int), _ptr(tgt_w, ctypes.c_float), curt,
+        _ptr(out_feats, ctypes.c_float), _ptr(out_ids, ctypes.c_int),
+        _ptr(out_w, ctypes.c_float), _ptr(out_mask, ctypes.c_float)))

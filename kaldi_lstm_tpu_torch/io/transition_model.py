@@ -406,3 +406,67 @@ def make_monophone_transition_model(num_phones: int,
             log_probs[tid] = np.log(max(prob, 1e-20))
             tid += 1
     return TransitionModel(topo, tuples, log_probs)
+
+
+def make_chain_topology(num_phones: int,
+                        self_loop_prob: float = 0.5) -> HmmTopology:
+    """Chain-style 1-emitting-state topology with SPLIT pdf-classes:
+    forward_pdf_class 0 scored on the frame the state's forward arc
+    consumes, self_loop_pdf_class 1 on self-loop frames (upstream
+    'chain' topology shape, <Tuples>-era serialization)."""
+    states = [HmmState(0, 1, [(0, self_loop_prob),
+                              (1, 1.0 - self_loop_prob)]),
+              HmmState(K_NO_PDF, K_NO_PDF, [])]
+    phones = list(range(1, num_phones + 1))
+    phone2idx = [-1] + [0] * num_phones
+    return HmmTopology(phones, phone2idx, [states])
+
+
+def make_chain_transition_model(num_phones: int,
+                                self_loop_prob: float = 0.5
+                                ) -> TransitionModel:
+    """Monophone chain-style model with TWO pdfs per phone:
+    forward pdf 2*(phone-1), self-loop pdf 2*(phone-1)+1 —
+    a <Tuples> model whose self-loop and forward pdfs differ."""
+    topo = make_chain_topology(num_phones, self_loop_prob)
+    tuples = []
+    for phone in range(1, num_phones + 1):
+        base = (phone - 1) * 2
+        tuples.append((phone, 0, base, base + 1))
+    ntids = sum(
+        len(topo.entry_for_phone(p)[s].transitions)
+        for p, s, _, _ in tuples)
+    log_probs = np.zeros(ntids + 1, np.float32)
+    tid = 1
+    for phone, s, _, _ in tuples:
+        for _dst, prob in topo.entry_for_phone(phone)[s].transitions:
+            log_probs[tid] = np.log(max(prob, 1e-20))
+            tid += 1
+    return TransitionModel(topo, tuples, log_probs)
+
+
+def make_monophone_transition_model(num_phones: int,
+                                    states_per_phone: int = 3,
+                                    self_loop_prob: float = 0.5
+                                    ) -> TransitionModel:
+    """Monophone model with one pdf per (phone, state):
+    pdf = (phone-1) * states_per_phone + state. num_pdfs =
+    num_phones * states_per_phone."""
+    topo = make_linear_topology(num_phones, states_per_phone,
+                                self_loop_prob)
+    tuples = []
+    for phone in range(1, num_phones + 1):
+        for j in range(states_per_phone):
+            pdf = (phone - 1) * states_per_phone + j
+            tuples.append((phone, j, pdf, pdf))
+    # log-probs of the initial topology probabilities, index 0 unused
+    ntids = sum(
+        len(topo.entry_for_phone(p)[s].transitions)
+        for p, s, _, _ in tuples)
+    log_probs = np.zeros(ntids + 1, np.float32)
+    tid = 1
+    for phone, s, _, _ in tuples:
+        for _dst, prob in topo.entry_for_phone(phone)[s].transitions:
+            log_probs[tid] = np.log(max(prob, 1e-20))
+            tid += 1
+    return TransitionModel(topo, tuples, log_probs)

@@ -89,13 +89,25 @@ def _entries(bf16: bool = False):
 # plain versions (CPU tensors; the card holds the kernels against them)
 # ---------------------------------------------------------------------------
 
+def _class_ids(ids, K: int):
+    """(ids clamped into [0, K) as int64, mask of the ids inside it): a
+    target id outside the classes matches none of them, as in the
+    kernels, which skip it (a class shard's out-of-shard targets)."""
+    ids_l = ids.long()
+    inside = (ids_l >= 0) & (ids_l < K)
+    return ids_l.clamp(0, K - 1), inside
+
+
 def xent_fwd_plain(r, w, b, ids, tw, compute_dtype=None):
     """K3's outputs from the logits formed in torch: (lse, picked, amax
-    [N] float32, aidx [N] int32; aidx is the first max). With a
+    [N] float32, aidx [N] int32; aidx is the first max). A target id
+    outside [0, K) adds nothing to picked. With a
     ``compute_dtype`` the logits product's operands are rounded to it."""
     z = rounded(r, compute_dtype) @ rounded(w, compute_dtype).T + b
     lse = torch.logsumexp(z, dim=-1)
-    picked = torch.sum(tw * torch.gather(z, 1, ids.long()), dim=-1)
+    ids_l, inside = _class_ids(ids, z.shape[1])
+    picked = torch.sum(torch.where(inside, tw * torch.gather(z, 1, ids_l),
+                                   torch.zeros_like(tw)), dim=-1)
     amax = z.amax(dim=-1)
     aidx = torch.argmax(z, dim=-1).to(torch.int32)
     return lse, picked, amax, aidx
@@ -135,14 +147,17 @@ def xent_fwd_chunked_plain(r, w, b, ids, tw, chunk: int,
 
 def xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
     """K4's outputs from the logits formed in torch: dz = scale * (wtot *
-    exp(z - lse) - sum_j tw_j onehot(id_j)); returns (dr, dW, db). With a
+    exp(z - lse) - sum_j tw_j onehot(id_j)), where an id outside [0, K)
+    has no one-hot; returns (dr, dW, db). With a
     ``compute_dtype`` the operands of the three products (r and W, dz and
     W, dz and r) are rounded to it; db is summed from the unrounded dz."""
     r, w = rounded(r, compute_dtype), rounded(w, compute_dtype)
     z = r @ w.T + b
     dz = torch.exp(z - lse[:, None]) * wtot[:, None]
+    ids_l, inside = _class_ids(ids, z.shape[1])
+    neg_tw = torch.where(inside, -tw, torch.zeros_like(tw))
     for j in range(ids.shape[1]):
-        dz.scatter_add_(1, ids[:, j:j + 1].long(), -tw[:, j:j + 1])
+        dz.scatter_add_(1, ids_l[:, j:j + 1], neg_tw[:, j:j + 1])
     dz = dz * scale[:, None]
     dzc = rounded(dz, compute_dtype)
     return dzc @ w, dzc.T @ r, dz.sum(0)

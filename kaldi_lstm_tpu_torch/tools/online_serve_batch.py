@@ -38,10 +38,7 @@ from kaldi_lstm_tpu_torch.decode.online import (
 )
 from kaldi_lstm_tpu_torch.io.kaldi_io import SequentialMatrixReader, TableWriter
 from kaldi_lstm_tpu_torch.io.lang import write_text_line
-from kaldi_lstm_tpu_torch.tools.decode_faster import (
-    add_graph_args,
-    graph_from_args,
-)
+from kaldi_lstm_tpu_torch.tools.decode_faster import graph_from_args
 from kaldi_lstm_tpu_torch.tools.nnet_forward import _flag
 from kaldi_lstm_tpu_torch.tools.online_decode import add_am_args, read_am
 from kaldi_lstm_tpu_torch.utils import LOG, device_from_arg
@@ -61,9 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="Batched streaming decoding: N lock-step sessions, "
                     "one device dispatch per chunk tick")
     p.add_argument("nnet")
-    add_graph_args(p)
+    p.add_argument("model")
+    p.add_argument("lexicon")
+    p.add_argument("arpa", help='ARPA LM file, or "none"')
     p.add_argument("feature_rspecifier")
     p.add_argument("trans_wspecifier")
+    p.add_argument("--word-symbol-table", default="")
     add_am_args(p)
     p.add_argument("--num-sessions", type=int, default=64)
     p.add_argument("--top-p", type=int, default=0,
@@ -74,6 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline", default="false",
                    help="double-buffer device dispatch against the score "
                         "fetch (+1 chunk of latency)")
+    # the graph has no silence loop: the tool takes no --sil-phone
+    p.set_defaults(sil_phone=0, sil_prob=0.0)
     return p
 
 

@@ -24,9 +24,11 @@ in the JAX tool's JSON format, so a run resumes in either package.
 The port's `nnet_initialize` and `train_lstm_streams` run in this
 process on ``--device`` (default cuda; cpu runs the plain path), with
 ``--step-group``, ``--bf16``, ``--verbose`` and the other trainer flags
-passed on. Flags the port's trainer does not take yet (``--mesh`` and
-the multi-process flags) exit 1 before any file is written, naming the
-ROADMAP item, as the trainer does.
+passed on. ``--mesh`` and the multi-process flags pass on too: run one
+recipe process per rank, each with its own ``--process-id``; rank 0
+initializes the model and writes every file, the other ranks wait for
+it. A mesh that does not match the process count exits 1 before any
+file is written.
 """
 
 from __future__ import annotations
@@ -36,12 +38,10 @@ import json
 import os
 import shutil
 import sys
+import time
 
 from kaldi_lstm_tpu_torch.tools import nnet_initialize, train_lstm_streams
-from kaldi_lstm_tpu_torch.tools.train_lstm_streams import (
-    build_parser as trainer_parser,
-    unported_flag,
-)
+from kaldi_lstm_tpu_torch.tools.train_lstm_streams import parse_mesh
 from kaldi_lstm_tpu_torch.utils import LOG, device_from_arg
 
 TOOL = "run-recipe"
@@ -103,16 +103,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="passed to the trainer: bfloat16 matmul inputs "
                         "with float32 accumulation (true|false)")
     p.add_argument("--mesh", default="",
-                   help="passed to the trainer: multi-chip sharded "
-                        "training; not ported (ROADMAP queue A item 8)")
+                   help="passed to the trainer: sharded training over a "
+                        "'data=D[,model=M]' mesh of processes")
     p.add_argument("--sync-every", type=int, default=8,
-                   help="passed to the trainer with --mesh")
+                   help="passed to the trainer with --mesh (continue-flag "
+                        "agreement cadence)")
     p.add_argument("--fused-xent", default="auto",
                    help="passed to the trainer with --mesh "
                         "(auto|true|false)")
     p.add_argument("--coordinator-address", default="",
-                   help="multi-process run; not ported (ROADMAP queue A "
-                        "item 8)")
+                   help="multi-process run: rank 0's host:port (run one "
+                        "recipe process per rank)")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--verbose", type=int, default=1)
@@ -134,6 +135,38 @@ def _valid_nnet(path: str) -> bool:
             "regenerating")
         return False
     return True
+
+
+def _mesh_error(args) -> str | None:
+    """Why the mesh flags cannot run, checked before any file is
+    written: a bad spec, a mesh without the matching process count, or
+    several processes without a mesh."""
+    world = (args.num_processes if args.num_processes > 1
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if not args.mesh:
+        return ("multi-process training needs --mesh data=D[,model=M]"
+                if world > 1 or args.coordinator_address else None)
+    try:
+        axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        return str(e)
+    n = axes["data"] * axes["model"]
+    if n != world:
+        return (f"mesh {axes['data']}x{axes['model']} needs {n} "
+                f"devices, have {world} process(es)")
+    return None
+
+
+def _wait_for(path: str, rank: int, timeout: float = 600.0) -> None:
+    """A rank other than 0 polls for a file that rank 0 creates before
+    the first trainer call (after that, the trainer's own post-write
+    barrier orders every model file)."""
+    t0 = time.time()
+    while not (os.path.exists(path) and os.path.getsize(path) > 0):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"rank {rank}: {path} not created by "
+                               f"rank 0")
+        time.sleep(0.2)
 
 
 def _train(argv: list) -> None:
@@ -168,31 +201,35 @@ def main(argv=None) -> int:
         common += [f"--coordinator-address={args.coordinator_address}",
                    f"--num-processes={args.num_processes}",
                    f"--process-id={args.process_id}"]
-    msg = unported_flag(trainer_parser().parse_args(["f", "t", "m"]
-                                                    + common))
+    msg = _mesh_error(args)
     if msg is not None:
-        print(f"{TOOL}: {msg}; not in this port yet", file=sys.stderr)
+        print(f"{TOOL}: {msg}", file=sys.stderr)
         return 1
     if device_from_arg(args.device, TOOL) is None:
         return 1
+    args.rank0 = args.num_processes <= 1 or args.process_id == 0
 
     d = args.dir
     os.makedirs(f"{d}/log", exist_ok=True)
     os.makedirs(f"{d}/nnet", exist_ok=True)
     nnet_init = f"{d}/nnet.init"
     iter0 = f"{d}/nnet/nnet.iter0"
-    if not _valid_nnet(nnet_init):
-        if not args.proto:
-            print("error: no nnet.init and no --proto given",
-                  file=sys.stderr)
-            return 1
-        LOG("Initializing lstm")
-        rc = nnet_initialize.main([args.proto, nnet_init,
-                                   f"--device={args.device}"])
-        if rc != 0:
-            return rc
-    if not _valid_nnet(iter0):
-        shutil.copy(nnet_init, iter0)
+    if not args.rank0:
+        _wait_for(nnet_init, args.process_id)
+        _wait_for(iter0, args.process_id)
+    else:
+        if not _valid_nnet(nnet_init):
+            if not args.proto:
+                print("error: no nnet.init and no --proto given",
+                      file=sys.stderr)
+                return 1
+            LOG("Initializing lstm")
+            rc = nnet_initialize.main([args.proto, nnet_init,
+                                       f"--device={args.device}"])
+            if rc != 0:
+                return rc
+        if not _valid_nnet(iter0):
+            shutil.copy(nnet_init, iter0)
 
     try:
         if args.scheduler == "newbob":
@@ -267,6 +304,8 @@ def _newbob(args, d: str, common: list, learn_rate: float) -> int:
         final = cur
 
     def save_state(it):
+        if not args.rank0:
+            return
         with open(state_file, "w") as f:
             json.dump({"iter": it, "loss": loss, "halving": halving,
                        "learn_rate": learn_rate, "cur": cur,
@@ -300,7 +339,8 @@ def _newbob(args, d: str, common: list, learn_rate: float) -> int:
             LOG(f"nnet accepted ({os.path.basename(nxt)}), "
                 f"AvgLoss {loss_new:.6f}")
         else:
-            shutil.move(nxt, nxt + "_rejected")
+            if args.rank0:
+                shutil.move(nxt, nxt + "_rejected")
             LOG(f"nnet rejected ({os.path.basename(nxt)}), "
                 f"AvgLoss {loss_new:.6f} > {loss:.6f}")
         # stopping criterion
@@ -319,7 +359,8 @@ def _newbob(args, d: str, common: list, learn_rate: float) -> int:
         if halving:
             learn_rate *= args.halving_factor
         save_state(it)
-    shutil.copy(final, f"{d}/final.nnet")
+    if args.rank0:
+        shutil.copy(final, f"{d}/final.nnet")
     LOG(f"training finished, final model: {d}/final.nnet "
         f"(= {os.path.basename(final)}), CV AvgLoss {loss:.6f}")
     return 0

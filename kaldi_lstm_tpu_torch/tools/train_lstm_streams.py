@@ -19,9 +19,17 @@ training, and ``--profile-dir DIR`` writes a torch.profiler trace of the
 training epoch. ``--bf16 true`` sets the net's (and the feature
 transform's) matmul dtype to bfloat16 (``Nnet.set_matmul_dtype``): every
 product of the training and cross-validation passes rounds its operands
-to bf16 and sums in float32, on the bf16 kernels on the card. Flags whose
-machinery is not ported yet exit 1 with the ROADMAP item that adds it:
-``--mesh`` and the multi-process flags.
+to bf16 and sums in float32, on the bf16 kernels on the card.
+
+``--mesh data=D[,model=M]`` trains sharded (``parallel/``) over a world
+of exactly D x M processes, joined by ``--coordinator-address host:port
+--num-processes N --process-id I`` (or torchrun's environment); each
+process reads its own shard of the corpus with ``--num-stream`` streams
+(the M processes of one data position read the same shard), rank 0
+writes the model. Under ``--device cuda`` the rank of local index i on
+its host takes card i mod the host's card count; NCCL joins the ranks
+where each rank of a host has a card of its own, gloo otherwise (the
+CPU, or two ranks of a host on one card).
 """
 
 from __future__ import annotations
@@ -95,22 +103,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "takes the per-launch host cost out of the step "
                         "loop), a loop on the CPU")
     p.add_argument("--mesh", default="",
-                   help="Multi-chip sharded training 'data=D[,model=M]'; "
-                        "not ported (ROADMAP queue A item 8)")
+                   help="Sharded training 'data=D[,model=M]' over D x M "
+                        "processes: streams shard over 'data' (gradients "
+                        "summed over the data ranks), the senone output "
+                        "layer over 'model' (the tensor-parallel loss). "
+                        "--num-stream is the PER-PROCESS stream count. "
+                        "Empty = single-device path.")
     p.add_argument("--sync-every", type=int, default=8,
-                   help="With --mesh: steps between the cross-host "
-                        "continue-flag agreements (not ported)")
+                   help="With --mesh: steps between the cross-process "
+                        "continue-flag agreements of the SyncedScheduler "
+                        "(locally exhausted processes pad with fully "
+                        "masked filler batches in between)")
     p.add_argument("--fused-xent", default="auto",
                    choices=("auto", "true", "false"),
                    help="Fuse senone affine+softmax+xent into the K3/K4 "
                         "kernels (auto = on for CUDA; false = the unfused "
                         "torch loss)")
     p.add_argument("--coordinator-address", default="",
-                   help="Multi-process coordinator host:port; not ported "
-                        "(ROADMAP queue A item 8)")
+                   help="Multi-process: host:port of rank 0's "
+                        "torch.distributed store (every process passes "
+                        "the same address; empty = single process, or "
+                        "torchrun's environment)")
     p.add_argument("--num-processes", type=int, default=0,
                    help="Multi-process: total process count (0 = single "
-                        "process; more is ROADMAP queue A item 8)")
+                        "process)")
     p.add_argument("--process-id", type=int, default=0,
                    help="Multi-process: this process's rank")
     p.add_argument("--verbose", type=int, default=0)
@@ -151,14 +167,26 @@ def _bool(s: str) -> bool:
     return str(s).lower() in ("true", "1", "yes")
 
 
-def unported_flag(args) -> str | None:
-    """The message for a flag whose machinery is a later slice."""
-    if args.mesh:
-        return "--mesh: sharded training is ROADMAP queue A item 8"
-    if args.coordinator_address or args.num_processes > 1:
-        return ("multi-process training (--coordinator-address, "
-                "--num-processes) is ROADMAP queue A item 8")
-    return None
+def parse_mesh(spec: str) -> dict:
+    """'data=4,model=2' -> {'data': 4, 'model': 2} (model defaults 1)."""
+    out = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition("=")
+        if k not in out or not v.isdigit() or int(v) < 1:
+            raise ValueError(f"bad --mesh entry {part!r} "
+                             f"(want data=D[,model=M])")
+        out[k] = int(v)
+    return out
+
+
+def multiprocess_requested(args) -> bool:
+    """True when the flags (or torchrun's environment) ask for several
+    processes."""
+    return bool(args.coordinator_address or args.num_processes > 1
+                or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
 def _reads_stdin(rspec: str) -> bool:
@@ -197,10 +225,6 @@ def run_main(argv=None):
 
 def main(argv=None, _stats_out=None) -> int:
     args = build_parser().parse_args(argv)
-    msg = unported_flag(args)
-    if msg is not None:
-        print(f"{TOOL}: {msg}; not in this port yet", file=sys.stderr)
-        return 1
     if args.step_group < 1:
         print(f"{TOOL}: --step-group must be >= 1", file=sys.stderr)
         return 1
@@ -213,6 +237,19 @@ def main(argv=None, _stats_out=None) -> int:
     device = device_from_arg(args.device, TOOL)
     if device is None:
         return 1
+    plan = None
+    rank0 = True
+    if multiprocess_requested(args):
+        if not args.mesh:
+            raise ValueError("multi-process training needs --mesh "
+                             "data=D[,model=M] over its processes")
+        from kaldi_lstm_tpu_torch.parallel import multihost
+        multihost.initialize(args.coordinator_address or None,
+                             args.num_processes or None, args.process_id,
+                             device=device)
+        import torch.distributed as dist
+        device = multihost.rank_device(device)
+        rank0 = dist.get_rank() == 0
 
     transf = transf_params = None
     if args.feature_transform:
@@ -235,6 +272,16 @@ def main(argv=None, _stats_out=None) -> int:
                         l2_penalty=args.l2_penalty,
                         objective=args.objective_function,
                         fused_xent=fused)
+
+    if args.mesh:
+        from kaldi_lstm_tpu_torch.parallel import MeshPlan, make_mesh
+        axes = parse_mesh(args.mesh)
+        mesh = make_mesh(data=axes["data"], model=axes["model"],
+                         device=device)
+        plan = MeshPlan(mesh, nnet)
+        LOG(f"sharded training on mesh data={axes['data']} "
+            f"model={axes['model']} ({mesh.world} process(es), this one "
+            f"at {mesh.data_index},{mesh.model_index} on {mesh.device})")
 
     if args.debug_dump and (_reads_stdin(args.feature_rspecifier)
                             or _reads_stdin(args.targets_rspecifier)):
@@ -277,6 +324,10 @@ def main(argv=None, _stats_out=None) -> int:
         frame_weights=frame_weights)
 
     def dump(p, num_done):
+        if plan is not None:
+            p = plan.gather_params(p)  # collective: every rank enters
+            if not rank0:
+                return
         name = f"{args.model_out}_utt{num_done}"
         nnet.write(name, p, binary=_bool(args.binary))
         LOG(f"dumped model to {name}")
@@ -300,7 +351,8 @@ def main(argv=None, _stats_out=None) -> int:
                     crossvalidate=crossvalidate, opt_state=opt_state,
                     dump_interval=args.dump_interval, dump_fn=dump,
                     monitor_verbose=args.verbose,
-                    step_group=args.step_group)
+                    step_group=args.step_group,
+                    plan=plan, sync_every=args.sync_every)
 
     if profiler is not None:
         path = _stop_profiler(profiler, args.profile_dir)
@@ -308,17 +360,30 @@ def main(argv=None, _stats_out=None) -> int:
 
     if not crossvalidate:
         t_write = time.perf_counter()
-        nnet.write(args.model_out, res.params, binary=_bool(args.binary))
-        if args.state_out:
-            from kaldi_lstm_tpu_torch.train.checkpoint import \
-                save_train_state
-            save_train_state(args.state_out, res.params, res.opt_state,
-                             meta={"learn_rate": args.learn_rate,
-                                   "num_done": scheduler.num_done})
-            LOG(f"wrote train state to {args.state_out}")
+        out_params, out_opt = res.params, res.opt_state
+        if plan is not None:  # collective gathers: every rank enters
+            out_params = plan.gather_params(out_params)
+            if args.state_out:
+                out_opt = type(out_opt)(
+                    corr=plan.gather_params(out_opt.corr))
+        if rank0:
+            nnet.write(args.model_out, out_params,
+                       binary=_bool(args.binary))
+            if args.state_out:
+                from kaldi_lstm_tpu_torch.train.checkpoint import \
+                    save_train_state
+                save_train_state(args.state_out, out_params, out_opt,
+                                 meta={"learn_rate": args.learn_rate,
+                                       "num_done": scheduler.num_done})
+                LOG(f"wrote train state to {args.state_out}")
         if prof:
             LOG(f"invocation profile: model fetch+write {args.model_out} "
                 f"{time.perf_counter() - t_write:.2f}s")
+        if plan is not None:
+            # no rank may re-open the model (CV, the next recipe
+            # iteration) before rank 0 has written it
+            from kaldi_lstm_tpu_torch.parallel.multihost import barrier
+            barrier("model_write")
 
     LOG(f"Done {scheduler.num_done} files, {scheduler.num_no_tgt_mat} with "
         f"no tgt_mats, {scheduler.num_other_error} with other errors. "

@@ -1,6 +1,8 @@
-"""Multi-stream truncated-BPTT batch scheduler (host logic, numpy), the
-port's own copy of ``kaldi_lstm_tpu.train.streams`` without the native
-fill.
+"""Multi-stream truncated-BPTT batch scheduler (host logic), the port's
+own copy of ``kaldi_lstm_tpu.train.streams``. Each batch is filled by one
+native call (`io/native.py::fill_batch`, `csrc/kltio.cc`) over data
+pointers cached per stream; `StreamScheduler._fill_plain` is the same
+fill in numpy, which the tests hold the native fill to byte for byte.
 
 Reproduces the reference trainer's stream machinery
 (bd-nnet-train-lstm-streams.cc:143-206):
@@ -30,6 +32,8 @@ import threading
 from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
+
+from kaldi_lstm_tpu_torch.io import native
 
 
 class StreamBatch(NamedTuple):
@@ -113,6 +117,12 @@ class StreamScheduler:
         self.curt = np.zeros(self.S, np.int64)
         self.lent = np.zeros(self.S, np.int64)
         self.source_done = False
+        # raw data pointers of each stream's utterance for the one-call
+        # native fill (0 = never fed); self.feats/tgt_ids/tgt_w hold the
+        # arrays, so a pointer stays valid while its stream holds them
+        self._fp = np.zeros(self.S, np.int64)
+        self._ip = np.zeros(self.S, np.int64)
+        self._wp = np.zeros(self.S, np.int64)
 
         # counters mirroring num_done / num_no_tgt_mat / num_other_error
         self.num_done = 0
@@ -165,7 +175,8 @@ class StreamScheduler:
                     self.num_other_error += 1
                     continue
             return (key, np.ascontiguousarray(feats, np.float32),
-                    np.ascontiguousarray(ids), np.ascontiguousarray(w), fw)
+                    np.ascontiguousarray(ids, np.int32),
+                    np.ascontiguousarray(w, np.float32), fw)
 
     def _refill(self) -> np.ndarray:
         """Feed exhausted streams; returns new_utt_flags [S]."""
@@ -180,8 +191,46 @@ class StreamScheduler:
              self.fw[s]) = nxt
             self.curt[s] = 0
             self.lent[s] = self.feats[s].shape[0]
+            self._fp[s] = self.feats[s].ctypes.data
+            self._ip[s] = self.tgt_ids[s].ctypes.data
+            self._wp[s] = self.tgt_w[s].ctypes.data
             flags[s] = 1
         return flags
+
+    def _fill_native(self):
+        """(feats, ids, weights, mask) of the next batch, every stream in
+        one native call (a never-fed stream's rows zeroed); advances
+        curt."""
+        S, T, D, K = self.S, self.T, self.feat_dim, self.K
+        feats = np.empty((S, T, D), np.float32)
+        ids = np.empty((S, T, K), np.int32)
+        weights = np.empty((S, T, K), np.float32)
+        mask = np.empty((S, T), np.float32)
+        native.fill_batch(T, self.delay, self._fp, self._ip, self._wp,
+                          self.lent, self.curt, D, K, feats, ids, weights,
+                          mask)
+        return feats, ids, weights, mask
+
+    def _fill_plain(self):
+        """`_fill_native` in numpy, the plain version it is held to."""
+        S, T, D, K = self.S, self.T, self.feat_dim, self.K
+        feats = np.zeros((S, T, D), np.float32)
+        ids = np.zeros((S, T, K), np.int32)
+        weights = np.zeros((S, T, K), np.float32)
+        mask = np.zeros((S, T), np.float32)
+        for s in range(S):
+            if self.feats[s] is None:
+                continue  # source dry before this stream ever fed
+            lent = int(self.lent[s])
+            curt = int(self.curt[s])
+            idx = curt + np.arange(T)
+            row = np.minimum(idx, lent - 1)
+            mask[s] = (idx < lent).astype(np.float32)
+            ids[s] = self.tgt_ids[s][row]
+            weights[s] = self.tgt_w[s][row]
+            feats[s] = self.feats[s][np.minimum(idx + self.delay, lent - 1)]
+            self.curt[s] = curt + T
+        return feats, ids, weights, mask
 
     def __iter__(self) -> Iterator[StreamBatch]:
         while True:
@@ -189,26 +238,11 @@ class StreamScheduler:
             if not np.any(self.curt < self.lent):
                 return  # every stream exhausted and source dry
 
-            S, T, D, K = self.S, self.T, self.feat_dim, self.K
+            S, T = self.S, self.T
             curt_before = self.curt.copy()
-            feats = np.zeros((S, T, D), np.float32)
-            ids = np.zeros((S, T, K), np.int32)
-            weights = np.zeros((S, T, K), np.float32)
-            mask = np.zeros((S, T), np.float32)
-            for s in range(S):
-                if self.feats[s] is None:
-                    continue  # source dry before this stream ever fed
-                lent = int(self.lent[s])
-                curt = int(self.curt[s])
-                idx = curt + np.arange(T)
-                row = np.minimum(idx, lent - 1)
-                mask[s] = (idx < lent).astype(np.float32)
-                ids[s] = self.tgt_ids[s][row]
-                weights[s] = self.tgt_w[s][row]
-                feats[s] = self.feats[s][np.minimum(idx + self.delay,
-                                                    lent - 1)]
-                self.curt[s] = curt + T
+            feats, ids, weights, mask = self._fill_native()
 
+            # per-frame weights scale the 0/1 mask after the fill
             if self.frame_weights is not None:
                 for s in range(S):
                     if self.fw[s] is None:

@@ -26,8 +26,8 @@ second one, non-blocking uploads on the compute stream, statistics kept
 on the device and fetched once per `STATS_FLUSH` blocks (with the
 non-finite check at each fetch), progress logs, periodic model dumps,
 the `--verbose` moment dumps (`make_monitor_fn`) and the epoch profile.
-
-Not in this module yet (ROADMAP.md): the sharded path.
+With a `plan` it runs the sharded steps of ``parallel/`` on this rank's
+part of a ('data', 'model') mesh.
 """
 
 from __future__ import annotations
@@ -105,15 +105,20 @@ def trunk_supports_time_major(nnet: Nnet) -> bool:
 
 
 def make_objective(nnet: Nnet, loss_fn, use_fused: bool, train: bool,
-                   time_major: bool = False, want_logits: bool = True):
+                   time_major: bool = False, want_logits: bool = True,
+                   fused_fn=None):
     """objective(params, x, states, tgt_ids, tgt_weights, mask, rng)
     -> (loss, (aux, new_states)). With `use_fused`, runs the stack up to
     the senone affine and hands the [N, R] frames to
-    `fused_affine_xent(r, w, b, ids, tw, mask)` (K3/K4 on the card)
-    instead of forming logits. With `time_major` (fused
+    `fused_fn(r, w, b, ids, tw, mask, compute_dtype=)` (default
+    `fused_affine_xent`, K3/K4 on the card; the sharded step passes the
+    tensor-parallel loss) instead of forming logits. With `time_major` (fused
     only) the batch is transposed to [T, S, .] once at entry and the
     trunk runs in the LSTM kernels' own layout; the loss is a frame sum,
     so the flattening order is immaterial."""
+
+    if fused_fn is None:
+        fused_fn = fused_affine_xent
 
     def objective(params, x, states, tgt_ids, tgt_weights, mask, rng):
         if use_fused:
@@ -144,7 +149,7 @@ def make_objective(nnet: Nnet, loss_fn, use_fused: bool, train: bool,
             ids_f = tgt_ids.transpose(0, 1) if tm else tgt_ids
             tw_f = tgt_weights.transpose(0, 1) if tm else tgt_weights
             mask_f = mask.transpose(0, 1) if tm else mask
-            loss, aux = fused_affine_xent(
+            loss, aux = fused_fn(
                 y.reshape(n, y.shape[2]), aff["linearity"], aff["bias"],
                 ids_f.reshape(n, -1), tw_f.reshape(n, -1), mask_f.reshape(n),
                 compute_dtype=nnet.components[-2].matmul_dtype)
@@ -216,15 +221,26 @@ def default_use_fused(nnet: Nnet, opts: TrainOptions, device) -> bool:
 
 
 def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
-                  crossvalidate: bool, device):
-    """The single-step computation for tensors on `device`. It reads
-    nothing back to the host and copies nothing from it, so a CUDA graph
-    can capture it (`make_grouped_train_step`)."""
-    use_fused = default_use_fused(nnet, opts, device)
+                  crossvalidate: bool, device, *,
+                  use_fused: Optional[bool] = None, fused_fn=None,
+                  reduce_fn=None, data_parallel: int = 1):
+    """The single-step computation for tensors on `device`, shared by the
+    plain, grouped and sharded (parallel/sharded_trainer.py) steps. It
+    reads nothing back to the host and copies nothing from it, so a CUDA
+    graph can capture it (`make_grouped_train_step`).
+
+    The sharded step overrides `use_fused`/`fused_fn` (the
+    tensor-parallel loss) and passes `reduce_fn(grads, aux) -> (grads,
+    aux)`, which sums the gradients (None in cross-validation) and the
+    statistics over the data ranks before the update, and
+    `data_parallel`, the number of data ranks, so that the penalties'
+    frame count is the global batch's."""
+    if use_fused is None:
+        use_fused = default_use_fused(nnet, opts, device)
     objective_fn = make_objective(
         nnet, _LOSS_FNS[opts.objective], use_fused, train=not crossvalidate,
         time_major=use_fused and trunk_supports_time_major(nnet),
-        want_logits=opts.objective == "xent")
+        want_logits=opts.objective == "xent", fused_fn=fused_fn)
     # the filler guard's momentum pair as device constants, made once
     mmt_real = torch.tensor(opts.momentum, dtype=torch.float32, device=device)
     mmt_filler = torch.ones((), dtype=torch.float32, device=device)
@@ -242,6 +258,8 @@ def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
             with torch.no_grad():
                 _, (aux, new_states) = objective_fn(
                     params, x, states, tgt_ids, tgt_weights, mask, rng)
+                if reduce_fn is not None:
+                    _, aux = reduce_fn(None, aux)
             return params, opt_state, new_states, aux
 
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -254,6 +272,8 @@ def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
             torch.zeros_like(p) if g is None else g
             for p, g in zip(flat, flat_g)])
         new_states = tree_map(lambda t: t.detach(), new_states)
+        if reduce_fn is not None:
+            grads, aux = reduce_fn(grads, aux)
         # A fully-masked filler batch must be an exact no-op on params
         # and momentum: lr 0 and momentum 1 carry both through unchanged
         # (device scalars, no host sync).
@@ -264,7 +284,7 @@ def _make_step_fn(nnet: Nnet, opts: TrainOptions, transf: Optional[Nnet],
             params, grads, opt_state, lr_eff, mmt_eff, opts.grad_clip,
             lr_scale=build_lr_scale(nnet, params),
             l1_penalty=opts.l1_penalty, l2_penalty=opts.l2_penalty,
-            num_frames=feats.shape[0] * feats.shape[1],
+            num_frames=feats.shape[0] * feats.shape[1] * data_parallel,
             reg_mask=build_reg_mask(nnet, params))
         if nnet_has_max_norm(nnet):
             apply_max_norm(nnet, params)
@@ -646,7 +666,8 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
               opt_state: Optional[MomentumState] = None,
               dump_interval: int = 0, dump_fn=None,
               monitor_verbose: int = 0,
-              step_group: int = 1) -> EpochResult:
+              step_group: int = 1,
+              plan=None, sync_every: int = 1) -> EpochResult:
     """One pass over the utterance source (one `bd-nnet-train-lstm-streams`
     invocation) on the device the params live on. `dump_fn(params,
     num_done)` is called every `dump_interval` utterances (:275-281).
@@ -656,23 +677,69 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     `step_group > 1` runs that many batches per grouped step (one
     CUDA-graph replay on the card; identical math, dump and monitor
     checks at group granularity); a tail group shorter than that takes
-    the plain step."""
+    the plain step.
+
+    `plan` (a parallel.MeshPlan) switches the epoch to the SHARDED steps
+    on this rank's streams and parameters (`plan.place_params`; the
+    params returned stay sharded: `plan.gather_params` before writing).
+    The scheduler is wrapped in a SyncedScheduler (continue-flag
+    agreement every `sync_every` steps), so every rank runs the same
+    number of collective steps; the statistics are the global batch's
+    (S_global = S x world / M streams). The grouped sharded step is a
+    loop of sharded steps. With several processes the scheduler and the
+    staging run on this thread (the continue flag is a collective and
+    must interleave with the steps in one order), the dump trigger
+    counts global steps (a local-utterance trigger could fire the
+    collective gather on one rank only) and first-batch monitoring is
+    skipped."""
     device = params_device(params)
-    cuda = device.type == "cuda"
     use_group = step_group > 1
-    step = None if use_group else make_train_step(
-        nnet, opts, transf, crossvalidate, device=device)
-    gstep = make_grouped_train_step(
-        nnet, opts, transf, crossvalidate, device=device,
-        group=step_group) if use_group else None
-    if opt_state is None:
-        opt_state = init_momentum(params)
-    states = nnet.init_states(scheduler.S, device)
+    multiproc = False
+    if plan is not None:
+        from kaldi_lstm_tpu_torch.parallel.multihost import (
+            SyncedScheduler,
+        )
+        from kaldi_lstm_tpu_torch.parallel.sharded_trainer import (
+            make_sharded_grouped_train_step,
+            make_sharded_train_step,
+        )
+        multiproc = plan.mesh.world > 1
+        device = plan.mesh.device
+        if not isinstance(scheduler, SyncedScheduler):
+            scheduler = SyncedScheduler(scheduler,
+                                        agree_every=max(1, sync_every))
+        S_global = scheduler.S * plan.mesh.world // plan.mesh.shape["model"]
+        global_states = nnet.init_states(S_global, "cpu")
+        step = None if use_group else make_sharded_train_step(
+            nnet, opts, plan, transf, crossvalidate,
+            states_example=global_states)
+        gstep = make_sharded_grouped_train_step(
+            nnet, opts, plan, transf, crossvalidate,
+            states_example=global_states) if use_group else None
+        if opt_state is None:
+            opt_state = init_momentum(params)
+        params = plan.place_params(params)
+        opt_state = plan.place_opt(opt_state)
+        states = plan.place_states(global_states)
+        if multiproc:
+            monitor_verbose = 0
+    else:
+        step = None if use_group else make_train_step(
+            nnet, opts, transf, crossvalidate, device=device)
+        gstep = make_grouped_train_step(
+            nnet, opts, transf, crossvalidate, device=device,
+            group=step_group) if use_group else None
+        if opt_state is None:
+            opt_state = init_momentum(params)
+        states = nnet.init_states(scheduler.S, device)
+    cuda = device.type == "cuda"
     lr = torch.tensor(opts.learn_rate, dtype=torch.float32, device=device)
     stats = LossStats("Xent" if opts.objective == "xent" else "Mse")
     use_dropout = (not crossvalidate and any(
         getattr(c, "dropout_rate", 0.0) > 0 for c in nnet.components))
-    rng = torch.Generator(device=device).manual_seed(777) \
+    # a mesh's model ranks of one data position draw the same masks
+    seed = 777 + (plan.mesh.data_index if plan is not None else 0)
+    rng = torch.Generator(device=device).manual_seed(seed) \
         if use_dropout else None
 
     t_start = time.perf_counter()
@@ -694,7 +761,11 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
         """Lists of up to `step_group` StreamBatches; the scheduler runs
         on the first prefetch thread."""
         group: list = []
-        for b in PrefetchIterator(scheduler, depth=max(2, step_group + 1)):
+        # several processes: the continue-flag agreement is a collective,
+        # so the scheduler runs on this thread, in step order
+        it = scheduler if multiproc else PrefetchIterator(
+            scheduler, depth=max(2, step_group + 1))
+        for b in it:
             group.append(b)
             if len(group) >= step_group:
                 yield group
@@ -717,7 +788,8 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
 
     # second pipeline stage: stacking and pinning run on their own
     # thread; the uploads stay on this thread's compute stream
-    src_it = iter(PrefetchIterator(staged_source(), depth=2))
+    src_it = iter(staged_source() if multiproc
+                  else PrefetchIterator(staged_source(), depth=2))
 
     while True:
         t0 = time.perf_counter()
@@ -735,13 +807,19 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
         consumed_done += sum(g.num_new_utts for g in group)
         t0 = time.perf_counter()
         if kind == "g":
+            if plan is not None:  # the loop of sharded steps reads them
+                staged = _to_device(staged, device)
             params, opt_state, states, aux = gstep(
                 params, opt_state, states, transf_params, *staged, lr,
                 rng=rng)
             pending.append(aux)
         else:
             for host in staged:
-                if step is None:  # a grouped epoch's tail
+                if step is None and plan is not None:
+                    step = make_sharded_train_step(
+                        nnet, opts, plan, transf, crossvalidate,
+                        states_example=global_states)
+                elif step is None:  # a grouped epoch's tail
                     step = make_train_step(nnet, opts, transf,
                                            crossvalidate, device=device)
                 params, opt_state, states, aux = step(
@@ -779,9 +857,12 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
             VLOG(1, f"After {consumed_done} utterances: time elapsed = "
                     f"{t / 60:.2f} min; processed {total_frames / t:.0f} "
                     f"frames per second.")
+        # several processes: trigger on the global step count (the same
+        # on every rank), since the gather inside dump_fn is collective
+        dump_progress = num_steps if multiproc else consumed_done
         if (dump_interval > 0 and dump_fn is not None
-                and consumed_done - last_dump_done >= dump_interval):
-            last_dump_done = consumed_done - consumed_done % dump_interval
+                and dump_progress - last_dump_done >= dump_interval):
+            last_dump_done = dump_progress - dump_progress % dump_interval
             if not crossvalidate:
                 dump_fn(params, consumed_done)
     t0 = time.perf_counter()
@@ -793,7 +874,8 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     if monitor_verbose >= 2:
         other = elapsed - prof["wait"] - prof["dispatch"] - prof["stats"]
         graph = ""
-        if gstep is not None and gstep.graph is not None:
+        # the grouped sharded step is a loop, not a captured graph
+        if getattr(gstep, "graph", None) is not None:
             graph = (f"; graph capture {gstep.capture_ms:.1f} ms, pool "
                      f"{gstep.pool_bytes / 2**20:.1f} MB")
         LOG(f"epoch profile ({num_steps} steps, {elapsed:.2f}s wall): "

@@ -166,6 +166,15 @@ _FEATS_MODULES = {
     "kaldi_lstm_tpu_torch.tools.wav_to_duration",
 }
 
+_PARALLEL_MODULES = {
+    "kaldi_lstm_tpu_torch.io.native",
+    "kaldi_lstm_tpu_torch.parallel",
+    "kaldi_lstm_tpu_torch.parallel.mesh",
+    "kaldi_lstm_tpu_torch.parallel.multihost",
+    "kaldi_lstm_tpu_torch.parallel.sharded_trainer",
+    "kaldi_lstm_tpu_torch.parallel.xent_tp",
+}
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -180,7 +189,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert _MONITOR_MODULES <= names and _DECODE_MODULES <= names
     assert _STREAM_MODULES <= names and _ALIGN_MODULES <= names
     assert _PERUTT_MODULES <= names and _SEQUENCE_MODULES <= names
-    assert _FEATS_MODULES <= names
+    assert _FEATS_MODULES <= names and _PARALLEL_MODULES <= names
 
 
 @pytest.mark.parametrize("module", sorted(_MONITOR_MODULES
@@ -189,7 +198,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                                           | _ALIGN_MODULES
                                           | _PERUTT_MODULES
                                           | _SEQUENCE_MODULES
-                                          | _FEATS_MODULES))
+                                          | _FEATS_MODULES
+                                          | _PARALLEL_MODULES))
 def test_monitor_modules_import_no_jax(module):
     """Each of the debug-dump, decode, streaming, alignment, lattice,
     per-utterance/frame-shuffled training, sequence training,
@@ -287,6 +297,33 @@ def test_decoder_core_is_the_ports_own_build():
     assert libs and all(
         p.startswith(os.path.join(REPO, "kaldi_lstm_tpu_torch", "_build",
                                   "libkltdecode.")) for p in libs), libs
+
+
+_SCAN_MAPS = r"""
+import sys, tempfile, numpy as np
+from kaldi_lstm_tpu_torch.io import kaldi_io as kio
+d = tempfile.mkdtemp()
+with kio.MatrixWriter(f"ark:{d}/m.ark") as w:
+    w.write("u", np.ones((3, 2), np.float32))
+assert list(kio.SequentialMatrixReader(f"ark:{d}/m.ark"))[0][0] == "u"
+maps = open("/proc/self/maps").read()
+print([l.split()[-1] for l in maps.splitlines() if ".so" in l
+       and ("kltdecode" in l or "kltio" in l)])
+"""
+
+
+def test_io_library_is_the_ports_own_build():
+    """A native ark scan loads the library built from the port's own
+    csrc/kltio.cc into kaldi_lstm_tpu_torch/_build/, never the JAX
+    package's native/libkltio.so."""
+    res = subprocess.run([sys.executable, "-c", _SCAN_MAPS], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    libs = set(ast.literal_eval(res.stdout.strip().splitlines()[-1]))
+    assert libs and all(
+        p.startswith(os.path.join(REPO, "kaldi_lstm_tpu_torch", "_build",
+                                  "libkltio.")) for p in libs), libs
 
 
 def _case(S=3, T=5, I=7, C=9, R=6, device="cpu", scale=0.3):

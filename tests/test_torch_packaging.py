@@ -78,6 +78,16 @@ def test_the_decoder_core_is_shipped_and_built_from_it():
     assert "csrc/*.cc" in _package_data()
 
 
+def test_the_io_library_is_shipped_and_built_from_it():
+    """io/native.py builds csrc/kltio.cc (the ark scans, the batch fill),
+    which ships as package data beside the decoder core."""
+    from kaldi_lstm_tpu_torch.io import native
+    assert native.IO_SOURCE == os.path.join(CSRC, "kltio.cc")
+    assert "kltio.cc" in _sources()
+    assert os.path.basename(native.lib_path(native.IO_SOURCE)).startswith(
+        "libkltio.")
+
+
 def _port_scripts() -> dict[str, str]:
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]

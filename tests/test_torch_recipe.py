@@ -329,11 +329,15 @@ def test_fixed_scheduler_matches_jax(tmp_path, monkeypatch, name, losses,
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "data=4"], "item 8"),
-    (["--num-processes", "2", "--coordinator-address", "h:1"], "item 8"),
+    (["--mesh", "data=4"], "mesh 4x1 needs 4 devices, have 1"),
+    (["--num-processes", "2", "--coordinator-address", "h:1"],
+     "needs --mesh"),
 ])
 def test_unported_trainer_flags_exit_1_up_front(tmp_path, monkeypatch,
                                                 capsys, flag, item):
+    """The mesh flags are ported (parallel/); a mesh that the process
+    count cannot hold exits 1 before any file is written."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     d = tmp_path / "exp"
     rc, stub = _drive(t_recipe, d, [], monkeypatch,
                       ["--scheduler", "newbob", "--proto", "p"] + flag)

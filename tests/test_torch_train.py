@@ -296,15 +296,21 @@ def test_cli_state_out_resumes_in_jax_cli(tmp_path):
                        JNnet.read(str(tmp_path / "jb.nnet"))[1])
 
 
-@pytest.mark.parametrize("flag", [
-    ["--mesh", "data=2"], ["--num-processes", "2"],
-    ["--coordinator-address", "localhost:1"]])
-def test_cli_unported_flags_exit_1(tmp_path, capsys, flag):
+@pytest.mark.parametrize("flag,why", [
+    (["--mesh", "data=2"], "mesh 2x1 needs 2 devices, have 1"),
+    (["--num-processes", "2"], "needs --mesh"),
+    (["--coordinator-address", "localhost:1"], "needs --mesh")])
+def test_cli_unported_flags_exit_1(tmp_path, monkeypatch, flag, why):
+    """The mesh and multi-process flags are ported (parallel/); without
+    the ranks they need they raise before reading any table (an exit 1
+    from the command line), as the JAX tool does, and write nothing."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    feats, post = write_corpus(tmp_path, n=2)
     out = tmp_path / "o.nnet"
-    rc = t_cli.main(["ark:f.ark", "ark:p.ark", "m.nnet", str(out),
-                     "--device", "cpu"] + flag)
-    assert rc == 1 and not out.exists()
-    assert "ROADMAP queue A item" in capsys.readouterr().err
+    with pytest.raises(ValueError, match=why):
+        t_cli.main([feats, post, tiny_models(tmp_path), str(out),
+                    "--device", "cpu"] + flag)
+    assert not out.exists()
 
 
 @pytest.mark.parametrize("delay,weights", [(0, False), (3, True)])
