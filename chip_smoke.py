@@ -109,7 +109,8 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    default), the counts zeroed just before and read just after each:
    only the bf16 entry points of K1-K5, in the predicted counts, no f32
    launch of K1-K5 and no plain call; the epoch's trace against the
-   counters (kernels templated on tc::Bf16 / tc::F32 by name); a finite
+   counters (by name, and by the precision a kernel is templated on,
+   tc::Bf16 / tc::F32, where it has one); a finite
    CV AvgLoss, printed beside phase 5's f32 one; the bf16 model not
    equal to the f32 one, and the grouped bf16 models byte-identical to
    group 1's; then ms per step, frames/s, the idle share of two steady
@@ -1413,7 +1414,7 @@ def lstm_train_bf16_case(name, S, T, I, C, R, keep, need_dx, seed,
                           compute_dtype=bf)
     torch.cuda.synchronize()
     if (lt.BWD_BF16_LAUNCHES, lt.BWD_LAUNCHES) != \
-            (lt.bwd_launches(T, need_dx), 0):
+            (lt.bwd_launches(T, need_dx, bf16=True), 0):
         fail(f"{name}: K2 bf16 made {lt.BWD_BF16_LAUNCHES} bf16 and "
              f"{lt.BWD_LAUNCHES} f32 launches")
     bp = lt.lstm_bwd_plain(*ba, *fp, mask, ik, g_r, gcT, need_dx,
@@ -1583,12 +1584,15 @@ def phase_bf16_kernels():
     bf = torch.bfloat16
     S, T, I, C, R, K = TRAIN_S, TRAIN_T, 40, 800, 512, 8000
     recs, worst = {}, {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
-    log(f"  design: K1-K4 run every product on tc_gemm.cuh's bf16 mode "
-        f"(operands rounded to bf16 in registers, mma.sync m16n8k16 bf16 "
-        f"with f32 accumulation), K1 writes gifo in bf16, K2 reads it; K5 "
-        f"holds its weight slices in shared memory as bf16; each held to "
-        f"{BF16_SHARE:g} x the bf16-vs-f32 distance (RMS) of its plain "
-        f"version")
+    log(f"  design: K1, K3, K4 run every product on tc_gemm.cuh's bf16 mode "
+        f"(f32 tiles, operands rounded to bf16 in registers, mma.sync "
+        f"m16n8k16 bf16 with f32 accumulation), K1 writes gifo in bf16; K2 "
+        f"runs on the bf16 tiles (Gemm16: each operand rounded once where "
+        f"it is made, dm with the gate gradients, dr unsplit); K5 runs both "
+        f"products on the bf16 tensor cores from bf16 weight slices and "
+        f"bf16 staged rows (lstmp_infer_tc_kernel); each held to "
+        f"max({BF16_SHARE:g} x the bf16-vs-f32 distance (RMS) of its plain "
+        f"version, {BF16_NOISE:g} x that plain version's f32-vs-f64 noise)")
     for i, (name, dims, keep, dx, timed) in enumerate([
             ("flagship, main path (no dropout, no dx)", (S, T, I, C, R),
              None, False, True),
@@ -1644,6 +1648,12 @@ def phase_bf16_kernels():
         params, x, state = lstm_case(*dims, seed=180 + i)
         plan = li.device_plan(dims[0], *dims[2:], bf16=True)
         log(f"  [K5 bf16, {name}] plan {plan}")
+        if plan != li.k5_bf16_plan(dims[0], *dims[2:], plan["sms"]):
+            fail(f"K5 bf16 {name}: the card's plan differs from "
+                 f"k5_bf16_plan's {li.k5_bf16_plan(dims[0], *dims[2:])}")
+        if plan["smem"] > 232448:
+            fail(f"K5 bf16 {name}: the plan takes {plan['smem']} bytes of "
+                 f"shared memory")
         if plan["resident"] != int(resident):
             fail(f"K5 bf16 {name}: the plan does not keep the weights "
                  f"{'resident' if resident else 'in device memory'}")
@@ -2291,11 +2301,14 @@ KERNEL_NAMES = {
                         "gates_tc_kernel",
                         "contract_tc_kernel<32, 32, true, true"),
     "lstmp_train_bwd": ("bwd_cell_kernel", "col_reduce_kernel",
-                        "reduce_parts_kernel", "contract_tc_kernel<"),
+                        "reduce_parts_kernel", "contract_tc_kernel<",
+                        "bwd16_prep_kernel",
+                        "bwd16_dm_kernel", "bwd16_dr_kernel",
+                        "contract16_kernel"),
     "xent_affine_fwd": ("xent_fwd_chunk_kernel", "xent_fwd_combine_kernel"),
     "xent_affine_bwd": ("xent_bwd_dz_kernel", "xent_bwd_dr_kernel",
                         "xent_bwd_dw_kernel"),
-    "lstmp_infer": ("lstmp_infer_kernel",),
+    "lstmp_infer": ("lstmp_infer_kernel", "lstmp_infer_tc_kernel"),
 }
 GROUP = 4
 BENCH_GROUPS = (1, 4, 16)
@@ -2307,9 +2320,10 @@ def kernel_counts_in_trace(path: str, bf16: bool = False) -> dict:
     matches the first entry point whose key it contains; K1's keys come
     before K2's generic contract). A kernel templated on the precision
     carries it in its name (tc::F32 or tc::Bf16, csrc/precision.cuh) and
-    counts under "<entry>" or "<entry>_bf16"; the few that are not (the
-    gate interleave, the column and partial sums, K3's merge) count
-    under the run's precision, bf16 with `bf16`."""
+    counts under "<entry>" or "<entry>_bf16"; those that are not (the
+    gate interleave, the column and partial sums, K3's merge, and the
+    bf16-only kernels of K2 and K5) count under the run's precision,
+    bf16 with `bf16`."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     out = {k + sfx: 0 for k in KERNEL_NAMES for sfx in ("", "_bf16")}
@@ -2396,8 +2410,12 @@ def grouped_bench(model: str, batches: list, group: int,
                    f"two calls of group {group}{', bf16' if bf16 else ''} "
                    f"(steady)", rows=rows)
     valid = np.mean([float(b.mask.sum()) for b in batches])
+    # each counted entry point's share of the kernels' busy time
+    shares = None if prof is None else {
+        k + ("_bf16" if bf16 else ""):
+        entry_ms(prof["table"], k) / prof["busy_ms"] for k in KERNEL_NAMES}
     return {"ms": 1e3 * dt, "frames_s": S * TRAIN_T / dt,
-            "valid_frames_s": valid / dt,
+            "valid_frames_s": valid / dt, "shares": shares,
             "idle": None if prof is None else prof["idle"],
             "capture_ms": None if g is None else g.capture_ms,
             "pool_mb": None if g is None else g.pool_bytes / 2**20}
@@ -2530,7 +2548,8 @@ def phase_bf16_path(work: str, p5: dict) -> dict:
     steps = len(p5["batches"])
     T = TRAIN_T
     train_pred = {"lstmp_train_fwd_bf16": fwd_launches(T) * steps,
-                  "lstmp_train_bwd_bf16": bwd_launches(T, False) * steps,
+                  "lstmp_train_bwd_bf16": bwd_launches(T, False, bf16=True)
+                  * steps,
                   "xent_affine_fwd_bf16": 2 * steps,
                   "xent_affine_bwd_bf16": 3 * steps}
     predicted = dict(train_pred, lstmp_infer_bf16=steps)
@@ -2624,6 +2643,10 @@ def phase_bf16_path(work: str, p5: dict) -> dict:
                 f"{BENCH_STEPS} steps -> {r['frames_s']:.1f} frames/s "
                 f"({r['valid_frames_s']:.1f} valid), idle share {idle}"
                 f"{cap}")
+            if r["shares"] is not None:
+                log("    share of the kernels' busy time by entry point "
+                    "(profiler): " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in r["shares"].items()))
     return runs[1][1]
 
 
@@ -6177,6 +6200,17 @@ def main() -> int:
 
     log("phase 3d: the bf16 variants of K1-K7 vs their bf16 plain versions")
     bf16_recs = phase_bf16_kernels()
+    # the redesigned bf16 kernels against their f32 twins, this run
+    for key, what, b16, f32 in (
+            ("K5", "S=8 T=1000", bf16_recs["K5"]["s8_t1000_ms"], rec["ms"]),
+            ("K5", "S=256 T=20", bf16_recs["K5"]["ms"], rec["cv_ms"]),
+            ("K2", "flagship", bf16_recs["K2"]["ms"],
+             train_recs["K2"]["ms"])):
+        tag = "s8_t1000_" if what == "S=8 T=1000" else ""
+        bf16_recs[key][f"{tag}f32_ms"] = f32
+        bf16_recs[key][f"{tag}bf16_over_f32"] = b16 / f32
+        log(f"  {key} {what}: bf16 {b16:.3f} ms, f32 {f32:.3f} ms, "
+            f"bf16 / f32 {b16 / f32:.3f}")
     bf16_recs.update({f"{k} stack": v for k, v in phase_stack_bf16().items()})
 
     log("phase 4: serving path (nnet_forward, full-width standard net)")

@@ -320,6 +320,183 @@ struct GridBarrier {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core product of K5's bf16 entry points (beside
+// block_product, which the f32 K5 and K7 keep)
+// ---------------------------------------------------------------------------
+//
+// out(m, s) = sum_k W(m, k) A(s, k) for the mt m16 row tiles of a
+// weight slice W (bf16 [m][k], row stride wld: in shared memory with
+// WSMEM, else in device memory) and the streams [s_begin, s_end), over
+// 16 nslices of depth, on mma.sync m16n8k16 (bf16 in, f32 accumulate):
+// the weight rows are the A operand, the streams the n8 tiles. The rows
+// of A (bf16 [s][k], row stride lds, so an odd number of 16-byte units
+// keeps ldmatrix free of bank conflicts) come in tiles of up to ns
+// streams through two buffers of buf_elems at `stage`: issue(buf, s0,
+// sn) starts the cp.async copies of rows s0 .. s0 + sn (rows up to the
+// next multiple of 8 zero-filled) and commits them, the next tile in
+// flight while the current one is summed; CTA b starts at tile
+// b (mod tiles). In a tile of nt n8 tiles there
+// are units = mt nt output tiles; mma_ksplit(units) warps share each
+// unit's contraction, warp ks of them taking the 16-deep slices
+// j = ks (mod ksplit). Each slice's product goes into a fragment that
+// starts at zero and is added to the warp's f32 sum (the tensor core
+// adds into its accumulator with truncation: tc_gemm.cuh's header). The
+// warps' sums land in `part` (128 floats a unit and split, the mma
+// fragment order), and epi(s0, sn, sum) reads element (m, s0 + sl) as
+// sum(m, sl): the splits added in warp order. Uniform over the CTA;
+// synchronises before it first touches `stage` and `part`.
+
+constexpr int kWarps = kThreads / 32;
+
+// put(e, get(e)) for e < n over the CTA's threads, eight get()s of a
+// thread issued before their put()s, so that eight loads are in flight.
+template <class Get, class Put>
+__device__ __forceinline__ void batched_fill(int n, Get get, Put put) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += 8 * kThreads) {
+    float v[8];
+    #pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * kThreads;
+      v[u] = e < n ? get(e) : 0.f;
+    }
+    #pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < n) put(e, v[u]);
+    }
+  }
+}
+constexpr int kUnitFloats = 128;     // one m16n8 fragment of f32
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(const void* p, unsigned (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// d = a b, m16n8k16, bf16 operands, f32 result from a zero accumulator
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Warps sharing one unit's contraction: the largest power of two that
+// keeps units x splits within the CTA's warps (1 from kWarps units on).
+__host__ __device__ __forceinline__ int mma_ksplit(int units) {
+  int ks = 1;
+  while (2 * ks * units <= kWarps) ks *= 2;
+  return ks;
+}
+
+// Element (m, sl) of a finished tile from the warps' partial sums.
+struct MmaSum {
+  const float* part;
+  int units, nt, ks;
+  __device__ __forceinline__ float operator()(int m, int sl) const {
+    const int u = (m >> 4) * nt + (sl >> 3);
+    const int off = 4 * (((m & 7) << 2) | ((sl & 7) >> 1)) + (sl & 1) +
+                    2 * ((m >> 3) & 1);
+    float v = 0.f;
+    for (int k = 0; k < ks; ++k) {
+      v += part[(k * units + u) * kUnitFloats + off];
+    }
+    return v;
+  }
+};
+
+template <bool WSMEM, class Issue, class Epi>
+__device__ __forceinline__ void mma_product(
+    __nv_bfloat16* stage, int buf_elems, float* part, int s_begin,
+    int s_end, int ns, int lds, int nslices, const __nv_bfloat16* w,
+    int wld, int mt, Issue issue, Epi epi) {
+  const int ntiles = (s_end - s_begin + ns - 1) / ns;
+  if (ntiles <= 0) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // CTAs start on different tiles, so that they do not all ask L2 for
+  // the same rows at once (a stream's sums are the same in any order of
+  // tiles)
+  const int rot = blockIdx.x % ntiles;
+  auto first = [&](int i) { return s_begin + ((i + rot) % ntiles) * ns; };
+  __syncthreads();   // the previous users of stage and part are done
+  issue(stage, first(0), min(ns, s_end - first(0)));
+  for (int i = 0; i < ntiles; ++i) {
+    const int s0 = first(i), sn = min(ns, s_end - s0);
+    if (i + 1 < ntiles) {
+      const int s1 = first(i + 1);
+      issue(stage + ((i + 1) & 1) * buf_elems, s1, min(ns, s_end - s1));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* a = stage + (i & 1) * buf_elems;
+    const int nt = (sn + 7) / 8, units = mt * nt, ks = mma_ksplit(units);
+    const int kidx = ks == 1 ? 0 : warp % ks;
+    for (int u = ks == 1 ? warp : warp / ks; u < units;
+         u += ks == 1 ? kWarps : units) {
+      const int mi = u / nt, ni = u % nt;
+      // ldmatrix rows: B (x2) stream ni 8 + (lane & 7), k half by lane
+      // bit 3; A (x4) weight row mi 16 + (lane & 7) + 8 (bit 3), k half
+      // by lane bit 4
+      const __nv_bfloat16* bp =
+          a + (size_t)(ni * 8 + (lane & 7)) * lds + 8 * ((lane >> 3) & 1);
+      const __nv_bfloat16* ap;
+      if (WSMEM) {
+        ap = w + (size_t)(mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * wld +
+             8 * (lane >> 4);
+      } else {
+        ap = w + (size_t)(mi * 16 + (lane >> 2)) * wld + 2 * (lane & 3);
+      }
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      #pragma unroll 4
+      for (int j = kidx; j < nslices; j += ks) {
+        unsigned af[4], bf[2];
+        if (WSMEM) {
+          ldsm_x4(ap + 16 * j, af);
+        } else {
+          // the fragment's four 32-bit pairs (rows g, g + 8; k 2t, 2t + 8)
+          const unsigned* q = reinterpret_cast<const unsigned*>(ap + 16 * j);
+          const size_t row8 = (size_t)8 * wld / 2;
+          af[0] = __ldcg(q);
+          af[1] = __ldcg(q + row8);
+          af[2] = __ldcg(q + 4);
+          af[3] = __ldcg(q + row8 + 4);
+        }
+        ldsm_x2(bp + 16 * j, bf);
+        float d[4];
+        mma_bf16_zero(d, af, bf);
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += d[e];
+      }
+      *reinterpret_cast<float4*>(part + (kidx * units + u) * kUnitFloats +
+                                 4 * lane) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+    __syncthreads();
+    epi(s0, sn, MmaSum{part, units, nt, ks});
+  }
+}
+
 // The card's SM count and opt-in shared memory per block; refuses a card
 // without cooperative launch.
 inline cudaError_t device_limits(int* sms, int* optin) {

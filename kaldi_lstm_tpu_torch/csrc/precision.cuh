@@ -18,7 +18,7 @@
 namespace tc {
 
 // Store: the element type of what the Bf16 precision keeps in bf16 (K1's
-// gate residual, K5's weights in shared memory), float under F32.
+// gate residual, K7's weights in shared memory), float under F32.
 struct F32 {
   static constexpr bool kBf16 = false;
   using Store = float;

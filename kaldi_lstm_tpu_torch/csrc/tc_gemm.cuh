@@ -1,6 +1,8 @@
 // A tensor-core tile mainloop for Hopper (sm_90a), f32-accurate or in
 // bf16, shared by every product of csrc/xent_affine.cu (K3, K4) and
-// csrc/lstmp_train.cu (K1, K2).
+// csrc/lstmp_train.cu (K1, K2); and, at the end of this file, its bf16
+// tile mode (Gemm16: operands already bf16 in device memory), which the
+// bf16 K2 runs on.
 //
 // C[m, n] = sum_k A(m, k) B(k, n) over float32 operands in device memory.
 // Each operand is either K-major (element (row, k) at p[row * ld + k]) or
@@ -462,6 +464,224 @@ struct Gemm {
         ++tile;
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 tiles: operands that are bf16 in device memory (Bf16's contract)
+// ---------------------------------------------------------------------------
+//
+// The mode of K2's bf16 products (csrc/lstmp_train.cu). Each operand is a
+// bf16 copy made once where its value is produced: a weight rounded once a
+// call, an activation or a gradient written in bf16 by the epilogue that
+// computes it. So nothing is rounded in the mainloop, and a stage crosses
+// L2 and shared memory in half the bytes of the f32 ring above. Tiles are
+// bf16 ([rows][kBK + 8] K-major, [kBK][rows + 8] along the output
+// dimension: rows of 80 or 144 bytes, an odd number of 16-byte units, so
+// the fragment loads are free of bank conflicts); every copy is a 16-byte
+// cp.async with zero fill past an extent, so leading dimensions are
+// multiples of 8 elements and bases 16-byte aligned (the callers pad
+// their copies). Fragments come in with ldmatrix of b16 (.trans for an
+// operand stored along the output dimension), one mma.sync m16n8k16 bf16
+// per 16 of depth. Each 32-deep stage's products go into a fragment that
+// starts at zero and is added to the f32 accumulator, for the truncation
+// reason in the header. STAGES is the ring's depth: a product with a long
+// contraction and few tiles keeps more stages in flight.
+
+struct Operand16 {
+  const __nv_bfloat16* p;
+  int ld;     // elements, a multiple of 8
+  int rows;   // extent along the output dimension
+  int kext;   // extent along the contraction
+};
+
+// ldmatrix .x4 .trans: lane l receives elements (2 (l % 4), l / 4) and
+// (2 (l % 4) + 1, l / 4) of each stored 8 x 8 matrix
+__device__ __forceinline__ void ldsm_x4_t(const void* p, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// One operand's stage tile: ROWS x kBK bf16 values.
+template <int ROWS, bool KMAJOR>
+struct Tile16 {
+  static constexpr int kLd = KMAJOR ? kBK + 8 : ROWS + 8;
+  static constexpr int kElems = KMAJOR ? ROWS * kLd : kBK * kLd;
+
+  __device__ static __forceinline__ int at(int row, int k) {
+    return KMAJOR ? row * kLd + k : k * kLd + row;
+  }
+
+  template <int THREADS>
+  __device__ static __forceinline__ void load(__nv_bfloat16* s,
+                                              const Operand16& op, int row0,
+                                              int k0) {
+    constexpr int kChunks = ROWS * kBK / 8;
+    static_assert(kChunks % THREADS == 0, "tile copy must split evenly");
+    #pragma unroll
+    for (int q = 0; q < kChunks / THREADS; ++q) {
+      const int c = static_cast<int>(threadIdx.x) + q * THREADS;
+      int row, k, bytes;
+      const __nv_bfloat16* src;
+      if constexpr (KMAJOR) {
+        row = c / (kBK / 8);
+        k = (c % (kBK / 8)) * 8;
+        const int gr = row0 + row, gk = k0 + k;
+        bytes = gr < op.rows ? 2 * max(0, min(8, op.kext - gk)) : 0;
+        src = op.p + (size_t)gr * op.ld + gk;
+      } else {
+        k = c / (ROWS / 8);
+        row = (c % (ROWS / 8)) * 8;
+        const int gr = row0 + row, gk = k0 + k;
+        bytes = gk < op.kext ? 2 * max(0, min(8, op.rows - gr)) : 0;
+        src = op.p + (size_t)gk * op.ld + gr;
+      }
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(smem_u32(s + at(row, k))),
+                      "l"(bytes > 0 ? src : op.p), "r"(bytes)
+                   : "memory");
+    }
+  }
+
+  // The m16n8k16 A fragment of rows r0 .. r0 + 15, k kk .. kk + 15.
+  __device__ static __forceinline__ void frag_a(const __nv_bfloat16* s,
+                                                int r0, int kk,
+                                                unsigned (&a)[4]) {
+    const int lane = threadIdx.x & 31;
+    const int q = lane >> 3;
+    if constexpr (KMAJOR) {
+      ldsm_x4(reinterpret_cast<const float*>(
+                  s + at(r0 + (lane & 7) + 8 * (q & 1), kk + 8 * (q >> 1))),
+              a);
+    } else {
+      ldsm_x4_t(s + at(r0 + 8 * (q & 1), kk + (lane & 7) + 8 * (q >> 1)), a);
+    }
+  }
+
+  // The B fragments (b0: k kk .. kk + 7, b1: k kk + 8 .. kk + 15) of the
+  // n8 tiles at rows c0 (first) and c0 + 8 (second).
+  __device__ static __forceinline__ void frag_b2(const __nv_bfloat16* s,
+                                                 int c0, int kk,
+                                                 unsigned (&first)[2],
+                                                 unsigned (&second)[2]) {
+    const int lane = threadIdx.x & 31;
+    const int q = lane >> 3;
+    unsigned r[4];
+    if constexpr (KMAJOR) {
+      ldsm_x4(reinterpret_cast<const float*>(
+                  s + at(c0 + (lane & 7) + 8 * (q >> 1), kk + 8 * (q & 1))),
+              r);
+    } else {
+      ldsm_x4_t(s + at(c0 + 8 * (q >> 1), kk + 8 * (q & 1) + (lane & 7)), r);
+    }
+    first[0] = r[0];
+    first[1] = r[1];
+    second[0] = r[2];
+    second[1] = r[3];
+  }
+};
+
+template <class TA, class TB, int kMT, int kNT>
+__device__ __forceinline__ void stage_mma16(const __nv_bfloat16* sa,
+                                            const __nv_bfloat16* sb, int wm0,
+                                            int wn0,
+                                            float (&acc)[kMT][kNT][4]) {
+  static_assert(kNT % 2 == 0, "B fragments come in pairs of n8 tiles");
+  float part[kMT][kNT][4];
+  #pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    unsigned a[kMT][4];
+    #pragma unroll
+    for (int i = 0; i < kMT; ++i) TA::frag_a(sa, wm0 + 16 * i, kk, a[i]);
+    #pragma unroll
+    for (int j = 0; j < kNT; j += 2) {
+      unsigned b0[2], b1[2];
+      TB::frag_b2(sb, wn0 + 8 * j, kk, b0, b1);
+      #pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        if (kk == 0) {
+          mma_bf16_zero(part[i][j], a[i], b0);
+          mma_bf16_zero(part[i][j + 1], a[i], b1);
+        } else {
+          mma_bf16(part[i][j], a[i], b0);
+          mma_bf16(part[i][j + 1], a[i], b1);
+        }
+      }
+    }
+  }
+  #pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    #pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    }
+  }
+}
+
+// Gemm's mainloop over bf16 operands and tiles (one output tile a call).
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool A_KMAJOR,
+          bool B_KMAJOR, int STAGES>
+struct Gemm16 {
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
+  static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
+  static constexpr int kWarpM = BM / WARPS_M;
+  static constexpr int kWarpN = BN / WARPS_N;
+  static constexpr int kMT = kWarpM / 16;
+  static constexpr int kNT = kWarpN / 8;
+  static_assert(kWarpM % 16 == 0 && kWarpN % 16 == 0,
+                "the warps must tile the CTA tile in mma tiles");
+  using Acc = float[kMT][kNT][4];
+  using TA = Tile16<BM, A_KMAJOR>;
+  using TB = Tile16<BN, B_KMAJOR>;
+  static constexpr int kStageElems = TA::kElems + TB::kElems;
+  static constexpr int kSmemBytes =
+      STAGES * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
+
+  __device__ static __forceinline__ int warp_m0() {
+    return (static_cast<int>(threadIdx.x) / 32 / WARPS_N) * kWarpM;
+  }
+  __device__ static __forceinline__ int warp_n0() {
+    return (static_cast<int>(threadIdx.x) / 32 % WARPS_N) * kWarpN;
+  }
+
+  // The output tile (m0, n0) summed over the whole contraction (A.kext),
+  // handed to epi(acc) (fragment order as Gemm::run's). Returns with every
+  // copy landed and the CTA synchronised.
+  template <class Epi>
+  __device__ static __forceinline__ void run(__nv_bfloat16* smem,
+                                             const Operand16& A,
+                                             const Operand16& B, int m0,
+                                             int n0, Epi&& epi) {
+    const int wm0 = warp_m0(), wn0 = warp_n0();
+    const int total = (A.kext + kBK - 1) / kBK;
+    auto load = [&](int it) {
+      __nv_bfloat16* s = smem + (it % STAGES) * kStageElems;
+      TA::template load<kThreads>(s, A, m0, it * kBK);
+      TB::template load<kThreads>(s + TA::kElems, B, n0, it * kBK);
+    };
+    #pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) load(s);
+      cp_async_commit();
+    }
+    Acc acc;
+    zero(acc);
+    for (int it = 0; it < total; ++it) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (it + STAGES - 1 < total) load(it + STAGES - 1);
+      cp_async_commit();
+      const __nv_bfloat16* s = smem + (it % STAGES) * kStageElems;
+      stage_mma16<TA, TB, kMT, kNT>(s, s + TA::kElems, wm0, wn0, acc);
+    }
+    epi(acc);
     cp_async_wait<0>();
     __syncthreads();
   }

@@ -49,14 +49,24 @@ bf16, which K2 reads; the gate math, c, r, dbias and the peephole sums
 stay float32. On a CUDA tensor it launches the ``_bf16`` entry points;
 the plain versions take the same argument and round the same operands
 at the same points (``lstm_cell.rounded``), never a bf16 matmul, which
-would round its output too.
+would round its output too. K2's bf16 entry point is its own design on
+bf16 tiles (csrc/lstmp_train.cu): each operand is rounded once where it
+is made (a prologue launch rounds the weights, x and r_prev; the
+epilogues write dgifo, dxw, dr_total and h o in bf16 beside what stays
+f32), dm runs on the tensor cores with the gate gradients as its
+epilogue, dr is unsplit and forms the next step's dr_total. Its launch
+counts are ``bwd_launches(T, need_dx, bf16=True)``, one more than the
+f32 entry point's; ``bwd_plan(..., bf16=True)`` its splits,
+``bwd_bf16_launches`` its tiles, ``lstm_bwd_split_plain`` in bf16 its
+sums (``_stage_matmul``).
 
 Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
 launches of the float32 entry points (K1: ``fwd_launches``, 2 per step
 + 2; K2: ``bwd_launches``, 2 per step + 5, + 1 with dx),
 ``FWD_BF16_LAUNCHES`` and ``BWD_BF16_LAUNCHES`` those of the bf16 ones
-(the same numbers a call); ``PLAIN_CALLS`` counts the calls of either
-half that took the plain version. ``reset_counts`` zeroes them all.
+(K1 the same number a call, K2 one more); ``PLAIN_CALLS`` counts the
+calls of either half that took the plain version. ``reset_counts``
+zeroes them all.
 """
 
 from __future__ import annotations
@@ -106,7 +116,8 @@ def _entries(bf16: bool = False):
         fwd.argtypes = [p] * 9 + [f] + [p] * 6 + [i] * 5 + [f, i, p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
-        bwd.argtypes = [p] * 11 + [f] + [p] * 19 + [i] * 10 + [p]
+        bwd.argtypes = [p] * 11 + [f] + ([p] * 24 + [i] * 10 if bf16
+                                         else [p] * 19 + [i] * 10) + [p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -117,6 +128,12 @@ def _entries(bf16: bool = False):
 _TILE, _STAGE = 64, 32
 _GATE_CELLS = 16
 _PROJ_TILE = 32
+
+
+def _ld8(n: int) -> int:
+    """The row length of a kernel's bf16 copy: n padded to a multiple of
+    8 elements (16 bytes)."""
+    return -(-n // 8) * 8
 
 
 def _ctas(M: int, N: int, bm: int, bn: int) -> int:
@@ -178,20 +195,65 @@ def _split(M: int, N: int, K: int, sms: int) -> int:
 
 
 def bwd_plan(T: int, S: int, I: int, C: int, R: int,
-             sms: int = H100_SMS) -> dict[str, int]:
-    """K2's split counts: the per-step dr = dgifo_t Wr ([S, R] over 4C),
+             sms: int = H100_SMS, bf16: bool = False) -> dict[str, int]:
+    """K2's split counts: the per-step dr = dgifo_t Wr ([S, R] over 4C;
+    unsplit in bf16, where its epilogue forms the next step's dr_total),
     dWx ([4C, I] over T S), dWr ([4C, R]), dWrm ([R, C]) and dx ([T S, I]
-    over 4C)."""
+    over 4C); in bf16 also the column sums' row ranges ("cols": enough
+    blocks of 32 columns x ranges for 8 a SM, each range at least 64
+    rows)."""
     N = T * S
-    return {"dr": _split(S, R, 4 * C, sms), "wx": _split(4 * C, I, N, sms),
+    plan = {"dr": 1 if bf16 else _split(S, R, 4 * C, sms),
+            "wx": _split(4 * C, I, N, sms),
             "wr": _split(4 * C, R, N, sms), "wrm": _split(R, C, N, sms),
             "dx": _split(N, I, 4 * C, sms)}
+    if bf16:
+        plan["cols"] = max(1, min(-(-8 * sms // -(-7 * C // 32)),
+                                  -(-N // 64)))
+    return plan
 
 
-def bwd_launches(T: int, need_dx: bool) -> int:
-    """K2's launches per call: bwd_cell and dr per step; dWx, dWr, dWrm,
-    the column sums and the partials' sum; dx."""
-    return 2 * T + 5 + int(need_dx)
+# csrc/lstmp_train.cu's bf16 tiles (tc::Gemm16, 32-deep bf16 stages):
+# rows, columns and ring depth of the per-step dm and dr and of the
+# frame-axis products
+BF16_TILES = {"dm": (32, 32, 8), "dr": (32, 32, 8), "frame": (64, 64, 4)}
+
+
+def _gemm16_smem(bm: int, bn: int, stages: int, a_kmajor: bool) -> int:
+    """Dynamic shared memory of a Gemm16 (B along n): per stage a bf16
+    tile of each operand, [rows][32 + 8] K-major, [32][rows + 8] along
+    the output dimension."""
+    a = bm * (_STAGE + 8) if a_kmajor else _STAGE * (bm + 8)
+    return stages * (a + _STAGE * (bn + 8)) * 2
+
+
+def bwd_bf16_launches(T: int, S: int, I: int, C: int, R: int,
+                      need_dx: bool, sms: int = H100_SMS) -> dict:
+    """The bf16 K2's tile launches (csrc/lstmp_train.cu::train_bwd_bf16):
+    name -> (grid (x, y, z), dynamic shared memory bytes, launches a
+    call): dm and dr per step over [S, C] and [S, R], the frame-axis
+    products over their outputs and ``bwd_plan``'s splits."""
+    N = T * S
+    sp = bwd_plan(T, S, I, C, R, sms, bf16=True)
+    out = {}
+    for name, tile, M, Nn, z, a_kmajor, n in (
+            ("dm", "dm", S, C, 1, True, T), ("dr", "dr", S, R, 1, True, T),
+            ("dWx", "frame", 4 * C, I, sp["wx"], False, 1),
+            ("dWr", "frame", 4 * C, R, sp["wr"], False, 1),
+            ("dWrm", "frame", R, C, sp["wrm"], False, 1),
+            ("dx", "frame", N, I, sp["dx"], True, int(need_dx))):
+        bm, bn, stages = BF16_TILES[tile]
+        out[name] = ((-(-M // bm), -(-Nn // bn), z),
+                     _gemm16_smem(bm, bn, stages, a_kmajor), n)
+    return out
+
+
+def bwd_launches(T: int, need_dx: bool, bf16: bool = False) -> int:
+    """K2's launches per call: bwd_cell (in bf16 dm with the gate
+    gradients) and dr per step; dWx, dWr, dWrm, the column sums and the
+    partials' sum; dx; in bf16 also the prologue that rounds the weights,
+    x, r_prev and the last step's dr_total once."""
+    return 2 * T + 5 + int(need_dx) + int(bf16)
 
 
 def _split_matmul(a: torch.Tensor, b: torch.Tensor, splits: int
@@ -205,6 +267,24 @@ def _split_matmul(a: torch.Tensor, b: torch.Tensor, splits: int
     out = a.new_zeros((a.shape[0], b.shape[1]))
     for k0 in range(0, K, kc):
         out = out + a[:, k0:k0 + kc] @ b[k0:k0 + kc]
+    return out
+
+
+def _stage_matmul(a: torch.Tensor, b: torch.Tensor, splits: int = 1
+                  ) -> torch.Tensor:
+    """a [M, K] @ b [K, N] as the bf16 tiles sum it (operands already
+    rounded): within each of `splits` consecutive ranges of whole stages,
+    each 32-deep stage's product summed on its own and added in stage
+    order from zero; then the ranges' partial products in range order."""
+    K = a.shape[1]
+    ksteps = -(-K // _STAGE)
+    kc = -(-ksteps // splits) * _STAGE
+    out = a.new_zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, K, kc):
+        part = a.new_zeros((a.shape[0], b.shape[1]))
+        for s0 in range(k0, min(K, k0 + kc), _STAGE):
+            part = part + a[:, s0:s0 + _STAGE] @ b[s0:s0 + _STAGE]
+        out = out + part
     return out
 
 
@@ -380,11 +460,15 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
     split-K partials that the next step adds in order, then the four
     frame-axis products run from the materialised operands (r_prev made
     contiguous), each split as the kernel splits it. ``compute_dtype``
-    as for ``lstm_bwd_plain``."""
+    as for ``lstm_bwd_plain``; in bf16 it mirrors the bf16 design: dm
+    and dr unsplit, every product summed stage by stage
+    (``_stage_matmul``) from operands rounded once."""
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     N = T * S
-    sp = bwd_plan(T, S, I, C, R, sms)
+    bf16 = compute_dtype is not None
+    sp = bwd_plan(T, S, I, C, R, sms, bf16=bf16)
+    mm = _stage_matmul if bf16 else _split_matmul
     pi, pf, po = (params.peephole_i_c, params.peephole_f_c,
                   params.peephole_o_c)
 
@@ -404,7 +488,8 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
         cp = c_seq[t - 1] if t > 0 else c0
         h = torch.tanh(c_seq[t])
         dr_total = g_r[t] + dr
-        dm = rd(dr_total) @ wrm
+        dm = _stage_matmul(rd(dr_total), wrm) if bf16 else \
+            rd(dr_total) @ wrm
         d_o = dm * h * o * (1.0 - o)
         dc_total = dc + dm * o * (1.0 - h * h) + d_o * po
         df = dc_total * cp * f * (1.0 - f)
@@ -416,25 +501,22 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
         if dxw is not None:
             dxw[t] = dgifo[t] * (keep_mask_tm[t].to(dxw.dtype) * inv_keep)
         dc = dc_total * f + di * pi + df * pf
-        dr = _split_matmul(rd(dgifo[t]), wr, sp["dr"])
+        dr = mm(rd(dgifo[t]), wr, sp["dr"])
 
     dg2 = dgifo.reshape(N, 4 * C)
     dxw2 = dg2 if dxw is None else dxw.reshape(N, 4 * C)
     r_prev = torch.cat([r0[None], r_seq[:-1]]).reshape(N, R)
     c_prev = torch.cat([c0[None], c_seq[:-1]]).reshape(N, C)
     dparams = LstmParams(
-        w_gifo_x=_split_matmul(rd(dxw2).T, rd(x_tm.reshape(N, I)),
-                               sp["wx"]),
-        w_gifo_r=_split_matmul(rd(dg2).T, rd(r_prev), sp["wr"]),
+        w_gifo_x=mm(rd(dxw2).T, rd(x_tm.reshape(N, I)), sp["wx"]),
+        w_gifo_r=mm(rd(dg2).T, rd(r_prev), sp["wr"]),
         bias=dg2.sum(0),
         peephole_i_c=(dg2[:, C:2 * C] * c_prev).sum(0),
         peephole_f_c=(dg2[:, 2 * C:3 * C] * c_prev).sum(0),
         peephole_o_c=(dg2[:, 3 * C:] * c_seq.reshape(N, C)).sum(0),
-        w_r_m=_split_matmul(rd(drt.reshape(N, R)).T, rd(ho.reshape(N, C)),
-                            sp["wrm"]),
+        w_r_m=mm(rd(drt.reshape(N, R)).T, rd(ho.reshape(N, C)), sp["wrm"]),
     )
-    dx = _split_matmul(rd(dxw2), wx, sp["dx"]).reshape(T, S, I) \
-        if need_dx else None
+    dx = mm(rd(dxw2), wx, sp["dx"]).reshape(T, S, I) if need_dx else None
     return dparams, dx, dc, dr
 
 
@@ -533,7 +615,8 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
     peep = _peep(params)
     f32 = dict(dtype=torch.float32, device=dev)
     sp = bwd_plan(T, S, I, C, R,
-                  torch.cuda.get_device_properties(dev).multi_processor_count)
+                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                  bf16=bf16)
     if not need_dx:
         sp["dx"] = 1
     N = T * S
@@ -544,15 +627,34 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
 
     dc = gcT.contiguous().clone()
     dr = torch.empty((S, R), **f32)
-    scratch = [torch.empty((T, S, 4 * C), **f32),           # dgifo
-               torch.empty((T, S, R), **f32),               # dr_total
-               torch.empty((T, S, C), **f32),               # h o
-               None if keep_mask_tm is None
-               else torch.empty((T, S, 4 * C), **f32),      # dxw
-               torch.empty((T, S, R), **f32),               # r_prev
-               torch.empty((sp["dr"], S, R), **f32),        # dr partials
-               partials("wx", 4 * C, I), partials("wr", 4 * C, R),
-               partials("wrm", R, C), partials("dx", N, I)]
+    dgifo = torch.empty((T, S, 4 * C), **f32)
+    parts = [partials("wx", 4 * C, I), partials("wr", 4 * C, R),
+             partials("wrm", R, C), partials("dx", N, I)]
+    if bf16:
+        parts.append(partials("cols", 1, 7 * C))
+    if bf16:
+        def b16(*shape):
+            # a bf16 copy, its rows padded to a multiple of 8 elements
+            return torch.empty((*shape[:-1], _ld8(shape[-1])),
+                               dtype=torch.bfloat16, device=dev)
+        scratch = [dgifo, b16(T, S, 4 * C),                   # dgifo_b
+                   None if keep_mask_tm is None
+                   else b16(T, S, 4 * C),                     # dxw_b
+                   b16(T, S, R), b16(T, S, C),                # drt_b, ho_b
+                   b16(N, I), b16(N, R),                      # x_b, rprev_b
+                   b16(4 * C, R), b16(R, C), b16(4 * C, I),   # weights
+                   *parts]
+        splits = [sp["wx"], sp["wr"], sp["wrm"], sp["dx"], sp["cols"]]
+    else:
+        scratch = [dgifo,
+                   torch.empty((T, S, R), **f32),               # dr_total
+                   torch.empty((T, S, C), **f32),               # h o
+                   None if keep_mask_tm is None
+                   else torch.empty((T, S, 4 * C), **f32),      # dxw
+                   torch.empty((T, S, R), **f32),               # r_prev
+                   torch.empty((sp["dr"], S, R), **f32),        # dr partials
+                   *parts]
+        splits = [sp["dr"], sp["wx"], sp["wr"], sp["wrm"], sp["dx"]]
     dx = torch.empty((T, S, I), **f32) if need_dx else None
     dwx = torch.empty((4 * C, I), **f32)
     dwr = torch.empty((4 * C, R), **f32)
@@ -571,12 +673,12 @@ def lstm_bwd_cuda(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
                   *(_ptr(t) for t in scratch), _ptr(dx),
                   dwx.data_ptr(), dwr.data_ptr(), dwrm.data_ptr(),
                   dbias.data_ptr(), dpeep.data_ptr(), T, S, I, C, R,
-                  sp["dr"], sp["wx"], sp["wr"], sp["wrm"], sp["dx"], stream)
+                  *splits, stream)
     if err != 0:
         raise RuntimeError(f"lstm_train: K2 launch failed with CUDA error "
                            f"{err}")
     if bf16:
-        BWD_BF16_LAUNCHES += bwd_launches(T, need_dx)
+        BWD_BF16_LAUNCHES += bwd_launches(T, need_dx, bf16=True)
     else:
         BWD_LAUNCHES += bwd_launches(T, need_dx)
     dparams = LstmParams(w_gifo_x=dwx, w_gifo_r=dwr, bias=dbias,

@@ -1,16 +1,19 @@
-"""Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``) and
-training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``) against
-another checkout's, on the card, in turns.
+"""Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``),
+training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``) and, in
+bf16, K5 and the training backward (K2, ``ops.lstm_train.lstm_bwd``)
+against another checkout's, on the card, in turns.
 
     python -m kaldi_lstm_tpu_torch.tools.bench_infer_ab OTHER_DIR \\
-        [k5:S,T,I | k1:S,T,I ...]
+        [k5:S,T,I | k1:S,T,I | k5b:S,T,I | k2b:S,T,I ...]
 
 OTHER_DIR is the root of another checkout of this repository (for
 example the parent commit unpacked with ``git archive``). For each case
 (default: K5 at the cross-validation shape k5:256,20,40 and the serving
 shape k5:8,1000,40, K1 at the flagship training shape k1:256,20,40 and
 the deep net's layer 2 k1:256,20,512; C=800, R=512 throughout; a bare
-S,T,I means K5) the script runs the kernel's entry point of the other
+S,T,I means K5; k5b is K5 with ``compute_dtype=torch.bfloat16``, k2b
+K2 in bf16 without dx on K1's bf16 residuals of the same inputs) the
+script runs the kernel's entry point of the other
 tree, this tree, this tree, the other tree, each in a process of its own
 that imports that tree's package and builds its kernels, and prints each
 process's median CUDA-event time over 5 calls (after one warm-up call),
@@ -53,7 +56,26 @@ def _time_here(shape: str) -> dict:
                    u(R, C))
     x = torch.tensor(rng.randn(S, T, I).astype(np.float32), device="cuda")
     st = LstmState(u(S, C), u(S, R))
-    if kernel == "k1":
+    bf = torch.bfloat16
+    if kernel == "k2b":
+        x_tm = x.transpose(0, 1).contiguous()
+        mod = lt
+        res = lt.lstm_fwd_residuals(p, x_tm, st.c, st.r, None, 1.0, 50.0,
+                                    compute_dtype=bf)
+        g_r = torch.tensor(rng.randn(T, S, R).astype(np.float32),
+                           device="cuda")
+        gcT = torch.tensor(rng.randn(S, C).astype(np.float32),
+                           device="cuda")
+
+        def call():
+            lt.lstm_bwd(p, x_tm, st.c, st.r, *res, None, 1.0, g_r, gcT,
+                        False, compute_dtype=bf)
+    elif kernel == "k5b":
+        mod = li
+
+        def call():
+            li.lstm_infer(p, x, st, compute_dtype=bf)
+    elif kernel == "k1":
         x_tm = x.transpose(0, 1).contiguous()
         mod = lt
 
@@ -77,7 +99,8 @@ def _time_here(shape: str) -> dict:
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
-    launches = lt.FWD_LAUNCHES if kernel == "k1" else li.LAUNCHES
+    launches = {"k1": lt.FWD_LAUNCHES, "k2b": lt.BWD_BF16_LAUNCHES,
+                "k5b": li.BF16_LAUNCHES}.get(kernel, li.LAUNCHES)
     return {"ms": statistics.median(times), "launches": launches / 5}
 
 

@@ -66,11 +66,11 @@ VARIANTS = {
 }
 
 
-def variant_sources(name: str) -> dict[str, str]:
+def variant_sources(name: str, variants: dict = VARIANTS) -> dict[str, str]:
     """The edited files of a variant: {file name: source}. Raises if an
     edit's text is not in the committed source."""
     out = {}
-    for fname, old, new in VARIANTS[name]:
+    for fname, old, new in variants[name]:
         if fname not in out:
             with open(os.path.join(_build.CSRC_DIR, fname)) as fh:
                 out[fname] = fh.read()
@@ -81,21 +81,23 @@ def variant_sources(name: str) -> dict[str, str]:
     return out
 
 
-def build(names) -> dict[str, ctypes.CDLL]:
-    """One library per variant, all nvcc processes started together."""
-    root = os.path.join(_build.BUILD_DIR, "stack_parts")
+def build(names, variants: dict = VARIANTS, source: str = "lstmp_stack.cu",
+          sub: str = "stack_parts") -> dict[str, ctypes.CDLL]:
+    """One library per variant of csrc/`source` (in _build/`sub`/), all
+    nvcc processes started together."""
+    root = os.path.join(_build.BUILD_DIR, sub)
     procs = {}
     for name in names:
         d = os.path.join(root, name)
         os.makedirs(d, exist_ok=True)
         for f in os.listdir(_build.CSRC_DIR):
-            if f.endswith((".cuh", ".h")) or f == "lstmp_stack.cu":
+            if f.endswith((".cuh", ".h")) or f == source:
                 shutil.copy(os.path.join(_build.CSRC_DIR, f), d)
-        for fname, src in variant_sources(name).items():
+        for fname, src in variant_sources(name, variants).items():
             with open(os.path.join(d, fname), "w") as fh:
                 fh.write(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-               os.path.join(d, "lib.so"), os.path.join(d, "lstmp_stack.cu")]
+               os.path.join(d, "lib.so"), os.path.join(d, source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
