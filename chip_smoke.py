@@ -55,14 +55,18 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    3xTF32 and bf16 bounds; then drive the port's `tools/bench_wavefront`
    (A/B in f32 and bf16, ablation, profile) with every count zeroed
    before its A/B and read after;
-3d. hold the bf16 variants of K1-K5 (the --bf16 path: K1-K4's products
-   on the mainloop's bf16 mma, K1's gate residual in bf16, K5's weights
-   in shared memory as bf16) against their bf16 plain versions, each
+3d. hold the bf16 variants of K1-K5 (the --bf16 path: K1's and K2's
+   products on tc_gemm.cuh's bf16 mma, K3's and K4's on wgmma fed by TMA
+   (wg_gemm.cuh) with dz in bf16, K1's gate residual in bf16, K5's
+   weights in shared memory as bf16) against their bf16 plain versions,
+   each
    output's RMS error within a tenth of the RMS bf16-vs-f32 distance of
    the plain version on the same inputs (or twice the plain version's
    own f32-vs-f64 noise, BF16_NOISE): K1/K2 at the flagship shape, at
    I=512 with dx, with dropout, at T=2 and ragged at T=2; K3/K4 at
-   N=5120, R=512, K=8000, at K=16624 and ragged; K5 at S=8, T=1000 and
+   N=5120, R=512, K=8000, at K=16624 and ragged (their plan printed,
+   launches against `xent_launches`, two calls bitwise equal, their f32
+   twins' times beside); K5 at S=8, T=1000 and
    S=256, T=20 at I=40 and I=512, at I=1024 (resident in bf16, not in
    f32), at I=2400 (the bf16 weights leave shared memory), at T=2 and
    ragged at T=2 (every ragged case on the 4-byte-copy instances), and
@@ -1284,6 +1288,10 @@ def phase_train_kernels():
         worst["K3"] = worst["K4"] = max(worst["K3"], w)
         if rec and timed is True:
             recs.update(rec)
+        elif rec:
+            for k in ("K3", "K4"):
+                recs[k].update({f"k16624_{f}": rec[k][f] for f in
+                                ("ms", "plain_ms", "bound_ms")})
     for k in recs:
         recs[k]["max_abs_err"] = worst[k]
     return recs
@@ -1498,14 +1506,20 @@ def xent_bf16_case(name, N, R, K, Km, seed, mask_p=0.8, timed=False):
     tw = torch.rand(N, Km, generator=g)
     mask = (torch.rand(N, generator=g) < mask_p).float()
     r, w, b, ids, tw, mask = (t.cuda() for t in (r, w, b, ids, tw, mask))
-    log(f"  [{name}] N={N} R={R} K={K} Km={Km}")
+    plan = xa.xent_bf16_plan(N, R, K, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    log(f"  [{name}] N={N} R={R} K={K} Km={Km}; plan: chunk "
+        f"{plan['chunk']} ({plan['logits_items']} items on "
+        f"{plan['logits_grid']} CTAs), dr {plan['dr_items']} tiles, dW "
+        f"{plan['dw_items']} tiles")
     xa.reset_counts()
     fk = xa.xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=bf)
     fp = xa.xent_fwd_plain(r, w, b, ids, tw, compute_dtype=bf)
     f32 = xa.xent_fwd_plain(r, w, b, ids, tw)
     fd = xa.xent_fwd_plain(*f64((r, w, b, ids, tw)), compute_dtype=bf)
     torch.cuda.synchronize()
-    if (xa.FWD_BF16_LAUNCHES, xa.FWD_LAUNCHES) != (2, 0):
+    fwd_n, bwd_n = xa.xent_launches(bf16=True)
+    if (xa.FWD_BF16_LAUNCHES, xa.FWD_LAUNCHES) != (fwd_n, 0):
         fail(f"{name}: K3 bf16 launches {xa.FWD_BF16_LAUNCHES}, f32 "
              f"{xa.FWD_LAUNCHES}")
     worst = 0.0
@@ -1527,7 +1541,7 @@ def xent_bf16_case(name, N, R, K, Km, seed, mask_p=0.8, timed=False):
     b32 = xa.xent_bwd_plain(r, w, b, ids, tw, f32[0], scale, wtot)
     bd = xa.xent_bwd_plain(*f64(bargs), compute_dtype=bf)
     torch.cuda.synchronize()
-    if (xa.BWD_BF16_LAUNCHES, xa.BWD_LAUNCHES) != (3, 0):
+    if (xa.BWD_BF16_LAUNCHES, xa.BWD_LAUNCHES) != (bwd_n, 0):
         fail(f"{name}: K4 bf16 launches {xa.BWD_BF16_LAUNCHES}, f32 "
              f"{xa.BWD_LAUNCHES}")
     for what, a, c, d, e in zip(("K4 dr", "K4 dW", "K4 db"), bk, bp, b32,
@@ -1536,6 +1550,11 @@ def xent_bf16_case(name, N, R, K, Km, seed, mask_p=0.8, timed=False):
     del fd, bd
     if bool(bk[0][mask == 0].any()):
         fail(f"{name}: masked rows contributed to dr in bf16")
+    again = (*xa.xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=bf),
+             *xa.xent_bwd_cuda(*bargs, compute_dtype=bf))
+    if not all(torch.equal(u, v) for u, v in zip((*fk, *bk), again)):
+        fail(f"{name}: two bf16 calls of K3/K4 differ")
+    del again
     if not timed:
         return worst, None
     rec = {}
@@ -1584,9 +1603,13 @@ def phase_bf16_kernels():
     bf = torch.bfloat16
     S, T, I, C, R, K = TRAIN_S, TRAIN_T, 40, 800, 512, 8000
     recs, worst = {}, {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
-    log(f"  design: K1, K3, K4 run every product on tc_gemm.cuh's bf16 mode "
+    log(f"  design: K1 runs every product on tc_gemm.cuh's bf16 mode "
         f"(f32 tiles, operands rounded to bf16 in registers, mma.sync "
-        f"m16n8k16 bf16 with f32 accumulation), K1 writes gifo in bf16; K2 "
+        f"m16n8k16 bf16 with f32 accumulation), K1 writes gifo in bf16; K3 "
+        f"and K4 round r and W once a call into bf16 copies and run every "
+        f"product on wgmma m64n128k16 fed by TMA (wg_gemm.cuh: 128 x 128 "
+        f"tiles, 64-deep stages, persistent CTAs), K4 stores dz in bf16 "
+        f"and sums db from the f32 dz by frame tile; K2 "
         f"runs on the bf16 tiles (Gemm16: each operand rounded once where "
         f"it is made, dm with the gate gradients, dr unsplit); K5 runs both "
         f"products on the bf16 tensor cores from bf16 weight slices and "
@@ -2305,9 +2328,10 @@ KERNEL_NAMES = {
                         "bwd16_prep_kernel",
                         "bwd16_dm_kernel", "bwd16_dr_kernel",
                         "contract16_kernel"),
-    "xent_affine_fwd": ("xent_fwd_chunk_kernel", "xent_fwd_combine_kernel"),
+    "xent_affine_fwd": ("xent_fwd_chunk_kernel", "xent_fwd_combine_kernel",
+                        "xent16_fwd"),
     "xent_affine_bwd": ("xent_bwd_dz_kernel", "xent_bwd_dr_kernel",
-                        "xent_bwd_dw_kernel"),
+                        "xent_bwd_dw_kernel", "xent16_bwd"),
     "lstmp_infer": ("lstmp_infer_kernel", "lstmp_infer_tc_kernel"),
 }
 GROUP = 4
@@ -2543,22 +2567,24 @@ def phase_bf16_path(work: str, p5: dict) -> dict:
         bwd_launches,
         fwd_launches,
     )
+    from kaldi_lstm_tpu_torch.ops.xent_affine import xent_launches
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
     feats, post, common = p5["feats"], p5["post"], p5["common"]
     steps = len(p5["batches"])
     T = TRAIN_T
+    k3, k4 = xent_launches(bf16=True)
     train_pred = {"lstmp_train_fwd_bf16": fwd_launches(T) * steps,
                   "lstmp_train_bwd_bf16": bwd_launches(T, False, bf16=True)
                   * steps,
-                  "xent_affine_fwd_bf16": 2 * steps,
-                  "xent_affine_bwd_bf16": 3 * steps}
+                  "xent_affine_fwd_bf16": k3 * steps,
+                  "xent_affine_bwd_bf16": k4 * steps}
     predicted = dict(train_pred, lstmp_infer_bf16=steps)
-    predicted["xent_affine_fwd_bf16"] += 2 * steps
+    predicted["xent_affine_fwd_bf16"] += k3 * steps
     f32_keys = ("lstmp_train_fwd", "lstmp_train_bwd", "xent_affine_fwd",
                 "xent_affine_bwd", "lstmp_infer")
     log(f"  prediction: the epoch's {steps} steps launch only the bf16 "
         f"entry points, as many launches as phase 5's f32 ones, and its "
-        f"CV pass {steps} K5 and {2 * steps} K3 bf16 launches; 0 f32 "
+        f"CV pass {steps} K5 and {k3 * steps} K3 bf16 launches; 0 f32 "
         f"launches of K1-K5 and 0 plain calls at every group; the grouped "
         f"models byte-identical to group 1's")
     runs = {}
@@ -6205,8 +6231,17 @@ def main() -> int:
             ("K5", "S=8 T=1000", bf16_recs["K5"]["s8_t1000_ms"], rec["ms"]),
             ("K5", "S=256 T=20", bf16_recs["K5"]["ms"], rec["cv_ms"]),
             ("K2", "flagship", bf16_recs["K2"]["ms"],
-             train_recs["K2"]["ms"])):
-        tag = "s8_t1000_" if what == "S=8 T=1000" else ""
+             train_recs["K2"]["ms"]),
+            ("K3", "flagship", bf16_recs["K3"]["ms"],
+             train_recs["K3"]["ms"]),
+            ("K4", "flagship", bf16_recs["K4"]["ms"],
+             train_recs["K4"]["ms"]),
+            ("K3", "K=16624", bf16_recs["K3"]["k16624_ms"],
+             train_recs["K3"]["k16624_ms"]),
+            ("K4", "K=16624", bf16_recs["K4"]["k16624_ms"],
+             train_recs["K4"]["k16624_ms"])):
+        tag = {"S=8 T=1000": "s8_t1000_", "K=16624": "k16624_"}.get(what,
+                                                                   "")
         bf16_recs[key][f"{tag}f32_ms"] = f32
         bf16_recs[key][f"{tag}bf16_over_f32"] = b16 / f32
         log(f"  {key} {what}: bf16 {b16:.3f} ms, f32 {f32:.3f} ms, "

@@ -7,8 +7,8 @@ the numbers of ``train.loss.masked_xent_loss`` on the logits
 r @ w.T + b without forming the logits, and is differentiable in r, w
 and b. Forward = K3 (per-frame logsumexp, weighted picked logit, first
 max and its index), then the torch epilogue ``fused_loss_and_stats``;
-backward = K4 (dz stored once, then dr, dW, db). Both are 3xTF32
-tensor-core kernels, float32-accurate. On a CUDA tensor each half
+backward = K4 (dz stored once, then dr, dW, db). In float32 both are
+3xTF32 tensor-core kernels, float32-accurate. On a CUDA tensor each half
 launches ``csrc/xent_affine.cu`` or raises; on a CPU tensor it runs its
 plain version beside it here (``xent_fwd_plain``, ``xent_bwd_plain``),
 which forms the logits in torch. ``xent_fwd_chunked_plain`` spells out
@@ -20,27 +20,37 @@ sparse targets; mask [N].
 bf16 (``compute_dtype=torch.bfloat16``, the ``--bf16`` path): the JAX
 package's ``xent_pallas.py`` under ``set_matmul_dtype(jnp.bfloat16)``
 rounds r and W to bf16 for the logits, and dz with W (dr) and with r
-(dW) in the backward, summing in float32; dz stays float32 and db is
-summed from it. On a CUDA tensor the ``_bf16`` entry points run those
-products on the tensor cores' bf16 mma; the plain versions round the
-same operands and compute in float32.
+(dW) in the backward, summing in float32; db is summed from the float32
+dz. On a CUDA tensor the ``_bf16`` entry points round r and W once a
+call into bf16 copies, store dz in bf16 (the reference's one rounding of
+dz), and run every product on wgmma fed by TMA (``csrc/wg_gemm.cuh``),
+with the tiles and class chunks of ``xent_bf16_plan``;
+``xent_bwd_bf16_split_plain`` spells out the backward's sum order in
+torch. The plain versions round the same
+operands and compute in float32.
 
-Counters: ``FWD_LAUNCHES`` (K3: 2 per call, the class-chunk pass and
-the merge) and ``BWD_LAUNCHES`` (K4: 3 per call, dz, dr and dW/db)
-count the CUDA kernel launches of the float32 entry points,
-``FWD_BF16_LAUNCHES`` and ``BWD_BF16_LAUNCHES`` those of the bf16 ones
-(as many a call), ``PLAIN_CALLS`` the calls of either half that took the
-plain version.
+Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
+launches of the float32 entry points, ``FWD_BF16_LAUNCHES`` and
+``BWD_BF16_LAUNCHES`` those of the bf16 ones, as many a call as
+``xent_launches`` says (float32: K3 the class-chunk pass and the merge,
+K4 dz, dr and dW/db; bf16: K3 adds the prologue that rounds r and W, K4
+the prologue, dz, dr, dW and the fold of db's partials);
+``PLAIN_CALLS`` the calls of either half that took the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from kaldi_lstm_tpu_torch.ops.lstm_cell import rounded
-from kaldi_lstm_tpu_torch.ops.lstm_infer import _check, check_compute_dtype
+from kaldi_lstm_tpu_torch.ops.lstm_infer import (
+    H100_SMS,
+    _check,
+    check_compute_dtype,
+)
 from kaldi_lstm_tpu_torch.train.loss import (
     LossAux,
     target_best,
@@ -53,9 +63,67 @@ FWD_BF16_LAUNCHES = 0
 BWD_BF16_LAUNCHES = 0
 PLAIN_CALLS = 0
 # classes per K3 chunk (a multiple of the kernels' 128-class tile): the
-# forward's grid is (frame tiles of 128) x (chunks), 40 x 8 CTAs at the
-# flagship shape (N = 5120, K = 8000)
+# float32 forward's grid is (frame tiles of 128) x (chunks), 40 x 8 CTAs
+# at the flagship shape (N = 5120, K = 8000)
 FWD_CHUNK = 1024
+# the bf16 kernels' output tiles (csrc/wg_gemm.cuh): 128 x 128
+TILE16 = 128
+
+
+def xent_launches(bf16: bool = False) -> tuple[int, int]:
+    """(K3, K4) CUDA kernel launches a call of the float32 entry points
+    or, with `bf16`, the bf16 ones."""
+    return (3, 5) if bf16 else (2, 3)
+
+
+def _ld8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def xent_bf16_plan(N: int, R: int, K: int, sms: int = H100_SMS) -> dict:
+    """The bf16 kernels' plan at these widths on a card of `sms` SMs:
+
+    * the logits walk (K3, K4's dz): items of one 128-frame row tile and
+      one chunk of `chunk` classes (ct tiles of 128), a persistent grid of
+      min(items, sms) CTAs; ct from 1 to 8 with the fewest tile times on
+      the busiest SM (ceil(items / sms) x ct), then the widest chunk;
+    * dr: 128 x 128 tiles over the frames and R, each over the whole
+      contraction (every bf16 path runs it at N = 5120 or a shard of
+      it: 80 tiles or more);
+    * dW: 128 x 128 tiles over the classes and R;
+    * the bf16 copies' leading dimensions (multiples of 8)."""
+    return dict(_bf16_plan(N, R, K, sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_plan(N: int, R: int, K: int, sms: int) -> tuple:
+    nrt, nct, njt = -(-N // TILE16), -(-K // TILE16), -(-R // TILE16)
+    best = None
+    for ct in range(1, 9):
+        items = nrt * -(-nct // ct)
+        key = (-(-items // sms) * ct, -ct)
+        if best is None or key < best[0]:
+            best = (key, ct)
+    ct = best[1]
+    nch = -(-nct // ct)
+    return tuple(dict(
+        chunk=ct * TILE16, nch=nch, nrt=nrt, njt=njt, nct=nct,
+        logits_items=nrt * nch, logits_grid=min(nrt * nch, sms),
+        dr_items=nrt * njt, dr_grid=min(nrt * njt, sms),
+        dw_items=nct * njt, dw_grid=min(nct * njt, sms), r_ld=_ld8(R),
+        dz_ld=_ld8(K), sms=sms).items())
+
+
+_SMS: dict = {}
+
+
+def _sms(device) -> int:
+    """The card's SM count (cached per device)."""
+    key = torch.device(device).index
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
 
 
 def reset_counts() -> None:
@@ -71,16 +139,23 @@ def reset_counts() -> None:
 def _entries(bf16: bool = False):
     """K3's and K4's C entry points: the float32 ones, or the bf16 ones."""
     from kaldi_lstm_tpu_torch.ops import _build
-    lib = _build.load("xent_affine")
+    return _bind(_build.load("xent_affine"), bf16)
+
+
+def _bind(lib, bf16: bool):
+    """The (K3, K4) entry points of a loaded csrc/xent_affine.cu library,
+    their ctypes signatures set."""
     tag = "bf16" if bf16 else "f32"
     fwd = getattr(lib, f"xent_affine_fwd_{tag}")
     bwd = getattr(lib, f"xent_affine_bwd_{tag}")
     p, i = ctypes.c_void_p, ctypes.c_int
     if fwd.argtypes is None:
-        fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        fwd.argtypes = ([p] * 12 + [i] * 6 if bf16 else
+                        [p] * 10 + [i] * 5) + [p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
-        bwd.argtypes = [p] * 12 + [i] * 6 + [p]
+        bwd.argtypes = ([p] * 14 + [i] + [p] + [i] * 6 if bf16 else
+                        [p] * 12 + [i] * 6) + [p]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -163,6 +238,30 @@ def xent_bwd_plain(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
     return dzc @ w, dzc.T @ r, dz.sum(0)
 
 
+def xent_bwd_bf16_split_plain(r, w, b, ids, tw, lse, scale, wtot):
+    """The bf16 K4's sums in torch: dz formed in float32 from the logits
+    of r and W rounded to bf16 and rounded once to bf16 (dzc); dr = dzc W
+    and dW = dzc^T r; db from the float32 dz split by 128-frame tile,
+    each tile summed apart and the tiles added in order. The same results
+    as ``xent_bwd_plain`` in bf16."""
+    N, K = r.shape[0], w.shape[0]
+    bf = torch.bfloat16
+    r16, w16 = rounded(r, bf), rounded(w, bf)
+    z = r16 @ w16.T + b
+    dz = torch.exp(z - lse[:, None]) * wtot[:, None]
+    ids_l, inside = _class_ids(ids, K)
+    neg_tw = torch.where(inside, -tw, torch.zeros_like(tw))
+    for j in range(ids.shape[1]):
+        dz.scatter_add_(1, ids_l[:, j:j + 1], neg_tw[:, j:j + 1])
+    dz = dz * scale[:, None]
+    dzc = rounded(dz, bf)
+    db = None
+    for m0 in range(0, N, TILE16):
+        part = dz[m0:m0 + TILE16].sum(0)
+        db = part if db is None else db + part
+    return dzc @ w16, dzc.T @ r16, db
+
+
 # ---------------------------------------------------------------------------
 # kernels (CUDA tensors)
 # ---------------------------------------------------------------------------
@@ -196,21 +295,34 @@ def xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=None):
     picked = torch.empty((N,), **f32)
     amax = torch.empty((N,), **f32)
     aidx = torch.empty((N,), dtype=torch.int32, device=r.device)
+    extra = []
+    if bf16:
+        plan = xent_bf16_plan(N, R, K, _sms(r.device))
+        chunk = plan["chunk"]
+        # the bf16 copies of r and W, made anew on every call
+        extra = [torch.empty((n, plan["r_ld"]), dtype=torch.bfloat16,
+                             device=r.device) for n in (N, K)]
+    else:
+        chunk = FWD_CHUNK
     # per-(chunk, row) max, sum-exp, picked and first index
-    part = torch.empty((4, -(-K // FWD_CHUNK), N), **f32)
+    part = torch.empty((4, -(-K // chunk), N), **f32)
     fwd, _ = _entries(bf16)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fwd(*(t.data_ptr() for t in ops), lse.data_ptr(),
-                  picked.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
-                  part.data_ptr(), N, R, K, Km, FWD_CHUNK, stream)
+        args = [*(t.data_ptr() for t in ops), lse.data_ptr(),
+                picked.data_ptr(), amax.data_ptr(), aidx.data_ptr(),
+                part.data_ptr(), *(t.data_ptr() for t in extra), N, R, K,
+                Km, chunk]
+        if bf16:
+            args.append(plan["sms"])
+        err = fwd(*args, stream)
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K3 launch failed with CUDA "
                            f"error {err}")
     if bf16:
-        FWD_BF16_LAUNCHES += 2
+        FWD_BF16_LAUNCHES += xent_launches(True)[0]
     else:
-        FWD_LAUNCHES += 2
+        FWD_LAUNCHES += xent_launches(False)[0]
     return lse, picked, amax, aidx
 
 
@@ -227,23 +339,41 @@ def xent_bwd_cuda(r, w, b, ids, tw, lse, scale, wtot, compute_dtype=None):
     dr = torch.empty((N, R), **f32)
     dw = torch.empty((K, R), **f32)
     db = torch.empty((K,), **f32)
-    # dz, written once by the first launch and read by the other two;
-    # rows padded to a multiple of 4 floats for 16-byte copies
-    ldz = -(-K // 4) * 4
-    dz = torch.empty((N, ldz), **f32)
     _, bwd = _entries(bf16)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = bwd(*(t.data_ptr() for t in ops), dr.data_ptr(),
-                  dw.data_ptr(), db.data_ptr(), dz.data_ptr(), ldz, N, R,
-                  K, Km, FWD_CHUNK, stream)
+    if bf16:
+        plan = xent_bf16_plan(N, R, K, _sms(r.device))
+        b16 = dict(dtype=torch.bfloat16, device=r.device)
+        # the bf16 copies of r and W (made anew on every call), dz in bf16
+        # (written once by the dz launch, read by dr and dW) and the db
+        # partials of the frame tiles
+        ldz = plan["dz_ld"]
+        r16 = torch.empty((N, plan["r_ld"]), **b16)
+        w16 = torch.empty((K, plan["r_ld"]), **b16)
+        dz = torch.empty((N, ldz), **b16)
+        dbp = torch.empty((plan["nrt"], K), **f32)
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = bwd(*(t.data_ptr() for t in ops), dr.data_ptr(),
+                      dw.data_ptr(), db.data_ptr(), r16.data_ptr(),
+                      w16.data_ptr(), dz.data_ptr(), ldz, dbp.data_ptr(),
+                      N, R, K, Km, plan["chunk"], plan["sms"], stream)
+    else:
+        # dz, written once by the first launch and read by the other two;
+        # rows padded to a multiple of 4 floats for 16-byte copies
+        ldz = -(-K // 4) * 4
+        dz = torch.empty((N, ldz), **f32)
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = bwd(*(t.data_ptr() for t in ops), dr.data_ptr(),
+                      dw.data_ptr(), db.data_ptr(), dz.data_ptr(), ldz, N,
+                      R, K, Km, FWD_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"fused_affine_xent: K4 launch failed with CUDA "
                            f"error {err}")
     if bf16:
-        BWD_BF16_LAUNCHES += 3
+        BWD_BF16_LAUNCHES += xent_launches(True)[1]
     else:
-        BWD_LAUNCHES += 3
+        BWD_LAUNCHES += xent_launches(False)[1]
     return dr, dw, db
 
 

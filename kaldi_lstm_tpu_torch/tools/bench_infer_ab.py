@@ -1,10 +1,12 @@
 """Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``),
-training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``) and, in
-bf16, K5 and the training backward (K2, ``ops.lstm_train.lstm_bwd``)
-against another checkout's, on the card, in turns.
+training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``), fused
+senone affine + xent forward and backward (K3, K4, ``ops.xent_affine``)
+and, in bf16, K5, the training backward (K2, ``ops.lstm_train.lstm_bwd``),
+K3 and K4 against another checkout's, on the card, in turns.
 
     python -m kaldi_lstm_tpu_torch.tools.bench_infer_ab OTHER_DIR \\
-        [k5:S,T,I | k1:S,T,I | k5b:S,T,I | k2b:S,T,I ...]
+        [k5:S,T,I | k1:S,T,I | k5b:S,T,I | k2b:S,T,I |
+         k3:N,R,K | k4:N,R,K | k3b:N,R,K | k4b:N,R,K ...]
 
 OTHER_DIR is the root of another checkout of this repository (for
 example the parent commit unpacked with ``git archive``). For each case
@@ -12,8 +14,11 @@ example the parent commit unpacked with ``git archive``). For each case
 shape k5:8,1000,40, K1 at the flagship training shape k1:256,20,40 and
 the deep net's layer 2 k1:256,20,512; C=800, R=512 throughout; a bare
 S,T,I means K5; k5b is K5 with ``compute_dtype=torch.bfloat16``, k2b
-K2 in bf16 without dx on K1's bf16 residuals of the same inputs) the
-script runs the kernel's entry point of the other
+K2 in bf16 without dx on K1's bf16 residuals of the same inputs; k3 /
+k4 are K3 / K4 at N frames, R projections and K classes, one target a
+frame, every frame unmasked, K4 on K3's lse of the same inputs, and k3b
+/ k4b the same in bf16) the script runs the kernel's entry point of the
+other
 tree, this tree, this tree, the other tree, each in a process of its own
 that imports that tree's package and builds its kernels, and prints each
 process's median CUDA-event time over 5 calls (after one warm-up call),
@@ -36,8 +41,6 @@ C, R = 800, 512
 
 def _time_here(shape: str) -> dict:
     """Runs in the child: the median time of this process's package."""
-    import statistics
-
     import numpy as np
     import torch
 
@@ -45,12 +48,16 @@ def _time_here(shape: str) -> dict:
     from kaldi_lstm_tpu_torch.ops import lstm_train as lt
     from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
     kernel, _, dims = shape.rpartition(":")
-    S, T, I = (int(v) for v in dims.split(","))
     rng = np.random.RandomState(0)
 
     def u(*dims):
         return torch.tensor(rng.uniform(-0.04, 0.04, dims)
                             .astype(np.float32), device="cuda")
+
+    if kernel in ("k3", "k4", "k3b", "k4b"):
+        return _time_xent(kernel, *(int(v) for v in dims.split(",")), rng,
+                          u)
+    S, T, I = (int(v) for v in dims.split(","))
 
     p = LstmParams(u(4 * C, I), u(4 * C, R), u(4 * C), u(C), u(C), u(C),
                    u(R, C))
@@ -86,6 +93,48 @@ def _time_here(shape: str) -> dict:
 
         def call():
             li.lstm_infer(p, x, st)
+    ms = _median_times(call, mod)
+    launches = {"k1": lt.FWD_LAUNCHES, "k2b": lt.BWD_BF16_LAUNCHES,
+                "k5b": li.BF16_LAUNCHES}.get(kernel, li.LAUNCHES)
+    return {"ms": ms, "launches": launches / 5}
+
+
+def _time_xent(kernel: str, N: int, R: int, K: int, rng, u) -> dict:
+    """K3 / K4 (in bf16 for k3b / k4b): the median time of 5 calls."""
+    import numpy as np
+    import torch
+
+    from kaldi_lstm_tpu_torch.ops import xent_affine as xa
+    dt = torch.bfloat16 if kernel.endswith("b") else None
+    r = torch.tensor(rng.randn(N, R).astype(np.float32), device="cuda")
+    w, b = u(K, R), u(K)
+    ids = torch.tensor(rng.randint(0, K, (N, 1)).astype(np.int32),
+                       device="cuda")
+    tw = torch.ones((N, 1), device="cuda")
+    scale = torch.ones((N,), device="cuda")
+    with torch.inference_mode():
+        lse = xa.xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=dt)[0]
+
+    def call():
+        if kernel.startswith("k3"):
+            xa.xent_fwd_cuda(r, w, b, ids, tw, compute_dtype=dt)
+        else:
+            xa.xent_bwd_cuda(r, w, b, ids, tw, lse, scale, tw[:, 0],
+                             compute_dtype=dt)
+
+    ms = _median_times(call, xa)
+    launches = {"k3": xa.FWD_LAUNCHES, "k4": xa.BWD_LAUNCHES,
+                "k3b": xa.FWD_BF16_LAUNCHES,
+                "k4b": xa.BWD_BF16_LAUNCHES}[kernel]
+    return {"ms": ms, "launches": launches / 5}
+
+
+def _median_times(call, mod) -> float:
+    """Warm up once, then the median CUDA-event time of 5 calls (the
+    module's counters zeroed after the warm-up)."""
+    import statistics
+
+    import torch
     times = []
     with torch.inference_mode():
         call()
@@ -99,9 +148,7 @@ def _time_here(shape: str) -> dict:
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
-    launches = {"k1": lt.FWD_LAUNCHES, "k2b": lt.BWD_BF16_LAUNCHES,
-                "k5b": li.BF16_LAUNCHES}.get(kernel, li.LAUNCHES)
-    return {"ms": statistics.median(times), "launches": launches / 5}
+    return statistics.median(times)
 
 
 def _child(tree: str, shape: str) -> dict:
@@ -139,7 +186,9 @@ def main(argv: list[str] | None = None) -> int:
                            ("this", here), ("other", other)):
             r = _child(tree, shape)
             rec.setdefault(name, []).append(r["ms"])
-            print(f"  {shape} (S,T,I) C={C} R={R} {name:5s} {r['ms']:.3f} ms, "
+            dims = "(N,R,K)" if shape.startswith(("k3", "k4")) else \
+                f"(S,T,I) C={C} R={R}"
+            print(f"  {shape} {dims} {name:5s} {r['ms']:.3f} ms, "
                   f"{r['launches']:g} launches per call", flush=True)
         print(json.dumps({"shape": shape, "other_ms": rec["other"],
                           "this_ms": rec["this"]}))

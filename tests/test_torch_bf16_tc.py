@@ -478,7 +478,7 @@ def test_trace_names_file_every_kernel_under_its_entry_point(source,
         shown = f"void (anonymous namespace)::{name}<tc::Bf16>(int)"
         entry = _entry_of(shown)
         assert entry in entries, (name, entry)
-        if name.startswith("xent_"):
+        if name.startswith("xent"):   # xent_* (f32) and xent16_* (bf16)
             assert entry.endswith("_fwd" if "fwd" in name else "_bwd")
 
 
