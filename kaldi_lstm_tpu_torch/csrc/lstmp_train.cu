@@ -91,13 +91,42 @@
 // bwd_cell's dm product (2 N R C = 4.2 GFLOP) and the serial chain of 2T
 // launches.
 //
-// bf16 (the _bf16 entry points; precision.cuh). K1: the same launches,
-// every product on tc_gemm.cuh's bf16 mode (f32 tiles, each fragment
-// rounded to bf16 in registers), which rounds x, Wx, r_{t-1}, Wr, m =
-// tanh(c) o and Wrm where kaldi_lstm_tpu/ops/lstm_pallas.py casts them
-// before its dots; K1 writes the gate residual gifo in bf16 (half the
-// bytes), which K2 reads. At the flagship shape its products' bound is
-// 0.023 ms (22.3 GFLOP at 989 TFLOP/s).
+// bf16 (the _bf16 entry points; precision.cuh). K1 in bf16 is its own
+// design, on tc_gemm.cuh's bf16 tiles (Gemm16: operands bf16 in device
+// memory, staged and multiplied as bf16 in 64-deep stages, nothing
+// rounded in a mainloop). It rounds x, Wx, r_{t-1}, Wr, m = tanh(c) o and
+// Wrm where kaldi_lstm_tpu/ops/lstm_pallas.py casts them before its dots,
+// each once, where it is made:
+//   prologue:  one launch rounds the gate-interleaved Wr (the interleave
+//              at the gate tile's width folded in), Wrm, Wx (every call:
+//              the optimizer updates them in place), x and r0 into bf16
+//              scratch, rows padded to a multiple of 8 elements;
+//   xw:        the hoisted x Wx^T over N = T S rows, its epilogue applying
+//              mask * inv_keep and the bias, written in f32 (the
+//              reference adds an f32 xw): Gemm16 64 x 64 tiles staged
+//              through shared memory for 16-byte stores (I=40), or
+//              wg_gemm.cuh's wgmma ring (128 x 128 tiles fed by TMA, a
+//              persistent grid; I=512), as the caller's plan picks;
+//   per step:  gates: pre = r_{t-1} Wr_perm^T from r_b, on Gemm16 tiles
+//              of 64 rows x 128 columns (32 cells, their four gates), the
+//              cell math in the epilogue on the tile staged in shared
+//              memory: gifo_t in bf16, c_t in f32 and m in bf16 only (the
+//              projection is its only reader);
+//              projection: r_t = m Wrm^T on 32 x 32 tiles over the whole
+//              C (13 stages at C=800, an 8-deep ring), its epilogue
+//              writing r_t in f32 (the residual and the output) and its
+//              bf16 copy r_b, the next step's A operand.
+// 2T + 2 launches, as in f32. A stage is 64 deep where the f32 ring's is
+// 32, crosses L2 and shared memory in bf16 (half the bytes), and every
+// operand is rounded once rather than at each of its loads (Wr_perm once
+// a call, not once per row tile each step; r_{t-1} once a step, not once
+// per column tile). Each stage's products start from a zero fragment and
+// are added in f32 (tc_gemm.cuh's truncation note); the wgmma xw keeps
+// its whole sum in the wgmma accumulators, as K3/K4 bf16 do. At the
+// flagship shape its products' bound is 0.023 ms (22.3 GFLOP at 989
+// TFLOP/s); a step is a serial chain of two launches whose copies,
+// epilogues and launch latency, not their products, take its time
+// (tools/bench_k1_parts.py times each kernel).
 // K2 in bf16 is its own design, on tc_gemm.cuh's bf16 tiles (Gemm16:
 // operands bf16 in device memory, staged and multiplied as bf16, nothing
 // rounded in a mainloop). Each operand is rounded once, where it is made:
@@ -122,9 +151,10 @@
 // 410 KB a CTA) and the frame-axis products' mma.sync rate bound it.
 // There is no float atomic: every sum runs in a fixed order.
 //
-// K1's tiles (the interleave, the hoisted xw, the gates tile with its
+// K1's f32 tiles (the interleave, the hoisted xw, the gates tile with its
 // cell epilogue) and the contraction tile live in csrc/lstmp_tc.cuh,
-// shared with K6's two-layer wavefront (csrc/lstmp_stack.cu).
+// shared with K6's two-layer wavefront (csrc/lstmp_stack.cu); K1's bf16
+// kernels (fwd16_*) are below, after K2's.
 //
 // Built with nvcc into a shared library with a plain C entry point per
 // kernel, loaded by kaldi_lstm_tpu_torch/ops/lstm_train.py through ctypes.
@@ -136,6 +166,7 @@
 #include <algorithm>
 
 #include "lstmp_tc.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
@@ -886,6 +917,466 @@ int train_bwd_bf16(const float* x, const float* w_gifo_x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K1 in bf16: its own design on tc_gemm.cuh's bf16 tiles (Gemm16, 64-deep
+// stages) and, for the hoisted xw, optionally wg_gemm.cuh's wgmma ring
+// ---------------------------------------------------------------------------
+
+// One rounding of K1's prologue: rows x cols f32 (row stride cols) to
+// bf16 (row stride dld). cells > 0: the gate interleave of w_gifo_r at
+// gate tiles of 4 cells columns, where row p of the copy is gate q = (p %
+// 4 cells) / cells of cell j = (p / 4 cells) cells + p % cells, a zero
+// row for a padding cell j >= C (ops/lstm_train.py::gate_interleave).
+struct FwdCvt {
+  const float* src;
+  bf16* dst;
+  int rows, cols, dld, cells, C;
+};
+constexpr int kFwdCvts = 5;
+struct FwdCvts {
+  FwdCvt c[kFwdCvts];
+};
+
+// K1 bf16, launch 1: the copies that nothing in the call produces, each
+// rounded once (the weights on every call: the optimizer updates them in
+// place), one conversion per blockIdx.y. Where cols is a multiple of 4
+// and the source 16-byte aligned, four neighbouring values an item (one
+// 16-byte load, one 8-byte store); else one.
+__device__ __forceinline__ int cvt_vec(const FwdCvt& c) {
+  return c.cols % 4 == 0 && (reinterpret_cast<uintptr_t>(c.src) & 15u) == 0
+             ? 4 : 1;
+}
+
+__global__ void fwd16_prep_kernel(FwdCvts cv) {
+  const FwdCvt c = cv.c[blockIdx.y];
+  const int vec = cvt_vec(c);
+  const int per_row = c.cols / vec;
+  const int n = c.rows * per_row;
+  const int bn = 4 * c.cells;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += gridDim.x * blockDim.x) {
+    const int r = e / per_row;
+    const int k = (e - r * per_row) * vec;
+    const float* src = c.src + (size_t)r * c.cols + k;
+    if (c.cells > 0) {
+      const int q = (r % bn) / c.cells;
+      const int j = (r / bn) * c.cells + r % c.cells;
+      src = j < c.C ? c.src + ((size_t)q * c.C + j) * c.cols + k : nullptr;
+    }
+    bf16* dst = c.dst + (size_t)r * c.dld + k;
+    if (vec == 4) {
+      const float4 v = src != nullptr
+          ? *reinterpret_cast<const float4*>(src)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 w;
+      w.x = *reinterpret_cast<const unsigned*>(&lo);
+      w.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = w;
+    } else {
+      *dst = __float2bfloat16_rn(src != nullptr ? *src : 0.f);
+    }
+  }
+}
+
+// The hoisted input projection's operands and epilogue: xw [N, 4C] =
+// x_b [N, I8] wx_b [4C, I8]^T, times mask * inv_keep where a keep-mask
+// [N, 4C] is given, then + bias (the reference's order), in f32.
+struct Xw16Args {
+  const bf16* x_b;
+  const bf16* wx_b;
+  const float* bias;
+  const int8_t* mask;
+  float inv_keep;
+  float* xw;
+  int N, I, C4, I8;
+};
+
+// Outputs (m, n) and (m, n + 1), n even (4C is even, so both exist): one
+// 8-byte store (xw is the wrapper's, 16-byte aligned).
+__device__ __forceinline__ void xw_store2(const Xw16Args& a, int m, int n,
+                                          float v0, float v1) {
+  const size_t at = (size_t)m * a.C4 + n;
+  if (a.mask != nullptr) {
+    v0 *= (float)a.mask[at] * a.inv_keep;
+    v1 *= (float)a.mask[at + 1] * a.inv_keep;
+  }
+  *reinterpret_cast<float2*>(a.xw + at) =
+      make_float2(v0 + a.bias[n], v1 + a.bias[n + 1]);
+}
+
+// K1 bf16, launch 2 (mma route): 64 x 64 tiles of Gemm16; the tile is
+// staged in shared memory (the ring is idle once run() returns), so that
+// each row of it goes out as whole 16-byte stores.
+using XwGemm16 = tc::Gemm16<64, 64, 2, 2, true, true, 4, 64>;
+
+__global__ void __launch_bounds__(XwGemm16::kThreads)
+fwd16_xw_kernel(Xw16Args a) {
+  using G = XwGemm16;
+  constexpr int kLd = G::kBN + 4;
+  static_assert(G::kBM * kLd * 4 <= G::kSmemBytes,
+                "the staged tile fits in the ring's shared memory");
+  extern __shared__ float4 smem4[];
+  const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
+  const tc::Operand16 A{a.x_b, a.I8, a.N, a.I};
+  const tc::Operand16 B{a.wx_b, a.I8, a.C4, a.I};
+  typename G::Acc out;
+  G::run(reinterpret_cast<bf16*>(smem4), A, B, m0, n0,
+         [&](typename G::Acc& acc) {
+    #pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      #pragma unroll
+      for (int j = 0; j < G::kNT; ++j) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) out[i][j][e] = acc[i][j][e];
+      }
+    }
+  });
+  float* smem = reinterpret_cast<float*>(smem4);
+  {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    #pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        #pragma unroll
+        for (int j = 0; j < G::kNT; ++j) {
+          float* at = smem + (G::warp_m0() + 16 * i + g + 8 * h) * kLd +
+                      G::warp_n0() + 8 * j + 2 * t;
+          at[0] = out[i][j][2 * h];
+          at[1] = out[i][j][2 * h + 1];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // four neighbouring columns an item (4C and n0 are multiples of 4)
+  constexpr int kQuads = G::kBN / 4;
+  for (int q = threadIdx.x; q < G::kBM * kQuads; q += G::kThreads) {
+    const int r = q / kQuads, c = 4 * (q % kQuads);
+    const int m = m0 + r, n = n0 + c;
+    if (m >= a.N || n >= a.C4) continue;
+    float4 v = *reinterpret_cast<const float4*>(smem + r * kLd + c);
+    const size_t at = (size_t)m * a.C4 + n;
+    if (a.mask != nullptr) {
+      v.x *= (float)a.mask[at] * a.inv_keep;
+      v.y *= (float)a.mask[at + 1] * a.inv_keep;
+      v.z *= (float)a.mask[at + 2] * a.inv_keep;
+      v.w *= (float)a.mask[at + 3] * a.inv_keep;
+    }
+    v.x += a.bias[n];
+    v.y += a.bias[n + 1];
+    v.z += a.bias[n + 2];
+    v.w += a.bias[n + 3];
+    *reinterpret_cast<float4*>(a.xw + at) = v;
+  }
+}
+
+// K1 bf16, launch 2 (wgmma route): wg_gemm.cuh's 128 x 128 tiles, both
+// operands K-major and fed by TMA, a persistent grid walking the tiles
+// (columns fastest), the whole contraction in the wgmma accumulators.
+using XwRing = wg::Ring<false, false, 4>;
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+fwd16_xw_wg_kernel(const __grid_constant__ CUtensorMap mx,
+                   const __grid_constant__ CUtensorMap mw, Xw16Args a) {
+  extern __shared__ float4 smem4[];
+  XwRing ring(smem4);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int njt = (a.C4 + wg::kBN - 1) / wg::kBN;
+  const int items = (a.N + wg::kBM - 1) / wg::kBM * njt;
+  const int kst = (a.I + wg::kBK - 1) / wg::kBK;
+  if (threadIdx.x >= wg::kProducer) {
+    if (threadIdx.x == wg::kProducer) {
+      wg::tma_prefetch(&mx);
+      wg::tma_prefetch(&mw);
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int m0 = it / njt * wg::kBM, n0 = it % njt * wg::kBN;
+        for (int s = 0; s < kst; ++s) {
+          ring.produce(&mx, &mw, m0, n0, s * wg::kBK);
+        }
+      }
+    }
+    return;
+  }
+  float acc[64];
+  const int t = threadIdx.x & 3;
+  // this thread's fragment rows (wg_gemm.cuh's accumulator layout)
+  const int row = 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int m0 = it / njt * wg::kBM, n0 = it % njt * wg::kBN;
+    ring.consume(acc, kst, threadIdx.x >> 7);
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + row + 8 * h;
+      if (m >= a.N) continue;
+      #pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        if (n < a.C4) {
+          xw_store2(a, m, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// One step's gates: pre = r_{t-1} wr_b^T on Gemm16 tiles of 64 rows x 128
+// columns (32 cells, their four gates: the interleave's width), then the
+// cell math of gates_tile (lstmp_tc.cuh) on the tile staged in shared
+// memory, writing gifo_t in bf16, c_t in f32 and m = tanh(c_t) o in bf16
+// only (the projection's A operand, rounded where the reference rounds
+// h o at its dot).
+struct Gate16Args {
+  const bf16* r_b;      // [S, R8] r_{t-1} rounded
+  const bf16* wr_b;     // [4 Cp, R8] the gate-interleaved Wr rounded
+  const float* xw_t;    // [S, 4C]
+  const float* c_prev;  // [S, C]
+  const float* peep;    // [3, C]: i, f, o
+  bf16* gifo_t;         // [S, 4C]
+  float* c_t;           // [S, C]
+  bf16* m_b;            // [S, C8]
+  int S, R, C, Cp, R8, C8;
+  float cell_clip;
+};
+
+using GateGemm16 = tc::Gemm16<64, 128, 2, 4, true, true, 4, 64>;
+
+__global__ void __launch_bounds__(GateGemm16::kThreads)
+fwd16_gates_kernel(Gate16Args a) {
+  using G = GateGemm16;
+  constexpr int BM = G::kBM, BN = G::kBN;
+  constexpr int kCellsT = BN / 4;                 // cells of the tile
+  constexpr int kRows = G::kThreads / kCellsT;    // tile rows a round
+  static_assert(BM % kRows == 0, "whole rounds of tile rows");
+  constexpr int kPairs = BM / kRows;              // pairs per thread
+  constexpr int kLd = BN + 4;
+  static_assert(BM * kLd * 4 <= G::kSmemBytes,
+                "the staged tile fits in the ring's shared memory");
+  extern __shared__ float4 smem4[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const size_t C4 = 4 * (size_t)a.C;
+  const int jl = threadIdx.x % kCellsT;
+  const int cell = blockIdx.y * kCellsT + jl;
+  const bool live = cell < a.C;
+  float pi = 0.f, pf = 0.f, po = 0.f;
+  if (live) {
+    pi = a.peep[cell];
+    pf = a.peep[a.C + cell];
+    po = a.peep[2 * a.C + cell];
+  }
+  const tc::Operand16 A{a.r_b, a.R8, a.S, a.R};
+  const tc::Operand16 B{a.wr_b, a.R8, 4 * a.Cp, a.R};
+  // the pairs' xw_t and c_{t-1}, loaded before the mainloop
+  float xq[kPairs][4], cq[kPairs];
+  #pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int s = m0 + static_cast<int>(threadIdx.x) / kCellsT + p * kRows;
+    const bool ok = live && s < a.S;
+    #pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xq[p][q] = ok ? a.xw_t[(size_t)s * C4 + (size_t)q * a.C + cell] : 0.f;
+    }
+    cq[p] = ok ? a.c_prev[(size_t)s * a.C + cell] : 0.f;
+  }
+  typename G::Acc pre;
+  G::run(reinterpret_cast<bf16*>(smem4), A, B, m0, n0,
+         [&](typename G::Acc& acc) {
+    #pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      #pragma unroll
+      for (int j = 0; j < G::kNT; ++j) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) pre[i][j][e] = acc[i][j][e];
+      }
+    }
+  });
+
+  // run() returned with the ring idle: stage the tile [BM][BN + 4] f32
+  float* smem = reinterpret_cast<float*>(smem4);
+  {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wm0 = G::warp_m0(), wn0 = G::warp_n0();
+    #pragma unroll
+    for (int i = 0; i < G::kMT; ++i) {
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        #pragma unroll
+        for (int j = 0; j < G::kNT; ++j) {
+          float* at = smem + (wm0 + 16 * i + g + 8 * h) * kLd + wn0 + 8 * j +
+                      2 * t;
+          at[0] = pre[i][j][2 * h];
+          at[1] = pre[i][j][2 * h + 1];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  #pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int sl = static_cast<int>(threadIdx.x) / kCellsT + p * kRows;
+    const int s = m0 + sl;
+    if (!live || s >= a.S) continue;
+    const float* row = smem + sl * kLd + jl;
+    const float cp = cq[p];
+    const float g = tanhf(xq[p][0] + row[0]);
+    const float i = k1::sigmoid_f(xq[p][1] + row[kCellsT] + cp * pi);
+    const float f = k1::sigmoid_f(xq[p][2] + row[2 * kCellsT] + cp * pf);
+    float cn = g * i + cp * f;
+    if (a.cell_clip > 0.f) {
+      // written out (not fminf/fmaxf) so that a NaN propagates like clip
+      cn = cn < -a.cell_clip ? -a.cell_clip
+                             : (cn > a.cell_clip ? a.cell_clip : cn);
+    }
+    const float o = k1::sigmoid_f(xq[p][3] + row[3 * kCellsT] + cn * po);
+    bf16* gr = a.gifo_t + (size_t)s * C4 + cell;
+    gr[0] = __float2bfloat16_rn(g);
+    gr[a.C] = __float2bfloat16_rn(i);
+    gr[2 * (size_t)a.C] = __float2bfloat16_rn(f);
+    gr[3 * (size_t)a.C] = __float2bfloat16_rn(o);
+    a.c_t[(size_t)s * a.C + cell] = cn;
+    a.m_b[(size_t)s * a.C8 + cell] = __float2bfloat16_rn(tanhf(cn) * o);
+  }
+}
+
+// One step's projection r_t = m_b Wrm^T [S, R] over C, unsplit, on 32 x 32
+// tiles; the epilogue writes r_t in f32 (the residual and the output) and
+// its bf16 copy r_b, the next step's A operand.
+struct Proj16Args {
+  const bf16* m_b;     // [S, C8]
+  const bf16* wrm_b;   // [R, C8]
+  float* r_t;          // [S, R]
+  bf16* r_b;           // [S, R8]
+  int S, R, C, C8, R8;
+};
+
+using ProjGemm16 = tc::Gemm16<32, 32, 2, 2, true, true, 8, 64>;
+
+__global__ void __launch_bounds__(ProjGemm16::kThreads)
+fwd16_proj_kernel(Proj16Args a) {
+  using G = ProjGemm16;
+  extern __shared__ float4 smem4[];
+  const int m0 = blockIdx.x * G::kBM, n0 = blockIdx.y * G::kBN;
+  const tc::Operand16 A{a.m_b, a.C8, a.S, a.C};
+  const tc::Operand16 B{a.wrm_b, a.C8, a.R, a.C};
+  G::run(reinterpret_cast<bf16*>(smem4), A, B, m0, n0,
+         [&](typename G::Acc& acc) {
+    const int lane = threadIdx.x & 31;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    #pragma unroll
+    for (int q = 0; q < 2 * G::kMT; ++q) {     // (m16 tile, row half)
+      const int s = m0 + G::warp_m0() + 16 * (q / 2) + g8 + 8 * (q % 2);
+      if (s >= a.S) continue;
+      #pragma unroll
+      for (int j = 0; j < G::kNT; ++j) {
+        #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = n0 + G::warp_n0() + 8 * j + 2 * t4 + e;
+          if (r >= a.R) continue;
+          const float v = acc[q / 2][j][2 * (q % 2) + e];
+          a.r_t[(size_t)s * a.R + r] = v;
+          a.r_b[(size_t)s * a.R8 + r] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+  });
+}
+
+// K1 in bf16 (see lstmp_train_fwd_bf16 below).
+int train_fwd_bf16(const float* x, const float* w_gifo_x,
+                   const float* w_gifo_r, const float* bias,
+                   const float* peep, const float* w_r_m, const float* c0,
+                   const float* r0, const int8_t* mask, float inv_keep,
+                   bf16* gifo, float* c_out, float* r_out, float* xw,
+                   bf16* wr_b, bf16* wrm_b, bf16* wx_b, bf16* x_b, bf16* r_b,
+                   bf16* m_b, int T, int S, int I, int C, int R,
+                   float cell_clip, int xw_wg, int sms, void* stream) {
+  if (T <= 0 || S <= 0 || I <= 0 || C <= 0 || R <= 0 ||
+      (xw_wg != 0 && xw_wg != 1) || sms <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* copies[] = {wr_b, wrm_b, wx_b, x_b, r_b, m_b};
+  for (const void* p : copies) {
+    if (!k1::aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using GG = GateGemm16;
+  const int cells = GG::kBN / 4;
+  const int Cp = (C + cells - 1) / cells * cells;
+  const int C4 = 4 * C, R8 = ld8(R), C8 = ld8(C), I8 = ld8(I);
+  const int N = T * S;
+  const FwdCvts cv{{{w_gifo_r, wr_b, 4 * Cp, R, R8, cells, C},
+                    {w_r_m, wrm_b, R, C, C8, 0, C},
+                    {w_gifo_x, wx_b, C4, I, I8, 0, C},
+                    {x, x_b, N, I, I8, 0, C},
+                    {r0, r_b, S, R, R8, 0, C}}};
+  int most = 0;
+  for (const FwdCvt& c : cv.c) most = std::max(most, c.rows * c.cols);
+  fwd16_prep_kernel<<<dim3(std::min((most + 255) / 256, 1024), kFwdCvts),
+                      256, 0, st>>>(cv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const Xw16Args xa{x_b, wx_b, bias, mask, inv_keep, xw, N, I, C4, I8};
+  if (xw_wg) {
+    CUtensorMap mx, mw;
+    if (!wg::operand_map(&mx, x_b, false, N, I, I8) ||
+        !wg::operand_map(&mw, wx_b, false, C4, I, I8)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = cudaFuncSetAttribute(fwd16_xw_wg_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               XwRing::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int items = (N + wg::kBM - 1) / wg::kBM *
+                      ((C4 + wg::kBN - 1) / wg::kBN);
+    fwd16_xw_wg_kernel<<<std::min(items, sms), wg::kThreads, XwRing::kBytes,
+                         st>>>(mx, mw, xa);
+    err = cudaGetLastError();
+  } else {
+    const dim3 grid((N + XwGemm16::kBM - 1) / XwGemm16::kBM,
+                    (C4 + XwGemm16::kBN - 1) / XwGemm16::kBN);
+    err = launch_tile<XwGemm16>(st, fwd16_xw_kernel, grid, xa);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // the step's two kernels: their shared-memory limits set once a call,
+  // so that a step costs the host two launches and nothing else
+  err = cudaFuncSetAttribute(fwd16_gates_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             GG::kSmemBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fwd16_proj_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ProjGemm16::kSmemBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 gate_grid((S + GG::kBM - 1) / GG::kBM, 4 * Cp / GG::kBN);
+  const dim3 proj_grid((S + ProjGemm16::kBM - 1) / ProjGemm16::kBM,
+                       (R + ProjGemm16::kBN - 1) / ProjGemm16::kBN);
+  const size_t g_step = (size_t)S * C4, c_step = (size_t)S * C;
+  const size_t r_step = (size_t)S * R;
+  for (int t = 0; t < T; ++t) {
+    const Gate16Args ga{r_b, wr_b, xw + t * g_step,
+                        t == 0 ? c0 : c_out + (t - 1) * c_step, peep,
+                        gifo + t * g_step, c_out + t * c_step, m_b, S, R, C,
+                        Cp, R8, C8, cell_clip};
+    fwd16_gates_kernel<<<gate_grid, GG::kThreads, GG::kSmemBytes, st>>>(ga);
+    const Proj16Args pa{m_b, wrm_b, r_out + t * r_step, r_b, S, R, C, C8,
+                        R8};
+    fwd16_proj_kernel<<<proj_grid, ProjGemm16::kThreads,
+                        ProjGemm16::kSmemBytes, st>>>(pa);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1. Runs the T-step forward on `stream`, 2T + 2 launches, no
@@ -915,25 +1406,28 @@ extern "C" int lstmp_train_fwd_f32(const float* x, const float* w_gifo_x,
                             stream);
 }
 
-// K1 in bf16 (the --bf16 path): the arguments of lstmp_train_fwd_f32, with
-// gifo [T, S, 4C] in bfloat16; every product rounds its operands to bf16
-// (tc_gemm.cuh's bf16 mode), c_out and r_out stay f32.
-extern "C" int lstmp_train_fwd_bf16(const float* x, const float* w_gifo_x,
-                                    const float* w_gifo_r, const float* bias,
-                                    const float* peep, const float* w_r_m,
-                                    const float* c0, const float* r0,
-                                    const int8_t* mask, float inv_keep,
-                                    __nv_bfloat16* gifo, float* c_out,
-                                    float* r_out, float* xw, float* wr_perm,
-                                    float* m, int T, int S, int I, int C,
-                                    int R, float cell_clip, int gate_bm,
-                                    void* stream) {
-  return train_fwd<tc::Bf16>(x, w_gifo_x, w_gifo_r, bias, peep, w_r_m, c0,
-                             r0, mask, inv_keep, gifo, c_out, r_out, xw,
-                             wr_perm, m, T, S, I, C, R, cell_clip, gate_bm,
-                             stream);
+// K1 in bf16 (the --bf16 path; its design in the header): the arguments
+// of lstmp_train_fwd_f32 with gifo [T, S, 4C] in bfloat16 and, in place of
+// wr_perm and m, bf16 scratch whose rows are padded to a multiple of 8
+// elements (ld8), each 16-byte aligned: wr_b [4 Cp, ld8(R)] (Cp = C
+// rounded up to whole gate tiles), wrm_b [R, ld8(C)], wx_b [4C, ld8(I)],
+// x_b [T S, ld8(I)], r_b [S, ld8(R)], m_b [S, ld8(C)]. xw_wg picks the
+// hoisted xw's route (1: wgmma fed by TMA on a persistent grid of at most
+// sms CTAs; 0: Gemm16 tiles). 2T + 2 launches. c_out and r_out stay f32.
+// Returns a CUDA error code (0 on success).
+extern "C" int lstmp_train_fwd_bf16(
+    const float* x, const float* w_gifo_x, const float* w_gifo_r,
+    const float* bias, const float* peep, const float* w_r_m, const float* c0,
+    const float* r0, const int8_t* mask, float inv_keep, __nv_bfloat16* gifo,
+    float* c_out, float* r_out, float* xw, __nv_bfloat16* wr_b,
+    __nv_bfloat16* wrm_b, __nv_bfloat16* wx_b, __nv_bfloat16* x_b,
+    __nv_bfloat16* r_b, __nv_bfloat16* m_b, int T, int S, int I, int C, int R,
+    float cell_clip, int xw_wg, int sms, void* stream) {
+  return train_fwd_bf16(x, w_gifo_x, w_gifo_r, bias, peep, w_r_m, c0, r0,
+                        mask, inv_keep, gifo, c_out, r_out, xw, wr_b, wrm_b,
+                        wx_b, x_b, r_b, m_b, T, S, I, C, R, cell_clip,
+                        xw_wg, sms, stream);
 }
-
 
 // K2. Residuals as K1 wrote them (gifo, c_seq, r_seq [T, S, .]), the
 // chunk's initial state c0 [S, C], r0 [S, R], x [T, S, I], the weights in

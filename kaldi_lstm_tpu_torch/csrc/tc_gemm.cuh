@@ -2,7 +2,7 @@
 // bf16, shared by every product of csrc/xent_affine.cu (K3, K4) and
 // csrc/lstmp_train.cu (K1, K2); and, at the end of this file, its bf16
 // tile mode (Gemm16: operands already bf16 in device memory), which the
-// bf16 K2 runs on.
+// bf16 K1 and K2 run on.
 //
 // C[m, n] = sum_k A(m, k) B(k, n) over float32 operands in device memory.
 // Each operand is either K-major (element (row, k) at p[row * ld + k]) or
@@ -473,22 +473,23 @@ struct Gemm {
 // bf16 tiles: operands that are bf16 in device memory (Bf16's contract)
 // ---------------------------------------------------------------------------
 //
-// The mode of K2's bf16 products (csrc/lstmp_train.cu). Each operand is a
-// bf16 copy made once where its value is produced: a weight rounded once a
-// call, an activation or a gradient written in bf16 by the epilogue that
-// computes it. So nothing is rounded in the mainloop, and a stage crosses
-// L2 and shared memory in half the bytes of the f32 ring above. Tiles are
-// bf16 ([rows][kBK + 8] K-major, [kBK][rows + 8] along the output
-// dimension: rows of 80 or 144 bytes, an odd number of 16-byte units, so
-// the fragment loads are free of bank conflicts); every copy is a 16-byte
-// cp.async with zero fill past an extent, so leading dimensions are
-// multiples of 8 elements and bases 16-byte aligned (the callers pad
+// The mode of K2's and K1's bf16 products (csrc/lstmp_train.cu). Each
+// operand is a bf16 copy made once where its value is produced: a weight
+// rounded once a call, an activation or a gradient written in bf16 by the
+// epilogue that computes it. So nothing is rounded in the mainloop, and a
+// stage crosses L2 and shared memory in half the bytes of the f32 ring
+// above. Tiles are bf16 ([rows][BK + 8] K-major, [BK][rows + 8] along the
+// output dimension: rows of 80 or 144 bytes, an odd number of 16-byte
+// units, so the fragment loads are free of bank conflicts); every copy is
+// a 16-byte cp.async with zero fill past an extent, so leading dimensions
+// are multiples of 8 elements and bases 16-byte aligned (the callers pad
 // their copies). Fragments come in with ldmatrix of b16 (.trans for an
 // operand stored along the output dimension), one mma.sync m16n8k16 bf16
-// per 16 of depth. Each 32-deep stage's products go into a fragment that
-// starts at zero and is added to the f32 accumulator, for the truncation
-// reason in the header. STAGES is the ring's depth: a product with a long
-// contraction and few tiles keeps more stages in flight.
+// per 16 of depth. Each stage's products (BK deep: 32 by default, 64 in
+// the bf16 K1) go into a fragment that starts at zero and is added to the
+// f32 accumulator, for the truncation reason in the header. STAGES is the
+// ring's depth: a product with a long contraction and few tiles keeps
+// more stages in flight.
 
 struct Operand16 {
   const __nv_bfloat16* p;
@@ -507,11 +508,11 @@ __device__ __forceinline__ void ldsm_x4_t(const void* p, unsigned (&r)[4]) {
       : "r"(smem_u32(p)));
 }
 
-// One operand's stage tile: ROWS x kBK bf16 values.
-template <int ROWS, bool KMAJOR>
+// One operand's stage tile: ROWS x BK bf16 values.
+template <int ROWS, bool KMAJOR, int BK = kBK>
 struct Tile16 {
-  static constexpr int kLd = KMAJOR ? kBK + 8 : ROWS + 8;
-  static constexpr int kElems = KMAJOR ? ROWS * kLd : kBK * kLd;
+  static constexpr int kLd = KMAJOR ? BK + 8 : ROWS + 8;
+  static constexpr int kElems = KMAJOR ? ROWS * kLd : BK * kLd;
 
   __device__ static __forceinline__ int at(int row, int k) {
     return KMAJOR ? row * kLd + k : k * kLd + row;
@@ -521,7 +522,7 @@ struct Tile16 {
   __device__ static __forceinline__ void load(__nv_bfloat16* s,
                                               const Operand16& op, int row0,
                                               int k0) {
-    constexpr int kChunks = ROWS * kBK / 8;
+    constexpr int kChunks = ROWS * BK / 8;
     static_assert(kChunks % THREADS == 0, "tile copy must split evenly");
     #pragma unroll
     for (int q = 0; q < kChunks / THREADS; ++q) {
@@ -529,8 +530,8 @@ struct Tile16 {
       int row, k, bytes;
       const __nv_bfloat16* src;
       if constexpr (KMAJOR) {
-        row = c / (kBK / 8);
-        k = (c % (kBK / 8)) * 8;
+        row = c / (BK / 8);
+        k = (c % (BK / 8)) * 8;
         const int gr = row0 + row, gk = k0 + k;
         bytes = gr < op.rows ? 2 * max(0, min(8, op.kext - gk)) : 0;
         src = op.p + (size_t)gr * op.ld + gk;
@@ -586,7 +587,7 @@ struct Tile16 {
   }
 };
 
-template <class TA, class TB, int kMT, int kNT>
+template <class TA, class TB, int kMT, int kNT, int BK = kBK>
 __device__ __forceinline__ void stage_mma16(const __nv_bfloat16* sa,
                                             const __nv_bfloat16* sb, int wm0,
                                             int wn0,
@@ -594,7 +595,7 @@ __device__ __forceinline__ void stage_mma16(const __nv_bfloat16* sa,
   static_assert(kNT % 2 == 0, "B fragments come in pairs of n8 tiles");
   float part[kMT][kNT][4];
   #pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
+  for (int kk = 0; kk < BK; kk += 16) {
     unsigned a[kMT][4];
     #pragma unroll
     for (int i = 0; i < kMT; ++i) TA::frag_a(sa, wm0 + 16 * i, kk, a[i]);
@@ -624,9 +625,10 @@ __device__ __forceinline__ void stage_mma16(const __nv_bfloat16* sa,
   }
 }
 
-// Gemm's mainloop over bf16 operands and tiles (one output tile a call).
+// Gemm's mainloop over bf16 operands and tiles (one output tile a call),
+// in BK-deep stages.
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool A_KMAJOR,
-          bool B_KMAJOR, int STAGES>
+          bool B_KMAJOR, int STAGES, int BK = kBK>
 struct Gemm16 {
   static constexpr int kBM = BM;
   static constexpr int kBN = BN;
@@ -638,8 +640,8 @@ struct Gemm16 {
   static_assert(kWarpM % 16 == 0 && kWarpN % 16 == 0,
                 "the warps must tile the CTA tile in mma tiles");
   using Acc = float[kMT][kNT][4];
-  using TA = Tile16<BM, A_KMAJOR>;
-  using TB = Tile16<BN, B_KMAJOR>;
+  using TA = Tile16<BM, A_KMAJOR, BK>;
+  using TB = Tile16<BN, B_KMAJOR, BK>;
   static constexpr int kStageElems = TA::kElems + TB::kElems;
   static constexpr int kSmemBytes =
       STAGES * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
@@ -660,11 +662,11 @@ struct Gemm16 {
                                              const Operand16& B, int m0,
                                              int n0, Epi&& epi) {
     const int wm0 = warp_m0(), wn0 = warp_n0();
-    const int total = (A.kext + kBK - 1) / kBK;
+    const int total = (A.kext + BK - 1) / BK;
     auto load = [&](int it) {
       __nv_bfloat16* s = smem + (it % STAGES) * kStageElems;
-      TA::template load<kThreads>(s, A, m0, it * kBK);
-      TB::template load<kThreads>(s + TA::kElems, B, n0, it * kBK);
+      TA::template load<kThreads>(s, A, m0, it * BK);
+      TB::template load<kThreads>(s + TA::kElems, B, n0, it * BK);
     };
     #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -679,7 +681,7 @@ struct Gemm16 {
       if (it + STAGES - 1 < total) load(it + STAGES - 1);
       cp_async_commit();
       const __nv_bfloat16* s = smem + (it % STAGES) * kStageElems;
-      stage_mma16<TA, TB, kMT, kNT>(s, s + TA::kElems, wm0, wn0, acc);
+      stage_mma16<TA, TB, kMT, kNT, BK>(s, s + TA::kElems, wm0, wn0, acc);
     }
     epi(acc);
     cp_async_wait<0>();

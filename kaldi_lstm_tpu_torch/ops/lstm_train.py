@@ -58,7 +58,13 @@ epilogue, dr is unsplit and forms the next step's dr_total. Its launch
 counts are ``bwd_launches(T, need_dx, bf16=True)``, one more than the
 f32 entry point's; ``bwd_plan(..., bf16=True)`` its splits,
 ``bwd_bf16_launches`` its tiles, ``lstm_bwd_split_plain`` in bf16 its
-sums (``_stage_matmul``).
+sums (``_stage_matmul``). K1's bf16 entry point is its own design on the
+same tiles in 64-deep stages: a prologue launch rounds the
+gate-interleaved Wr, Wrm, Wx, x and r0 once into bf16 copies (one
+allocation, ``_ld8`` rows), the gates epilogue writes m in bf16 and the
+projection's the next step's bf16 r beside the f32 r; still
+``fwd_launches(T)``. ``fwd_plan(..., bf16=True)`` gives its tiles and
+the xw's route, ``lstm_fwd_tc_plain`` in bf16 its interleave.
 
 Counters: ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the CUDA kernel
 launches of the float32 entry points (K1: ``fwd_launches``, 2 per step
@@ -113,7 +119,9 @@ def _entries(bf16: bool = False):
     bwd = getattr(lib, f"lstmp_train_bwd_{tag}")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if fwd.argtypes is None:
-        fwd.argtypes = [p] * 9 + [f] + [p] * 6 + [i] * 5 + [f, i, p]
+        fwd.argtypes = [p] * 9 + [f] + ([p] * 10 + [i] * 5 + [f] + [i] * 2
+                                        if bf16 else
+                                        [p] * 6 + [i] * 5 + [f, i]) + [p]
         fwd.restype = ctypes.c_int
     if bwd.argtypes is None:
         bwd.argtypes = [p] * 11 + [f] + ([p] * 24 + [i] * 10 if bf16
@@ -141,42 +149,85 @@ def _ctas(M: int, N: int, bm: int, bn: int) -> int:
 
 
 def fwd_plan(T: int, S: int, I: int, C: int, R: int,
-             sms: int = H100_SMS) -> dict[str, int]:
-    """K1's tiles. The hoisted xw [T S, 4C] takes 64 x 64 tiles; the
-    per-step gates [S, 4Cp] (Cp = C padded to whole 16-cell tiles) take
-    64 x 64 tiles, or 32 x 64 where 64 rows leave SMs without a tile;
-    the per-step projection [S, R] takes 32 x 32 tiles at every shape
-    (64 x 64 measured slower wherever tried). No product is split over
-    its contraction: r_t feeds step t+1 with no summing pass."""
-    Cp = -(-C // _GATE_CELLS) * _GATE_CELLS
-    gate_bm = 64 if _ctas(S, 4 * Cp, 64, 64) >= sms else 32
-    return {"padded_cells": Cp, "gate_bm": gate_bm,
-            "xw_ctas": _ctas(T * S, 4 * C, 64, 64),
-            "gate_ctas": _ctas(S, 4 * Cp, gate_bm, 64),
-            "proj_ctas": _ctas(S, R, _PROJ_TILE, _PROJ_TILE)}
+             sms: int = H100_SMS, bf16: bool = False) -> dict:
+    """K1's tiles. In f32: the hoisted xw [T S, 4C] takes 64 x 64 tiles;
+    the per-step gates [S, 4Cp] (Cp = C padded to whole 16-cell tiles)
+    take 64 x 64 tiles, or 32 x 64 where 64 rows leave SMs without a
+    tile; the per-step projection [S, R] takes 32 x 32 tiles at every
+    shape (64 x 64 measured slower wherever tried). No product is split
+    over its contraction: r_t feeds step t+1 with no summing pass.
+
+    With ``bf16`` the bf16 design's (csrc/lstmp_train.cu::train_fwd_bf16):
+    the gates on ``K1_BF16_GATE_TILE`` (its width 4 x ``gate_cells``,
+    which the interleave follows), the hoisted xw's route ("mma": Gemm16
+    ``K1_BF16_XW_TILE``; "wg": wgmma 128 x 128 tiles on a persistent
+    grid of at most ``sms`` CTAs, where the contraction is deeper than
+    one stage), the CTA counts and the Gemm16 kernels' dynamic shared
+    memory in bytes."""
+    if not bf16:
+        Cp = -(-C // _GATE_CELLS) * _GATE_CELLS
+        gate_bm = 64 if _ctas(S, 4 * Cp, 64, 64) >= sms else 32
+        return {"padded_cells": Cp, "gate_bm": gate_bm,
+                "xw_ctas": _ctas(T * S, 4 * C, 64, 64),
+                "gate_ctas": _ctas(S, 4 * Cp, gate_bm, 64),
+                "proj_ctas": _ctas(S, R, _PROJ_TILE, _PROJ_TILE)}
+    bm, bn, wm, wn, stages = K1_BF16_GATE_TILE
+    cells = bn // 4
+    Cp = -(-C // cells) * cells
+    xbm, xbn, xst = K1_BF16_XW_TILE
+    pbm, pbn, pst = K1_BF16_PROJ_TILE
+    xw_route = "wg" if I > K1_BF16_STAGE else "mma"
+    xw_ctas = (min(_ctas(T * S, 4 * C, 128, 128), sms) if xw_route == "wg"
+               else _ctas(T * S, 4 * C, xbm, xbn))
+    return {"gate_bm": bm, "gate_bn": bn, "gate_threads": 32 * wm * wn,
+            "gate_cells": cells, "padded_cells": Cp,
+            "gate_ctas": _ctas(S, 4 * Cp, bm, bn),
+            "gate_smem": _gemm16_smem(bm, bn, stages, True, True,
+                                      K1_BF16_STAGE),
+            "xw_route": xw_route, "xw_ctas": xw_ctas,
+            "xw_smem": _gemm16_smem(xbm, xbn, xst, True, True,
+                                    K1_BF16_STAGE),
+            "proj_ctas": _ctas(S, R, pbm, pbn),
+            "proj_smem": _gemm16_smem(pbm, pbn, pst, True, True,
+                                      K1_BF16_STAGE)}
+
+
+# csrc/lstmp_train.cu's bf16 K1 tiles (tc::Gemm16 in 64-deep bf16 stages):
+# the gate tile (rows, columns = 4 x its cells, warps along m and n, ring
+# stages), the hoisted xw's mma-route tile and the projection's (rows,
+# columns, stages)
+K1_BF16_STAGE = 64
+K1_BF16_GATE_TILE = (64, 128, 2, 4, 4)
+K1_BF16_GATE_CELLS = K1_BF16_GATE_TILE[1] // 4
+K1_BF16_XW_TILE = (64, 64, 4)
+K1_BF16_PROJ_TILE = (32, 32, 8)
 
 
 def fwd_launches(T: int) -> int:
-    """K1's launches per call: the gate interleave, the hoisted xw, and
-    gates and projection per step."""
+    """K1's launches per call (f32 and bf16 alike): the gate interleave
+    (in bf16 the prologue that also rounds the operands), the hoisted xw,
+    and gates and projection per step."""
     return 2 * T + 2
 
 
-def gate_interleave(C: int) -> torch.Tensor:
+def gate_interleave(C: int, cells: int = _GATE_CELLS) -> torch.Tensor:
     """Row p of K1's gate-interleaved copy of w_gifo_r [4C, R] is row
-    ``gate_interleave(C)[p]`` of it, or a zero row where that is -1 (a
-    padding cell): gate tile b (rows 64 b .. 64 b + 63) holds gates g, i,
-    f, o of cells 16 b .. 16 b + 15 in that order."""
-    p = torch.arange(4 * (-(-C // _GATE_CELLS) * _GATE_CELLS))
-    q = (p % (4 * _GATE_CELLS)) // _GATE_CELLS
-    j = (p // (4 * _GATE_CELLS)) * _GATE_CELLS + p % _GATE_CELLS
+    ``gate_interleave(C, cells)[p]`` of it, or a zero row where that is
+    -1 (a padding cell): gate tile b (rows 4 cells b .. 4 cells (b + 1)
+    - 1) holds gates g, i, f, o of cells ``cells`` b .. ``cells`` (b + 1)
+    - 1 in that order. ``cells`` is the gate tile's width over 4: 16 in
+    f32, ``K1_BF16_GATE_CELLS`` in bf16."""
+    p = torch.arange(4 * (-(-C // cells) * cells))
+    q = (p % (4 * cells)) // cells
+    j = (p // (4 * cells)) * cells + p % cells
     return torch.where(j < C, q * C + j, -1)
 
 
-def gate_deinterleave(C: int) -> torch.Tensor:
+def gate_deinterleave(C: int, cells: int = _GATE_CELLS) -> torch.Tensor:
     """The inverse: column n of the natural g|i|f|o layout [4C] sits at
-    column ``gate_deinterleave(C)[n]`` of the interleaved product."""
-    rows = gate_interleave(C)
+    column ``gate_deinterleave(C, cells)[n]`` of the interleaved
+    product."""
+    rows = gate_interleave(C, cells)
     cols = torch.empty(4 * C, dtype=torch.long)
     real = rows >= 0
     cols[rows[real]] = torch.nonzero(real).flatten()
@@ -219,12 +270,14 @@ def bwd_plan(T: int, S: int, I: int, C: int, R: int,
 BF16_TILES = {"dm": (32, 32, 8), "dr": (32, 32, 8), "frame": (64, 64, 4)}
 
 
-def _gemm16_smem(bm: int, bn: int, stages: int, a_kmajor: bool) -> int:
-    """Dynamic shared memory of a Gemm16 (B along n): per stage a bf16
-    tile of each operand, [rows][32 + 8] K-major, [32][rows + 8] along
-    the output dimension."""
-    a = bm * (_STAGE + 8) if a_kmajor else _STAGE * (bm + 8)
-    return stages * (a + _STAGE * (bn + 8)) * 2
+def _gemm16_smem(bm: int, bn: int, stages: int, a_kmajor: bool,
+                 b_kmajor: bool = False, bk: int = _STAGE) -> int:
+    """Dynamic shared memory of a Gemm16 in ``bk``-deep stages: per stage
+    a bf16 tile of each operand, [rows][bk + 8] K-major, [bk][rows + 8]
+    along the output dimension."""
+    def tile(rows, kmajor):
+        return rows * (bk + 8) if kmajor else bk * (rows + 8)
+    return stages * (tile(bm, a_kmajor) + tile(bn, b_kmajor)) * 2
 
 
 def bwd_bf16_launches(T: int, S: int, I: int, C: int, R: int,
@@ -363,12 +416,13 @@ def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
     """K1's decomposition in torch, the arguments and results of
     ``lstm_fwd_residuals_plain``: the hoisted xw with the mask and the
     bias, then per step the recurrent product against the
-    gate-interleaved copy of Wr (zero rows for the padding cells), taken
-    back to the g|i|f|o order and added to xw_t, the cell, and the
-    projection."""
+    gate-interleaved copy of Wr (zero rows for the padding cells; 16
+    cells a tile in f32, ``K1_BF16_GATE_CELLS`` in bf16), taken back to
+    the g|i|f|o order and added to xw_t, the cell, and the projection."""
     C = params.cell_dim
-    rows = gate_interleave(C).to(x_tm.device)
-    cols = gate_deinterleave(C).to(x_tm.device)
+    cells = _GATE_CELLS if compute_dtype is None else K1_BF16_GATE_CELLS
+    rows = gate_interleave(C, cells).to(x_tm.device)
+    cols = gate_deinterleave(C, cells).to(x_tm.device)
     wr_perm = torch.where((rows >= 0)[:, None],
                           params.w_gifo_r[rows.clamp_min(0)], 0.0)
     wr_perm_t = rounded(wr_perm, compute_dtype).T
@@ -535,12 +589,14 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
                             c0: torch.Tensor, r0: torch.Tensor,
                             keep_mask_tm: torch.Tensor | None = None,
                             inv_keep: float = 1.0, cell_clip: float = 50.0,
-                            compute_dtype=None
+                            compute_dtype=None, plan: dict | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """K1 on the card (``lstmp_train_fwd_bf16`` when ``compute_dtype`` is
     torch.bfloat16); same arguments and results as the plain version.
-    ``keep_mask_tm`` is int8 [T, S, 4C], contiguous."""
+    ``keep_mask_tm`` is int8 [T, S, 4C], contiguous. ``plan`` replaces
+    the card's ``fwd_plan`` (a timing tool compares the xw's routes with
+    it)."""
     global FWD_LAUNCHES, FWD_BF16_LAUNCHES
     bf16 = check_compute_dtype(compute_dtype, "lstm_train")
     T, S, I = x_tm.shape
@@ -550,8 +606,9 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
     check_lstm_operands(params, T, S, I, LstmState(c0, r0), dev,
                         "lstm_train")
     _check_mask(keep_mask_tm, (T, S, 4 * C), dev)
-    plan = fwd_plan(T, S, I, C, R, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if plan is None:
+        plan = fwd_plan(T, S, I, C, R, sms, bf16=bf16)
     cont = [t.contiguous() for t in (x_tm, params.w_gifo_x, params.w_gifo_r,
                                      params.bias, params.w_r_m, c0, r0)]
     x_c, wx, wr, bias, wrm, c0c, r0c = cont
@@ -562,8 +619,20 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
     c_seq = torch.empty((T, S, C), **f32)
     r_seq = torch.empty((T, S, R), **f32)
     xw = torch.empty((T, S, 4 * C), **f32)
-    wr_perm = torch.empty((4 * plan["padded_cells"], R), **f32)
-    m = torch.empty((S, C), **f32)
+    if bf16:
+        # the bf16 copies wr_b, wrm_b, wx_b, x_b, r_b, m_b in one
+        # allocation, each [rows, ld8(cols)]: every one starts 16-byte
+        # aligned
+        shapes = [(4 * plan["padded_cells"], R), (R, C), (4 * C, I),
+                  (T * S, I), (S, R), (S, C)]
+        sizes = [rows * _ld8(cols) for rows, cols in shapes]
+        flat = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+        scratch = list(flat.split(sizes))
+        tail = [int(plan["xw_route"] == "wg"), sms]
+    else:
+        scratch = [torch.empty((4 * plan["padded_cells"], R), **f32),
+                   torch.empty((S, C), **f32)]
+        tail = [plan["gate_bm"]]
     fwd, _ = _entries(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -571,9 +640,9 @@ def lstm_fwd_residuals_cuda(params: LstmParams, x_tm: torch.Tensor,
                   bias.data_ptr(), peep.data_ptr(), wrm.data_ptr(),
                   c0c.data_ptr(), r0c.data_ptr(), _ptr(keep_mask_tm),
                   float(inv_keep), gifo.data_ptr(), c_seq.data_ptr(),
-                  r_seq.data_ptr(), xw.data_ptr(), wr_perm.data_ptr(),
-                  m.data_ptr(), T, S, I, C, R, float(cell_clip),
-                  plan["gate_bm"], stream)
+                  r_seq.data_ptr(), xw.data_ptr(),
+                  *(t.data_ptr() for t in scratch), T, S, I, C, R,
+                  float(cell_clip), *tail, stream)
     if err != 0:
         raise RuntimeError(f"lstm_train: K1 launch failed with CUDA error "
                            f"{err}")

@@ -1,11 +1,12 @@
 """Time this tree's LSTMP inference kernel (K5, ``ops.lstm_infer``),
 training forward (K1, ``ops.lstm_train.lstm_fwd_residuals``), fused
 senone affine + xent forward and backward (K3, K4, ``ops.xent_affine``)
-and, in bf16, K5, the training backward (K2, ``ops.lstm_train.lstm_bwd``),
-K3 and K4 against another checkout's, on the card, in turns.
+and, in bf16, K5, K1, the training backward (K2,
+``ops.lstm_train.lstm_bwd``), K3 and K4 against another checkout's, on
+the card, in turns.
 
     python -m kaldi_lstm_tpu_torch.tools.bench_infer_ab OTHER_DIR \\
-        [k5:S,T,I | k1:S,T,I | k5b:S,T,I | k2b:S,T,I |
+        [k5:S,T,I | k1:S,T,I | k5b:S,T,I | k1b:S,T,I | k2b:S,T,I |
          k3:N,R,K | k4:N,R,K | k3b:N,R,K | k4b:N,R,K ...]
 
 OTHER_DIR is the root of another checkout of this repository (for
@@ -13,7 +14,8 @@ example the parent commit unpacked with ``git archive``). For each case
 (default: K5 at the cross-validation shape k5:256,20,40 and the serving
 shape k5:8,1000,40, K1 at the flagship training shape k1:256,20,40 and
 the deep net's layer 2 k1:256,20,512; C=800, R=512 throughout; a bare
-S,T,I means K5; k5b is K5 with ``compute_dtype=torch.bfloat16``, k2b
+S,T,I means K5; k5b is K5 with ``compute_dtype=torch.bfloat16``, k1b
+K1 in bf16 (the same call as k1 with ``compute_dtype``), k2b
 K2 in bf16 without dx on K1's bf16 residuals of the same inputs; k3 /
 k4 are K3 / K4 at N frames, R projections and K classes, one target a
 frame, every frame unmasked, K4 on K3's lse of the same inputs, and k3b
@@ -82,19 +84,22 @@ def _time_here(shape: str) -> dict:
 
         def call():
             li.lstm_infer(p, x, st, compute_dtype=bf)
-    elif kernel == "k1":
+    elif kernel in ("k1", "k1b"):
         x_tm = x.transpose(0, 1).contiguous()
         mod = lt
+        dt = bf if kernel == "k1b" else None
 
         def call():
-            lt.lstm_fwd_residuals(p, x_tm, st.c, st.r, None, 1.0, 50.0)
+            lt.lstm_fwd_residuals(p, x_tm, st.c, st.r, None, 1.0, 50.0,
+                                  compute_dtype=dt)
     else:
         mod = li
 
         def call():
             li.lstm_infer(p, x, st)
     ms = _median_times(call, mod)
-    launches = {"k1": lt.FWD_LAUNCHES, "k2b": lt.BWD_BF16_LAUNCHES,
+    launches = {"k1": lt.FWD_LAUNCHES, "k1b": lt.FWD_BF16_LAUNCHES,
+                "k2b": lt.BWD_BF16_LAUNCHES,
                 "k5b": li.BF16_LAUNCHES}.get(kernel, li.LAUNCHES)
     return {"ms": ms, "launches": launches / 5}
 

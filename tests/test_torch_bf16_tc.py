@@ -1,6 +1,7 @@
 """The redesigned bf16 kernels of K5 (``lstmp_infer_bf16``, the bf16
-tensor-core recurrence) and K2 (``lstmp_train_bwd_bf16``, on the bf16
-tiles of csrc/tc_gemm.cuh) on the CPU:
+tensor-core recurrence), K2 (``lstmp_train_bwd_bf16``, on the bf16
+tiles of csrc/tc_gemm.cuh) and K1 (``lstmp_train_fwd_bf16``, on the same
+tiles in 64-deep stages) on the CPU:
 
 * their plans at every shape chip_smoke.py runs them: shared memory
   within an H100 block's 232,448 bytes, every cell, projection column
@@ -10,10 +11,12 @@ tiles of csrc/tc_gemm.cuh) on the CPU:
   slice's product from a zero fragment added in f32, the warps' splits
   added in warp order, ``lstm_infer_tc_plain``; K2: 32-deep stages in
   the same way, dm and dr unsplit, the frame-axis products split,
-  ``lstm_bwd_split_plain`` in bf16)
+  ``lstm_bwd_split_plain`` in bf16; K1: the gate interleave at the gate
+  tile's width, ``lstm_fwd_tc_plain`` in bf16)
   against the JAX package's bf16 kernels: K5 through ``_infer_call`` in
   interpret mode (the custom-VJP primal of ``lstm_scan_pallas``), K2
-  through ``lstm_scan_pallas``'s gradients under ``set_matmul_dtype``;
+  through ``lstm_scan_pallas``'s gradients under ``set_matmul_dtype``,
+  K1 through its primal (the outputs and the final state);
 * that the bf16 weight copies are made anew on every call, so that an
   in-place update of the parameters (the optimizer's) is seen by the
   next call: of the mirrors here, of the kernels themselves on a card
@@ -43,6 +46,7 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
 
 from test_torch_bf16 import (
     BF16,
+    LSTM_CASES,
     LSTM_NAMES,
     assert_bf16_close,
     jax_lstm,
@@ -71,6 +75,11 @@ K5_SHAPES = [(8, 40, 800, 512), (256, 40, 800, 512), (8, 512, 800, 512),
 # K2 bf16 at every shape phase 3d and 5c run it: (T, S, I, C, R)
 K2_SHAPES = [(20, 256, 40, 800, 512), (20, 256, 512, 800, 512),
              (2, 256, 40, 800, 512), (2, 3, 37, 200, 130)]
+# K1 bf16 at every shape phase 3d runs it (the flagship, I=512, T=2, the
+# per-utterance S=1, ragged): (T, S, I, C, R)
+K1_SHAPES = [(20, 256, 40, 800, 512), (20, 256, 512, 800, 512),
+             (2, 256, 40, 800, 512), (64, 1, 40, 800, 512),
+             (2, 3, 37, 200, 130)]
 
 
 @pytest.mark.parametrize("S,I,C,R", K5_SHAPES)
@@ -189,6 +198,66 @@ def test_k2_bf16_tiles_fit_and_cover_every_output_once(T, S, I, C, R,
         lt.bwd_launches(T, need_dx) + 1
 
 
+@pytest.mark.parametrize("T,S,I,C,R", K1_SHAPES)
+def test_k1_bf16_tiles_fit_and_cover_every_output_once(T, S, I, C, R):
+    """The bf16 plan at every shape phase 3d runs: each Gemm16 kernel's
+    shared memory within a block's, the gate tile staged inside its
+    ring, the epilogue's rounds of tile rows whole, every (stream, cell)
+    of the gates and every xw and projection output owned by exactly one
+    CTA, the xw on wgmma only where the contraction is deeper than one
+    stage."""
+    plan = lt.fwd_plan(T, S, I, C, R, bf16=True)
+    bm, bn, cells = plan["gate_bm"], plan["gate_bn"], plan["gate_cells"]
+    assert max(plan["gate_smem"], plan["xw_smem"],
+               plan["proj_smem"]) <= OPTIN
+    assert bm * (bn + 4) * 4 <= plan["gate_smem"]   # the staged tile
+    assert bm % (plan["gate_threads"] // cells) == 0
+    Cp = plan["padded_cells"]
+    assert bn == 4 * cells and Cp % cells == 0 and C <= Cp < C + cells
+    owner = np.full((S, C), -1)
+    ny = 4 * Cp // bn
+    assert plan["gate_ctas"] == -(-S // bm) * ny
+    for b in range(plan["gate_ctas"]):
+        bx, by = b // ny, b % ny
+        block = owner[bx * bm:(bx + 1) * bm, by * cells:(by + 1) * cells]
+        assert (block == -1).all()
+        block[...] = b
+    assert (owner >= 0).all()
+    route = plan["xw_route"]
+    assert route == ("wg" if I > lt.K1_BF16_STAGE else "mma")
+    xt = 128 if route == "wg" else lt.K1_BF16_XW_TILE[0]
+    tiles = -(-T * S // xt) * -(-4 * C // xt)
+    assert plan["xw_ctas"] == (min(tiles, lt.H100_SMS) if route == "wg"
+                               else tiles)
+    pbm, pbn, _ = lt.K1_BF16_PROJ_TILE
+    assert plan["proj_ctas"] == -(-S // pbm) * -(-R // pbn)
+    assert lt.fwd_launches(T) == 2 * T + 2
+
+
+@pytest.mark.parametrize("cells", [16, lt.K1_BF16_GATE_CELLS])
+@pytest.mark.parametrize("C", [1, 9, 16, 31, 33, 200, 800])
+def test_k1_gate_interleave_deals_each_cell_into_one_tile(cells, C):
+    """The interleave at a gate tile of 4 x `cells` columns (f32's 16
+    cells, the bf16 tile's 32): tile b holds
+    g, i, f, o (in that order) of cells `cells` b .. `cells` (b + 1) - 1,
+    each real row of w_gifo_r exactly once, zero rows for padding cells;
+    the deinterleave is its inverse."""
+    rows = lt.gate_interleave(C, cells)
+    Cp = -(-C // cells) * cells
+    assert rows.shape == (4 * Cp,)
+    tiles = rows.reshape(Cp // cells, 4, cells)
+    for b in range(Cp // cells):
+        for lane in range(cells):
+            j = b * cells + lane
+            got = tiles[b, :, lane].tolist()
+            assert got == ([q * C + j for q in range(4)] if j < C
+                           else [-1] * 4)
+    real = rows[rows >= 0]
+    assert sorted(real.tolist()) == list(range(4 * C))
+    cols = lt.gate_deinterleave(C, cells)
+    assert torch.equal(rows[cols], torch.arange(4 * C))
+
+
 # ---------------------------------------------------------------------------
 # the sums against JAX
 # ---------------------------------------------------------------------------
@@ -295,6 +364,30 @@ def test_k2_bf16_mirror_matches_pallas_gradients(case):
     for n, pv, av, bv in zip(LSTM_NAMES[1], grads, j16[1], j32[1]):
         if n == "dx" and not need_dx:
             continue
+        assert_bf16_close(n, pv, av, bv)
+
+
+@pytest.mark.parametrize("case", list(LSTM_CASES))
+def test_k1_bf16_mirror_matches_pallas_primal(case):
+    """lstm_fwd_tc_plain in bf16 (the bf16 K1's decomposition: the
+    interleave at the bf16 gate tile's 32 cells) against
+    lstm_scan_pallas's primal under set_matmul_dtype(bf16), interpret
+    mode: r for every t and the final state, by the module's rule."""
+    S, T, I, C, R, keep, _ = LSTM_CASES[case]
+    p, x, c0, r0, mask, cot = lstm_inputs(S, T, I, C, R, keep, seed=11 + S)
+    j16 = jax_lstm(p, x, c0, r0, mask, cot, keep, False, jnp.bfloat16)
+    j32 = jax_lstm(p, x, c0, r0, mask, cot, keep, False, None)
+    tp = LstmParams(**{k: t(v) for k, v in p.items()})
+    x_tm = t(x).transpose(0, 1).contiguous()
+    m8 = None if mask is None else \
+        torch.from_numpy(mask).transpose(0, 1).to(torch.int8).contiguous()
+    ik = 1.0 if keep is None else 1.0 / keep
+    gifo, c_seq, r_seq = lt.lstm_fwd_tc_plain(
+        tp, x_tm, t(c0), t(r0), m8, ik, 50.0, compute_dtype=BF16)
+    assert gifo.dtype == BF16
+    port = [r_seq.transpose(0, 1).numpy(), c_seq[T - 1].numpy(),
+            r_seq[T - 1].numpy()]
+    for n, pv, av, bv in zip(LSTM_NAMES[0], port, j16[0], j32[0]):
         assert_bf16_close(n, pv, av, bv)
 
 
@@ -436,6 +529,35 @@ def test_k2_bf16_kernel_follows_an_in_place_update():
     assert not torch.equal(before[0], after[0])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T,I,C,R", [(3, 4, 37, 200, 130),
+                                       (1, 8, 40, 800, 512)])
+def test_k1_bf16_kernel_follows_an_in_place_update(S, T, I, C, R):
+    """K1 bf16's prologue copies (the interleaved Wr, Wrm, Wx into wr_b,
+    wrm_b, wx_b) are made on every call: after an in-place update of the
+    parameters, K1 bf16 equals a call on fresh clones (bit for bit: no
+    atomics, a fixed order of sums), and differs from the call before."""
+    _card()
+    p, x, c0, r0, mask, _ = lstm_inputs(S, T, I, C, R, 0.75, seed=10)
+    tp = LstmParams(**{k: t(v).cuda() for k, v in p.items()})
+    x_tm = t(x).transpose(0, 1).contiguous().cuda()
+    m8 = torch.from_numpy(mask).transpose(0, 1).to(
+        torch.int8).contiguous().cuda()
+    c0, r0 = t(c0).cuda(), t(r0).cuda()
+
+    def fwd(params):
+        return lt.lstm_fwd_residuals_cuda(params, x_tm, c0, r0, m8,
+                                          1 / 0.75, 50.0,
+                                          compute_dtype=BF16)
+
+    before = fwd(tp)
+    _update_on_card(tp, 11)
+    after = fwd(tp)
+    want = fwd(LstmParams(*(v.clone() for v in tp)))
+    assert all(torch.equal(u, v) for u, v in zip(after, want))
+    assert not torch.equal(before[2], after[2])
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's trace check
 # ---------------------------------------------------------------------------
@@ -480,6 +602,12 @@ def test_trace_names_file_every_kernel_under_its_entry_point(source,
         assert entry in entries, (name, entry)
         if name.startswith("xent"):   # xent_* (f32) and xent16_* (bf16)
             assert entry.endswith("_fwd" if "fwd" in name else "_bwd")
+        if name.startswith(("fwd16_", "bwd16_")):   # K1 / K2 in bf16
+            assert entry == ("lstmp_train_fwd" if name.startswith("fwd")
+                             else "lstmp_train_bwd"), name
+    if source == "lstmp_train.cu":
+        assert {"fwd16_prep_kernel", "fwd16_xw_kernel", "fwd16_xw_wg_kernel",
+                "fwd16_gates_kernel", "fwd16_proj_kernel"} <= names
 
 
 # ---------------------------------------------------------------------------
@@ -505,3 +633,13 @@ def test_bench_infer_parts_needs_a_card(monkeypatch):
     from kaldi_lstm_tpu_torch.tools import bench_infer_parts as bp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bp.main([]) == 1
+
+
+@pytest.mark.parametrize("tool", ["bench_k1_parts", "bf16_seed_sweep"])
+def test_k1_bf16_tools_need_a_card(monkeypatch, tool):
+    """K1 bf16's timing and seed-sweep tools exit 1 where there is no
+    card, and print no result."""
+    import importlib
+    mod = importlib.import_module(f"kaldi_lstm_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main([]) == 1
