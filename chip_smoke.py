@@ -118,8 +118,8 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    default), the counts zeroed just before and read just after each:
    only the bf16 entry points of K1-K5, in the predicted counts, no f32
    launch of K1-K5 and no plain call; the epoch's trace against the
-   counters (by name, and by the precision a kernel is templated on,
-   tc::Bf16 / tc::F32, where it has one); a finite
+   counters (by name, and by the precision tag tc::F32 that the f32
+   kernels carry in their names); a finite
    CV AvgLoss, printed beside phase 5's f32 one; the bf16 model not
    equal to the f32 one, and the grouped bf16 models byte-identical to
    group 1's; then ms per step, frames/s, the idle share of two steady
@@ -891,9 +891,14 @@ K1_KERNELS = {"interleave": "interleave_gate_rows", "xw": "xw_tc_kernel",
               "gates": "gates_tc_kernel", "projection": "contract_tc_kernel"}
 
 
-def k1_launch_split(fn, T, calls=3):
-    """Device ms per launch of each of K1's kernels over `calls` calls of
-    fn() (torch.profiler), keyed as K1_KERNELS."""
+K6_BF16_KERNELS = {"prologue": "stack16_prep", "xw (Gemm16)":
+                   "stack16_xw_kernel", "xw (wgmma)": "stack16_xw_wg",
+                   "gates": "stack16_gates", "projection": "stack16_proj"}
+
+
+def k1_launch_split(fn, T, calls=3, kernels=K1_KERNELS):
+    """Device ms per launch of each of K1's kernels (or of `kernels`:
+    {what: name key}) over `calls` calls of fn() (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -903,7 +908,7 @@ def k1_launch_split(fn, T, calls=3):
             fn()
         torch.cuda.synchronize()
     split = {}
-    for what, name in K1_KERNELS.items():
+    for what, name in kernels.items():
         us, n = 0.0, 0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and \
@@ -1851,11 +1856,21 @@ def phase_stack_bf16():
              50.0, {}),
             ("ragged S=3 T=2 I=37 C=200 R=130 (4-byte copies), clip "
              "active", (3, 2, 37, 200, 130), (1, 2), 1.0,
-             {"x_scale": 20.0, "param_scale": 0.2})]):
+             {"x_scale": 20.0, "param_scale": 0.2}),
+            ("S=200 T=10, K7 bf16 staging 13 tiles of 16 streams a step",
+             (200, 10, 40, 800, 512), (5, 2), 50.0, {})]):
         args = stack_case(*dims, seed=170 + i, **extra)
         T = dims[1]
-        log(f"  [K6/K7 bf16, {name}] tb {tbs}; K7 plan "
-            f"{ls.infer2_plan(dims[0], *dims[2:], bf16=True)}")
+        k7_plan = ls.infer2_plan(dims[0], *dims[2:], bf16=True)
+        if k7_plan != ls.k7_bf16_plan(dims[0], *dims[2:],
+                                      k7_plan["sms"]):
+            fail(f"K7 bf16's plan on the card {k7_plan} is not its "
+                 f"mirror's")
+        k6_plan = ls.fwd2_plan(dims[0], dims[3], sms=k7_plan["sms"],
+                               bf16=True, T=T, I=dims[2], R=dims[4],
+                               tb=tbs[0])
+        log(f"  [K6/K7 bf16, {name}] tb {tbs}; K6 bf16 plan at tb"
+            f"{tbs[0]} {k6_plan}; K7 bf16 plan {k7_plan}")
         with torch.inference_mode():
             k6 = T <= 20
             if k6:
@@ -2030,6 +2045,21 @@ def stack_timings(cd, worst_recs: dict) -> dict:
                "tf32x3_bound_ms": b["3xtf32"][0],
                "bf16_bound_ms": b["bf16"][0],
                **{f"tb{tb}_ms": t[f"tb{tb}"] for tb in STACK_TBS}}
+        if cd is not None:
+            # where K6 bf16's call goes: device ms a launch by kernel
+            with torch.inference_mode():
+                split = k1_launch_split(lambda: ls.lstm_stack_fwd2_cuda(
+                    *args, clip, tb=best, compute_dtype=cd), 20,
+                    kernels=K6_BF16_KERNELS)
+            busy = sum(v["launches"] * v["ms_per_launch"]
+                       for v in split.values() if v["launches"])
+            log(f"  [K6 bf16 S={S} T=20 tb{best}] device ms a launch: "
+                + ", ".join(f"{k} {v['ms_per_launch']:.4f} x "
+                            f"{v['launches']:g}" for k, v in split.items()
+                            if v["launches"])
+                + f"; busy {busy:.3f} of {t[f'tb{best}']:.3f} ms")
+            rec["split"] = split
+            rec["busy_ms"] = busy
         if S == 512:
             with torch.inference_mode():
                 rec["plain_ms"] = cuda_ms(lambda: ls.lstm_stack_fwd2_plain(
@@ -2417,12 +2447,11 @@ BENCH_STEPS = 32
 def kernel_counts_in_trace(path: str, bf16: bool = False) -> dict:
     """Kernel events of a Chrome trace, counted by entry point (a name
     matches the first entry point whose key it contains; K1's keys come
-    before K2's generic contract). A kernel templated on the precision
-    carries it in its name (tc::F32 or tc::Bf16, csrc/precision.cuh) and
-    counts under "<entry>" or "<entry>_bf16"; those that are not (the
-    gate interleave, the column and partial sums, K3's merge, and the
-    bf16-only kernels of K1, K2 and K5) count under the run's precision,
-    bf16 with `bf16`."""
+    before K2's generic contract). A kernel templated on the f32
+    precision tag carries tc::F32 in its name (csrc/precision.cuh) and
+    counts under "<entry>"; the others (the gate interleave, the column
+    and partial sums, K3's merge, and the bf16 kernels of K1-K5) count
+    under the run's precision, "<entry>_bf16" with `bf16`."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     out = {k + sfx: 0 for k in KERNEL_NAMES for sfx in ("", "_bf16")}
@@ -2432,7 +2461,7 @@ def kernel_counts_in_trace(path: str, bf16: bool = False) -> dict:
         name = e.get("name", "")
         for k, keys in KERNEL_NAMES.items():
             if any(key in name for key in keys):
-                is16 = "tc::Bf16" in name or (bf16 and "tc::F32" not in name)
+                is16 = bf16 and "tc::F32" not in name
                 out[k + ("_bf16" if is16 else "")] += 1
                 break
     return out
@@ -6467,9 +6496,17 @@ def main() -> int:
              "kaldi_lstm_tpu/ops/lstm_stack_pallas.py:247 (_infer2_kernel)")):
         for suffix, r in (("", stack_recs[key]),
                           ("_bf16", bf16_recs[f"{key} stack"])):
+            # the bf16 designs' shared code: K1 bf16's tiles (K6), K5
+            # bf16's tensor-core recurrence (K7)
+            shared = {"_bf16": {
+                "K6": "kaldi_lstm_tpu_torch/csrc/lstmp_tc16.cuh",
+                "K7": "kaldi_lstm_tpu_torch/csrc/persistent.cuh"}[key],
+                "": {"K6": "kaldi_lstm_tpu_torch/csrc/lstmp_tc.cuh",
+                     "K7": "kaldi_lstm_tpu_torch/csrc/persistent.cuh"}[key]}
             kernels.append({
                 "name": name + suffix, "route": "cuda",
                 "source": "kaldi_lstm_tpu_torch/csrc/lstmp_stack.cu",
+                "shared_source": shared[suffix],
                 "replaces": replaces,
                 "launches": stack_recs["launches"][name + suffix],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -156,17 +156,14 @@ struct Params {
 template <bool RESIDENT, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 lstmp_infer_kernel(Params p) {
-  using P = tc::F32;
-  using W = float;
   extern __shared__ float4 smem4[];
   const int C = p.C, R = p.R, S = p.S, I = p.I;
   float* stage = reinterpret_cast<float*>(smem4);
   float* cst = stage + kStageFloats;                      // [7][ncell]
   float* cs = cst + (p.cst_smem ? round4(7 * (size_t)p.ncell) : 0);
-  W* wg = reinterpret_cast<W*>(
-      cs + (p.c_smem ? round4((size_t)S * p.ncell) : 0));
+  float* wg = cs + (p.c_smem ? round4((size_t)S * p.ncell) : 0);
   const int K = p.I + p.R;                                // wg: [K][wld]
-  W* wq = wg + (size_t)K * p.wld;                         // [C][qld]
+  float* wq = wg + (size_t)K * p.wld;                     // [C][qld]
   const size_t C4 = 4 * (size_t)C;
   const int j0 = blockIdx.x * p.ncell;
   const int nc = max(0, min(p.ncell, C - j0));
@@ -205,38 +202,37 @@ lstmp_infer_kernel(Params p) {
     for (int e = threadIdx.x; e < K * nc * 4; e += kThreads) {
       const int k = e / (nc * 4), rem = e % (nc * 4);
       const int c = rem / 4, g = rem % 4;
-      tc::store(wg + (size_t)k * p.wld + 4 * c + g,
-                p.w_cat[(size_t)k * C4 + (size_t)g * C + j0 + c]);
+      wg[(size_t)k * p.wld + 4 * c + g] =
+          p.w_cat[(size_t)k * C4 + (size_t)g * C + j0 + c];
     }
     // the last quad's columns past nqc are zero
     for (int e = threadIdx.x; e < C * 4 * nquad; e += kThreads) {
       const int k = e / (4 * nquad), q = e % (4 * nquad);
-      tc::store(wq + (size_t)k * p.qld + q,
-                q < nqc ? p.wrm_t[(size_t)k * R + q0 + q] : 0.f);
+      wq[(size_t)k * p.qld + q] =
+          q < nqc ? p.wrm_t[(size_t)k * R + q0 + q] : 0.f;
     }
     // (block_product synchronises before its first read)
   }
 
   auto load_wg = [&](int k, int c, float (&w)[4]) {
     if (RESIDENT) {
-      pk::load4<P>(wg + (size_t)k * p.wld + 4 * c, w);
+      pk::load4(wg + (size_t)k * p.wld + 4 * c, w);
     } else {
       const float* row = p.w_cat + (size_t)k * C4 + j0 + c;
       #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        w[g] = tc::at_use<P>(__ldg(row + (size_t)g * C));
+        w[g] = __ldg(row + (size_t)g * C);
       }
     }
   };
   auto load_wq = [&](int k, int quad, float (&w)[4]) {
     if (RESIDENT) {
-      pk::load4<P>(wq + (size_t)k * p.qld + 4 * quad, w);
+      pk::load4(wq + (size_t)k * p.qld + 4 * quad, w);
     } else {
       #pragma unroll
       for (int g = 0; g < 4; ++g) {
         const int q = 4 * quad + g;
-        w[g] = q < nqc ? tc::at_use<P>(__ldg(p.wrm_t + (size_t)k * R + q0 + q))
-                       : 0.f;
+        w[g] = q < nqc ? __ldg(p.wrm_t + (size_t)k * R + q0 + q) : 0.f;
       }
     }
   };
@@ -259,7 +255,7 @@ lstmp_infer_kernel(Params p) {
     float* r_t = p.r_out + (size_t)t * r_step;
 
     if (nc > 0) {
-      pk::block_product<VEC, P>(
+      pk::block_product<VEC>(
           stage, pk::kBufFloats, S, K, nc,
           [&](int s, int k) {
             return k < I ? x_t + (size_t)s * I + k
@@ -283,7 +279,7 @@ lstmp_infer_kernel(Params p) {
     }
     grid.sync();
     if (nquad > 0) {
-      pk::block_product<VEC, P>(
+      pk::block_product<VEC>(
           stage, pk::kBufFloats, S, C, nquad,
           [&](int s, int k) { return p.m + (size_t)s * C + k; },
           pk::FullRange{C}, load_wq,

@@ -122,8 +122,7 @@ xw_tc_kernel(XwArgs a) {
 // o on the clipped c, and writes gifo_t [S, 4C] in g|i|f|o blocks,
 // c_t [S, C] and m [S, C] = tanh(c_t) o. The pairs' xw_t, c_{t-1} and
 // peepholes do not depend on the product: they are loaded into
-// registers before the mainloop, which hides their latency. gifo_t is
-// written in P's Store type (bf16 under tc::Bf16).
+// registers before the mainloop, which hides their latency.
 template <class P>
 struct GateArgs {
   const float* r_prev;    // [S, R]
@@ -131,7 +130,7 @@ struct GateArgs {
   const float* xw_t;      // [S, 4C]
   const float* c_prev;    // [S, C]
   const float* peep;      // [3, C]: i, f, o
-  typename P::Store* gifo_t;
+  float* gifo_t;
   float* c_t;
   float* m;
   int S, R, C, Cp;
@@ -227,11 +226,11 @@ __device__ __forceinline__ void gates_tile(const GateArgs<P>& a, int bx,
                              : (cn > a.cell_clip ? a.cell_clip : cn);
     }
     const float o = sigmoid_f(xq[p][3] + row[3 * kGateCells] + cn * po);
-    typename P::Store* gr = a.gifo_t + (size_t)s * C4 + cell;
-    tc::store(gr, g);
-    tc::store(gr + a.C, i);
-    tc::store(gr + 2 * (size_t)a.C, f);
-    tc::store(gr + 3 * (size_t)a.C, o);
+    float* gr = a.gifo_t + (size_t)s * C4 + cell;
+    gr[0] = g;
+    gr[a.C] = i;
+    gr[2 * (size_t)a.C] = f;
+    gr[3 * (size_t)a.C] = o;
     a.c_t[idx] = cn;
     a.m[idx] = tanhf(cn) * o;
   }

@@ -75,12 +75,10 @@ __device__ __forceinline__ int k_split(int units) {
 // floats each at `stage` ([stream][k], the next chunk's cp.async in
 // flight while the current one is summed); the sums of a warp's lanes
 // are added by a fixed xor butterfly, those of a unit's warps (ksn > 32)
-// in warp order through shared memory. Under tc::Bf16 each staged A value
-// is rounded to bf16 as it is read. `buf` is a multiple of 4 and at least
-// kMinBufFloats, which keeps every chunk at least one k-step deep.
+// in warp order through shared memory. `buf` is a multiple of 4 and at
+// least kMinBufFloats, which keeps every chunk at least one k-step deep.
 // Uniform over the CTA.
-template <bool VEC, class P, class Src, class KRange, class LoadW,
-          class Epi>
+template <bool VEC, class Src, class KRange, class LoadW, class Epi>
 __device__ __forceinline__ void block_product(float* stage, int buf, int S,
                                               int K, int nquad, Src src,
                                               KRange krange, LoadW load_w,
@@ -164,7 +162,7 @@ __device__ __forceinline__ void block_product(float* stage, int buf, int S,
             load_w(k0 + k, cb0 + col, w);
             #pragma unroll
             for (int i = 0; i < 8; ++i) {
-              const float a = tc::at_use<P>(arow[i * kc + k]);
+              const float a = arow[i * kc + k];
               #pragma unroll
               for (int g = 0; g < 4; ++g) acc[i][g] = fmaf(a, w[g], acc[i][g]);
             }
@@ -249,26 +247,10 @@ struct FullRange {
   }
 };
 
-// The bf16 pair of a 32-bit word as floats: element 0 is the low half.
-__device__ __forceinline__ float bf16_lo(unsigned v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-// Four resident weights at ws: one 16-byte (f32) or 8-byte (bf16) load.
-template <class P>
-__device__ __forceinline__ void load4(const typename P::Store* ws,
-                                      float (&w)[4]) {
-  if constexpr (P::kBf16) {
-    const uint2 v = *reinterpret_cast<const uint2*>(ws);
-    w[0] = bf16_lo(v.x); w[1] = bf16_hi(v.x);
-    w[2] = bf16_lo(v.y); w[3] = bf16_hi(v.y);
-  } else {
-    const float4 v = *reinterpret_cast<const float4*>(ws);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  }
+// Four resident weights at ws: one 16-byte load.
+__device__ __forceinline__ void load4(const float* ws, float (&w)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(ws);
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
 // One cell's step from its gate pre-activations (bias included): gate
@@ -321,7 +303,7 @@ struct GridBarrier {
 };
 
 // ---------------------------------------------------------------------------
-// The bf16 tensor-core product of K5's bf16 entry points (beside
+// The bf16 tensor-core product of K5's and K7's bf16 entry points (beside
 // block_product, which the f32 K5 and K7 keep)
 // ---------------------------------------------------------------------------
 //
@@ -424,14 +406,65 @@ struct MmaSum {
   }
 };
 
-template <bool WSMEM, class Issue, class Epi>
-__device__ __forceinline__ void mma_product(
-    __nv_bfloat16* stage, int buf_elems, float* part, int s_begin,
-    int s_end, int ns, int lds, int nslices, const __nv_bfloat16* w,
-    int wld, int mt, Issue issue, Epi epi) {
+// One warp's share of one output tile: the sum over the 16-deep slices
+// j = kidx (mod ks) of j < nslices of weight tile mi (rows mi 16 ..,
+// row stride wld, in shared memory with WSMEM, else device memory)
+// against the staged rows at bp (this lane's ldmatrix row, slice 0).
+template <bool WSMEM>
+__device__ __forceinline__ void mma_unit(const __nv_bfloat16* w, int wld,
+                                         int mi, const __nv_bfloat16* bp,
+                                         int nslices, int kidx, int ks,
+                                         float (&acc)[4]) {
+  const int lane = threadIdx.x & 31;
+  // ldmatrix rows of A (x4): weight row mi 16 + (lane & 7) + 8 (bit 3),
+  // k half by lane bit 4
+  const __nv_bfloat16* ap;
+  if (WSMEM) {
+    ap = w + (size_t)(mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * wld +
+         8 * (lane >> 4);
+  } else {
+    ap = w + (size_t)(mi * 16 + (lane >> 2)) * wld + 2 * (lane & 3);
+  }
+  // a unit-stride loop over this warp's slices: its trip count is known,
+  // so the compiler unrolls it and a slice's loads issue before the
+  // previous slice's adds (strided by the runtime ks it stayed rolled,
+  // each slice waiting on the last: 16% of K7 bf16's step at S=512 on
+  // an H100 80GB HBM3 at 700 W, tools/bench_stack_parts.py's rolled16
+  // probe)
+  const int nj = (nslices - kidx + ks - 1) / ks;
+  #pragma unroll 4
+  for (int jj = 0; jj < nj; ++jj) {
+    const int j = kidx + jj * ks;
+    unsigned af[4], bf[2];
+    if (WSMEM) {
+      ldsm_x4(ap + 16 * j, af);
+    } else {
+      // the fragment's four 32-bit pairs (rows g, g + 8; k 2t, 2t + 8)
+      const unsigned* q = reinterpret_cast<const unsigned*>(ap + 16 * j);
+      const size_t row8 = (size_t)8 * wld / 2;
+      af[0] = __ldcg(q);
+      af[1] = __ldcg(q + row8);
+      af[2] = __ldcg(q + 4);
+      af[3] = __ldcg(q + row8 + 4);
+    }
+    ldsm_x2(bp + 16 * j, bf);
+    float d[4];
+    mma_bf16_zero(d, af, bf);
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += d[e];
+  }
+}
+
+// The stream tiles of an mma product: issue() and the double buffer as
+// the header above says; tile(a, s0, sn) sums the staged tile at a into
+// `part` and returns (units, nt, ks) for epi.
+template <class Issue, class Tile, class Epi>
+__device__ __forceinline__ void mma_tiles(__nv_bfloat16* stage,
+                                          int buf_elems, float* part,
+                                          int s_begin, int s_end, int ns,
+                                          Issue issue, Tile tile, Epi epi) {
   const int ntiles = (s_end - s_begin + ns - 1) / ns;
   if (ntiles <= 0) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // CTAs start on different tiles, so that they do not all ask L2 for
   // the same rows at once (a stream's sums are the same in any order of
   // tiles)
@@ -449,52 +482,77 @@ __device__ __forceinline__ void mma_product(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* a = stage + (i & 1) * buf_elems;
+    const int3 shape = tile(stage + (i & 1) * buf_elems, sn);
+    __syncthreads();
+    epi(s0, sn, MmaSum{part, shape.x, shape.y, shape.z});
+  }
+}
+
+// One set of weight rows of mma_product_sets: mt m16 tiles at w (row
+// stride wld; in shared memory where smem, else in device memory),
+// contracting over nslices 16-deep slices of the staged rows from their
+// element koff (a multiple of 16).
+struct RowSet {
+  const __nv_bfloat16* w;
+  int wld, mt, nslices, koff, smem;
+};
+
+// The mma product of one or two row sets (nsets) over one staged tile
+// (lds elements a staged row): their m16 tiles are numbered one after the
+// other (set 0's first), so epi's sum(m, sl) reads row m of the
+// concatenation. K7 in bf16 feeds both layers' gate rows from one staged
+// row [x | r1 | r2]: layer 1's over [x | r1], layer 2's over [r1 | r2]
+// (koff past x). The units (m16 x n8 tiles) split over the warps, with
+// mma_ksplit warps sharing a unit's slices. WSMEM: every set's weights in
+// shared memory (1) or in device memory (0), fixed at compile time, or
+// each set's own smem (-1).
+template <int WSMEM, class Issue, class Epi>
+__device__ __forceinline__ void mma_product_sets(
+    __nv_bfloat16* stage, int buf_elems, float* part, int s_begin,
+    int s_end, int ns, int lds, const RowSet (&sets)[2], int nsets,
+    Issue issue, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt0 = sets[0].mt;
+  const int mt = mt0 + (nsets > 1 ? sets[1].mt : 0);
+  mma_tiles(stage, buf_elems, part, s_begin, s_end, ns, issue,
+            [&](const __nv_bfloat16* a, int sn) {
     const int nt = (sn + 7) / 8, units = mt * nt, ks = mma_ksplit(units);
     const int kidx = ks == 1 ? 0 : warp % ks;
     for (int u = ks == 1 ? warp : warp / ks; u < units;
          u += ks == 1 ? kWarps : units) {
       const int mi = u / nt, ni = u % nt;
-      // ldmatrix rows: B (x2) stream ni 8 + (lane & 7), k half by lane
-      // bit 3; A (x4) weight row mi 16 + (lane & 7) + 8 (bit 3), k half
-      // by lane bit 4
-      const __nv_bfloat16* bp =
-          a + (size_t)(ni * 8 + (lane & 7)) * lds + 8 * ((lane >> 3) & 1);
-      const __nv_bfloat16* ap;
-      if (WSMEM) {
-        ap = w + (size_t)(mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * wld +
-             8 * (lane >> 4);
-      } else {
-        ap = w + (size_t)(mi * 16 + (lane >> 2)) * wld + 2 * (lane & 3);
-      }
+      const bool two = nsets > 1 && mi >= mt0;
+      const RowSet& rs = two ? sets[1] : sets[0];
+      // ldmatrix rows of B (x2): stream ni 8 + (lane & 7), k half by lane
+      // bit 3
+      const __nv_bfloat16* bp = a + (size_t)(ni * 8 + (lane & 7)) * lds +
+                                rs.koff + 8 * ((lane >> 3) & 1);
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      #pragma unroll 4
-      for (int j = kidx; j < nslices; j += ks) {
-        unsigned af[4], bf[2];
-        if (WSMEM) {
-          ldsm_x4(ap + 16 * j, af);
-        } else {
-          // the fragment's four 32-bit pairs (rows g, g + 8; k 2t, 2t + 8)
-          const unsigned* q = reinterpret_cast<const unsigned*>(ap + 16 * j);
-          const size_t row8 = (size_t)8 * wld / 2;
-          af[0] = __ldcg(q);
-          af[1] = __ldcg(q + row8);
-          af[2] = __ldcg(q + 4);
-          af[3] = __ldcg(q + row8 + 4);
-        }
-        ldsm_x2(bp + 16 * j, bf);
-        float d[4];
-        mma_bf16_zero(d, af, bf);
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] += d[e];
+      if (WSMEM > 0 || (WSMEM < 0 && rs.smem)) {
+        mma_unit<true>(rs.w, rs.wld, two ? mi - mt0 : mi, bp, rs.nslices,
+                       kidx, ks, acc);
+      } else {
+        mma_unit<false>(rs.w, rs.wld, two ? mi - mt0 : mi, bp, rs.nslices,
+                        kidx, ks, acc);
       }
       *reinterpret_cast<float4*>(part + (kidx * units + u) * kUnitFloats +
                                  4 * lane) =
           make_float4(acc[0], acc[1], acc[2], acc[3]);
     }
-    __syncthreads();
-    epi(s0, sn, MmaSum{part, units, nt, ks});
-  }
+    return make_int3(units, nt, ks);
+  }, epi);
+}
+
+// mma_product_sets over one row set: mt m16 tiles of weights at w (row
+// stride wld) against nslices 16-deep slices of the staged rows.
+template <bool WSMEM, class Issue, class Epi>
+__device__ __forceinline__ void mma_product(
+    __nv_bfloat16* stage, int buf_elems, float* part, int s_begin,
+    int s_end, int ns, int lds, int nslices, const __nv_bfloat16* w,
+    int wld, int mt, Issue issue, Epi epi) {
+  const RowSet sets[2] = {RowSet{w, wld, mt, nslices, 0, WSMEM}, RowSet{}};
+  mma_product_sets<WSMEM ? 1 : 0>(stage, buf_elems, part, s_begin, s_end,
+                                  ns, lds, sets, 1, issue, epi);
 }
 
 // The card's SM count and opt-in shared memory per block; refuses a card

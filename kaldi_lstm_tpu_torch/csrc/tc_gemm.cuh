@@ -1,8 +1,8 @@
-// A tensor-core tile mainloop for Hopper (sm_90a), f32-accurate or in
-// bf16, shared by every product of csrc/xent_affine.cu (K3, K4) and
-// csrc/lstmp_train.cu (K1, K2); and, at the end of this file, its bf16
-// tile mode (Gemm16: operands already bf16 in device memory), which the
-// bf16 K1 and K2 run on.
+// A tensor-core tile mainloop for Hopper (sm_90a), f32-accurate, shared
+// by every f32 product of csrc/xent_affine.cu (K3, K4),
+// csrc/lstmp_train.cu (K1, K2) and csrc/lstmp_stack.cu (K6); and, at the
+// end of this file, its bf16 tiles (Gemm16: operands already bf16 in
+// device memory), which K1, K2 and K6 in bf16 run on.
 //
 // C[m, n] = sum_k A(m, k) B(k, n) over float32 operands in device memory.
 // Each operand is either K-major (element (row, k) at p[row * ld + k]) or
@@ -31,24 +31,6 @@
 // held to; so each stage's products (32 deep) go into a fragment that
 // starts at zero, and that is added to the float32 accumulator with an
 // ordinary round-to-nearest add.
-//
-// bf16 mode (Gemm's precision P = Bf16, precision.cuh): the staging
-// is the same f32 ring, and only the fragments and the mma change. Each
-// operand value is rounded to bf16 in registers after its shared-memory
-// load (cvt.rn.bf16x2.f32: round to nearest even, as torch's and JAX's
-// astype(bfloat16)), two values of neighbouring k to a register, and the
-// warp issues one mma.sync m16n8k16 bf16 (f32 accumulate) per 16 of
-// depth where 3xTF32 issues three m16n8k8 per 8. A bf16 x bf16 product
-// is exact in f32, so the result is the f32 sum of the rounded operands'
-// products: the caller's operands are rounded where the reference casts
-// them before a dot, with no cast kernel and no bf16 copy in memory. The
-// m16n8k16 fragment holds k (2t, 2t + 1, 2t + 8, 2t + 9) of a 16-deep
-// slice; here position 2t + e carries k = t + 4e and 2t + 8 + e carries
-// k = 8 + t + 4e, in A and B alike. That is the m16n8k8 fragments' own k
-// order (the loads above, two of them per 16 of depth), so the loads and
-// their bank-conflict-free layouts serve both modes; permuting k the same
-// way in both operands leaves the sum over k the same. The per-stage
-// zero fragment added in f32 stays, for the truncation reason above.
 //
 // A CTA of WARPS_M x WARPS_N warps owns a BM x BN output tile, each warp a
 // (BM / WARPS_M) x (BN / WARPS_N) sub-tile of m16n8 mma tiles. `Gemm::run`
@@ -131,15 +113,6 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "f"(0.f));
-}
-
-// Two floats rounded to bf16 (to nearest even) in one register: `lo` in
-// bits 0-15 (the fragment's lower k position), `hi` in bits 16-31.
-__device__ __forceinline__ unsigned pack_bf16(unsigned lo, unsigned hi) {
-  unsigned d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n"
-      : "=r"(d) : "f"(__uint_as_float(hi)), "f"(__uint_as_float(lo)));
-  return d;
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
@@ -321,60 +294,6 @@ __device__ __forceinline__ void stage_mma(const float* sa, const float* sb,
   }
 }
 
-// The same in bf16 mode: per 16 of depth, the raw m16n8k8 fragments at
-// kk and kk + 8 rounded and paired into one m16n8k16 fragment (see the
-// header for the k order).
-template <class TA, class TB, int kMT, int kNT>
-__device__ __forceinline__ void stage_mma_bf16(const float* sa,
-                                               const float* sb, int wm0,
-                                               int wn0,
-                                               float (&acc)[kMT][kNT][4]) {
-  static_assert(kNT % 2 == 0, "B fragments come in pairs of n8 tiles");
-  float part[kMT][kNT][4];
-  #pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    unsigned a[kMT][4];
-    #pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      unsigned lo[4], hi[4];
-      TA::frag_a(sa, wm0 + 16 * i, kk, lo);
-      TA::frag_a(sa, wm0 + 16 * i, kk + 8, hi);
-      a[i][0] = pack_bf16(lo[0], lo[2]);   // row g
-      a[i][1] = pack_bf16(lo[1], lo[3]);   // row g + 8
-      a[i][2] = pack_bf16(hi[0], hi[2]);
-      a[i][3] = pack_bf16(hi[1], hi[3]);
-    }
-    #pragma unroll
-    for (int j = 0; j < kNT; j += 2) {
-      unsigned lo0[2], lo1[2], hi0[2], hi1[2];
-      TB::frag_b2(sb, wn0 + 8 * j, kk, lo0, lo1);
-      TB::frag_b2(sb, wn0 + 8 * j, kk + 8, hi0, hi1);
-      const unsigned b0[2] = {pack_bf16(lo0[0], lo0[1]),
-                              pack_bf16(hi0[0], hi0[1])};
-      const unsigned b1[2] = {pack_bf16(lo1[0], lo1[1]),
-                              pack_bf16(hi1[0], hi1[1])};
-      #pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        if (kk == 0) {
-          mma_bf16_zero(part[i][j], a[i], b0);
-          mma_bf16_zero(part[i][j + 1], a[i], b1);
-        } else {
-          mma_bf16(part[i][j], a[i], b0);
-          mma_bf16(part[i][j + 1], a[i], b1);
-        }
-      }
-    }
-  }
-  #pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-    }
-  }
-}
-
 template <int kMT, int kNT>
 __device__ __forceinline__ void zero(float (&acc)[kMT][kNT][4]) {
   #pragma unroll
@@ -387,6 +306,8 @@ __device__ __forceinline__ void zero(float (&acc)[kMT][kNT][4]) {
   }
 }
 
+// P is the precision tag (tc::F32, precision.cuh), which the kernels
+// built on a Gemm carry into their names.
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool A_KMAJOR,
           bool B_KMAJOR, class P = F32>
 struct Gemm {
@@ -452,11 +373,7 @@ struct Gemm {
       cp_async_commit();
       const float* s = smem + (it % kStages) * kStageFloats;
       hook(s, s + TA::kFloats);
-      if constexpr (P::kBf16) {
-        stage_mma_bf16<TA, TB, kMT, kNT>(s, s + TA::kFloats, wm0, wn0, acc);
-      } else {
-        stage_mma<TA, TB, kMT, kNT>(s, s + TA::kFloats, wm0, wn0, acc);
-      }
+      stage_mma<TA, TB, kMT, kNT>(s, s + TA::kFloats, wm0, wn0, acc);
       if (++kstep == ksteps) {
         epi(tile, acc);
         zero(acc);
@@ -470,10 +387,11 @@ struct Gemm {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tiles: operands that are bf16 in device memory (Bf16's contract)
+// bf16 tiles: operands that are bf16 in device memory
 // ---------------------------------------------------------------------------
 //
-// The mode of K2's and K1's bf16 products (csrc/lstmp_train.cu). Each
+// The mode of K1's, K2's and K6's bf16 products (csrc/lstmp_train.cu,
+// csrc/lstmp_tc16.cuh, csrc/lstmp_stack.cu). Each
 // operand is a bf16 copy made once where its value is produced: a weight
 // rounded once a call, an activation or a gradient written in bf16 by the
 // epilogue that computes it. So nothing is rounded in the mainloop, and a

@@ -257,14 +257,17 @@ def mma_ksplit(units: int) -> int:
     return ks
 
 
-def _mma_tile(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mma_tile(a: torch.Tensor, w: torch.Tensor, ks: int | None = None
+              ) -> torch.Tensor:
     """One staged tile's product as the bf16 kernel sums it: a [sn, K]
     (rounded, K a multiple of 16) against w [M, K] (M a multiple of 16):
     each 16-deep slice's product on its own, added in slice order from
-    zero by each of ``mma_ksplit`` warps over the slices j = ks (mod
-    ksplit), then the warps' sums in warp order. Returns [sn, M]."""
+    zero by each of ``ks`` warps (default ``mma_ksplit`` of this tile's
+    output tiles) over the slices j = ks (mod ksplit), then the warps'
+    sums in warp order. Returns [sn, M]."""
     sn, K = a.shape
-    ks = mma_ksplit((w.shape[0] // 16) * -(-sn // 8))
+    if ks is None:
+        ks = mma_ksplit((w.shape[0] // 16) * -(-sn // 8))
     out = a.new_zeros((sn, w.shape[0]))
     for kidx in range(ks):
         acc = a.new_zeros((sn, w.shape[0]))

@@ -7,7 +7,8 @@ out, at the deep config's widths (I=40, C=800, R=512), on the card.
 Each variant is the committed source with one textual edit, built by
 nvcc (the flags of ``ops/_build.py``) into ``_build/stack_parts/`` and
 loaded with ctypes. A cut variant computes wrong results: it is a
-timing probe only. Variants:
+timing probe only. Variants of the f32 kernel (``stack_infer2_kernel``,
+on ``pk::block_product``):
 
 * ``base``: the source as it is;
 * ``nobar``: the grid barriers replaced by CTA barriers (what the two
@@ -19,13 +20,35 @@ timing probe only. Variants:
 * ``l1only``: layer 1's columns only in both passes (about one K5 step
   of work);
 * ``buf32k``: the staging buffers capped at 32 KB each, K5's cap (what
-  K7's larger buffers give where shared memory is left: bf16);
-* ``unroll4``: the block product's k loop unrolled by 4.
+  K7's larger buffers give where shared memory is left);
+* ``unroll4``: the block product's k loop unrolled by 4;
 
-Cases are ``S,T`` pairs (default 8,1000 64,200 512,20), each timed in
-f32 and in bf16; the variants of a case run in turns (CUDA events,
-median of 5, one warm-up call each) and print ms a call and us a
-wavefront step. Needs a card and nvcc; exits 1 without CUDA.
+and of the bf16 kernel (``stack_infer2_tc_kernel``, on
+``pk::mma_product_sets``):
+
+* ``nobar16``: its two grid barriers a step replaced by CTA barriers;
+* ``nogates16`` / ``noproj16``: its gates pass (both layers' rows on the
+  one staged row) / its projection pass left out;
+* ``cfirst16``: the plan keeps the c state in shared memory wherever it
+  fits beside two 8-stream tiles, the staging tiles taking what is left
+  (at S=512 tiles of 8 streams where the committed rule takes 16 and
+  leaves c in device memory);
+* ``g2dev16``: layer 2's gate slice always in device memory (rounded by
+  the prologue, read through L2 at every stream tile), the staging tiles
+  taking the 66 KB it leaves (at S=512 tiles of 32 streams where the
+  committed plan takes 16);
+* ``nomma16``: the tensor-core loop (``pk::mma_unit``) left out, the
+  staging, partial sums and epilogues kept;
+* ``rolled16``: that loop strided by the runtime split count (the
+  compiler then does not unroll it; the committed loop runs over a
+  unit-stride index).
+
+An f32 variant leaves the bf16 kernel as it is and the reverse, so the
+f32 rows time the f32 variants and the bf16 rows the bf16 ones. Cases
+are ``S,T`` pairs (default 8,1000 64,200 512,20), each timed in f32 and
+in bf16; the variants of a case run in turns (CUDA events, median of 5,
+one warm-up call each) and print ms a call and us a wavefront step.
+Needs a card and nvcc; exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -42,12 +65,16 @@ import numpy as np
 import torch
 
 from kaldi_lstm_tpu_torch.ops import _build
+from kaldi_lstm_tpu_torch.ops import lstm_stack as ls
 from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmState, init_lstm_params
-from kaldi_lstm_tpu_torch.ops.lstm_infer import _kernel_operands
 
 I, C, R = 40, 800, 512
 _LOOP = "for (int k = lo + ks; k < hi; k += ksn)"
 _BUF = "kMaxBufFloats, pk::kMinBufFloats + extra"
+_CFIRST = "  q.c_smem = c_fits && tiles(with_c) == tiles(q);"
+_G2 = "  q.res_g2 = q.res_q && used + wg2 + least <= optin;"
+_MMA_LOOP = "  for (int jj = 0; jj < nj; ++jj) {"
+_MMA_J = "\n    const int j = kidx + jj * ks;"
 # variant -> [(file, old text, new text)]
 VARIANTS = {
     "base": [],
@@ -63,7 +90,24 @@ VARIANTS = {
     "buf32k": [("lstmp_stack.cu", _BUF,
                 "pk::kBufFloats, pk::kMinBufFloats + extra")],
     "unroll4": [("persistent.cuh", _LOOP, "#pragma unroll 4\n" + _LOOP)],
+    "nobar16": [("lstmp_stack.cu", "    gbar.sync();",
+                 "    __syncthreads();")],
+    "nogates16": [("lstmp_stack.cu",
+                   "    if (nc > 0) {\n      const bf16* x_k",
+                   "    if (false) {\n      const bf16* x_k")],
+    "noproj16": [("lstmp_stack.cu",
+                  "    if (nqc > 0 && (lq == 0 ? l1 : l2)) {",
+                  "    if (false) {")],
+    "cfirst16": [("lstmp_stack.cu", _CFIRST, "  q.c_smem = c_fits;")],
+    "g2dev16": [("lstmp_stack.cu", _G2, "  q.res_g2 = 0;")],
+    "nomma16": [("persistent.cuh", _MMA_LOOP,
+                 "  for (int jj = nj; jj < nj; ++jj) {")],
+    "rolled16": [("persistent.cuh", _MMA_LOOP + _MMA_J,
+                  "  for (int j = kidx; j < nslices; j += ks) {")],
 }
+# which precision a variant edits (the other precision's rows skip it)
+BF16_ONLY = ("nobar16", "nogates16", "noproj16", "cfirst16", "g2dev16",
+             "nomma16", "rolled16")
 
 
 def variant_sources(name: str, variants: dict = VARIANTS) -> dict[str, str]:
@@ -123,25 +167,29 @@ def operands(S: int, T: int, device) -> tuple:
 
 
 def launcher(lib, args, bf16: bool):
-    """A no-argument call of the variant's K7 on fixed buffers."""
+    """A no-argument call of the variant's K7 on fixed buffers (the
+    operands of ``ops/lstm_stack.infer2_operands``)."""
     p1, p2, x, s1, s2 = args
     T, S, _ = x.shape
     fn = getattr(lib, "lstmp_stack_infer2_bf16" if bf16
                  else "lstmp_stack_infer2_f32")
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    dev = x.device
+    fn.argtypes = [ctypes.c_void_p] * (24 if bf16 else 17) \
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    plan = None
+    if bf16:    # the variant's own plan (its scratch may differ)
+        out = (ctypes.c_int * len(ls.K7_BF16_PLAN_KEYS))()
+        lib.lstmp_stack_infer2_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        if lib.lstmp_stack_infer2_plan(S, I, C, R, 1, out) != 0:
+            raise RuntimeError("K7 variant planning failed")
+        plan = dict(zip(ls.K7_BF16_PLAN_KEYS, list(out)))
     # the closure holds the tensors, so their memory outlives the pointers
-    tensors = [x, *_kernel_operands(p1), *_kernel_operands(p2), s1.r, s2.r,
-               s1.c.clone(), s2.c.clone(), torch.empty(S, R, device=dev),
-               torch.empty(T, S, R, device=dev),
-               torch.empty(2, S, C, device=dev),
-               torch.empty(1, dtype=torch.int32, device=dev)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    tensors, _ = ls.infer2_operands(p1, p2, x, s1, s2, bf16, plan)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def call():
-        err = fn(*(t.data_ptr() for t in tensors), T, S, I, C, R, 1, 50.0,
-                 stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), T,
+                 S, I, C, R, 1, 50.0, stream)
         if err != 0:
             raise RuntimeError(f"K7 variant launch failed: CUDA error {err}")
     return call
@@ -184,7 +232,8 @@ def main(argv=None) -> int:
         S, T = (int(v) for v in case.split(","))
         ops = operands(S, T, device)
         for bf16 in (False, True):
-            t = turns({n: launcher(lib, ops, bf16) for n, lib in libs.items()})
+            t = turns({n: launcher(lib, ops, bf16) for n, lib in libs.items()
+                       if (n in BF16_ONLY) == bf16 or n == "base"})
             print(f"S={S} T={T} {'bf16' if bf16 else 'f32'}: " + ", ".join(
                 f"{k} {v:.3f} ms ({1e3 * v / (T + 1):.2f} us/step)"
                 for k, v in t.items()), flush=True)
