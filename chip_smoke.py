@@ -78,9 +78,24 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, in order
    K5's masked bf16 entry point at S=64, T=20; time
    kernel and plain and print bounds at 989 TFLOP/s and 3.35 TB/s and,
    as context, cuBLAS bf16 times of the products; then K6/K7's bf16
-   entry points at S=512, T=20 (tb 5/4/2/1), K7's at S=8, T=1000 and
-   both on a ragged T=2 case, by the same rule, each call's launches
-   gated, and timed as in 3c against K1 x 2 and K5 x 2 in bf16;
+   entry points at S=512, T=20 (tb 5/4/2/1), K7's at S=8, T=1000, both
+   on a ragged T=2 case and in ROADMAP C.4's regime (S=8, T=4, clip
+   0.4, I=40 and 1024, weights +-0.3 and +-0.04), by the same rule, each
+   call's launches gated, and timed as in 3c against K1 x 2 and K5 x 2
+   in bf16. Every bf16 kernel of K1, K2, K5, K6 and K7 is also held to
+   its tc-exact mirror (ops/tc_sum.py: its tiles, its tensor cores' sums
+   by the model that 3e checks, its cell math fused as nvcc compiles
+   it; K5 where S T <= 512, K7 where S <= 8 and T <= 20), within TC_SHARE
+   of the distance, and the mirror's distance from the plain version
+   joins the noise;
+3e. (run before 3d) the tensor core's bf16 sums against their model:
+   find_params settles block, align_bits and rounding of mma.sync
+   m16n8k16 and wgmma m64n128k16 on the card from crafted vectors
+   (csrc/tc_probe.cu runs them) and they must be the model's constants;
+   then tc_dot must equal the instructions bit for bit on 2^20 random
+   dot products each (mma.sync from a zero and from a given
+   accumulator, wgmma chains of 1, 4 and 64), weights +-0.04 and +-0.3
+   against phase 3d's activations;
 4. drive the serving path: `nnet_forward` scoring of the full-width
    standard decode net (TimeShift(5) -> LstmProjected 40->800c/512r ->
    AffineTransform 512->8000 -> Softmax, random weights from a seed) over
@@ -398,6 +413,18 @@ STEP_RTOL = 1e-4
 # streams (measured: K2 at 0.05-0.19 of the distance after one).
 BF16_SHARE = 0.1
 BF16_NOISE = 2.0
+# A bf16 kernel against its tc-exact mirror (ops/tc_sum.py: the kernel's
+# tiles and order, its tensor cores' own sums by the model that phase 3e
+# holds to the card bit for bit, its epilogues' multiply-adds fused as
+# nvcc fuses them, K2's column sums in its order): the two take the same
+# roundings (equal bit for bit on an H100 80GB HBM3 at 700.00 W in every
+# case of this phase), so the kernel must lie within TC_SHARE of the
+# bf16-vs-f32 distance from its mirror; and the mirror's distance from
+# the plain version joins the noise, since it is the order the card's
+# sums take (ROADMAP C.4).
+TC_SHARE = 0.02
+# phase 3e: random dot products per instruction and accumulator mode
+TC_DOTS = 1 << 20
 TRAIN_PROTO = """<NnetProto>
 <Transmit> <InputDim> 40 <OutputDim> 40
 <LstmProjectedStreams> <InputDim> 40 <OutputDim> 512 <CellDim> 800 <ParamScale> 0.01 <NumStream> 4
@@ -1315,7 +1342,8 @@ def rms(t) -> float:
     return float(t.double().pow(2).mean().sqrt()) if t.numel() else 0.0
 
 
-def bf16_compare(what, got, ref, ref_f32, ref_f64, worst, witness=None):
+def bf16_compare(what, got, ref, ref_f32, ref_f64, worst, witness=None,
+                 tc=None):
     """The bf16 kernel `got` against its bf16 plain version `ref`: fail
     unless rms(got - ref) <= max(BF16_SHARE * distance, BF16_NOISE *
     noise), with distance = rms(ref - ref_f32) (the plain version in bf16
@@ -1324,7 +1352,11 @@ def bf16_compare(what, got, ref, ref_f32, ref_f64, worst, witness=None):
     and noise = rms(ref_f64 - ref) (the plain version in bf16 summing in
     f64 against it summing in f32), or rms(witness - ref) where a
     `witness` (the plain version in bf16 summing in another f32 order) is
-    given and that is larger. Returns the new worst absolute error."""
+    given and that is larger. With `tc`, the kernel's tc-exact mirror
+    (its tiles, its tensor cores' sums by ops/tc_sum.py's model, its
+    fused cell math): the kernel must lie within TC_SHARE of the distance
+    from it, and its distance from the plain version is a third noise
+    witness. Returns the new worst absolute error."""
     got, ref, ref_f32, ref_f64 = (a.double() for a in (got, ref, ref_f32,
                                                        ref_f64))
     err, dist, noise = rms(got - ref), rms(ref - ref_f32), rms(ref_f64 - ref)
@@ -1334,6 +1366,18 @@ def bf16_compare(what, got, ref, ref_f32, ref_f64, worst, witness=None):
             f"{noise / dist if dist else float('inf'):.4f}, other-order "
             f"witness / distance {w / dist if dist else float('inf'):.4f}")
         noise = max(noise, w)
+    if tc is not None:
+        tc = tc.double().to(ref.device)
+        tc_err, tc_noise = rms(got - tc), rms(tc - ref)
+        log(f"    {what}: kernel against its tc-exact mirror / distance "
+            f"{tc_err / dist if dist else float('inf'):.4f} (gate "
+            f"{TC_SHARE:g}; bit for bit in "
+            f"{float((got == tc).double().mean()):.5f} of entries); the "
+            f"mirror against the plain version / distance "
+            f"{tc_noise / dist if dist else float('inf'):.4f}")
+        if not tc_err <= TC_SHARE * dist:
+            fail(f"{what} departs from its tc-exact mirror")
+        noise = max(noise, tc_noise)
     mx = float((got - ref).abs().max()) if got.numel() else 0.0
     tol = max(BF16_SHARE * dist, BF16_NOISE * noise)
     log(f"    {what}: max_abs_err {mx:.3e}, rms err {err:.3e}; bf16-vs-f32 "
@@ -1469,14 +1513,16 @@ def lstm_train_bf16_case(name, S, T, I, C, R, keep, need_dx, seed,
     fp = lt.lstm_fwd_residuals_plain(*fa, compute_dtype=bf)
     f32 = lt.lstm_fwd_residuals_plain(*fa)
     fd = lt.lstm_fwd_residuals_plain(*f64(fa), compute_dtype=bf)
+    ftc = lt.lstm_fwd_tc_plain(*fa, compute_dtype=bf, tc=True)
     worst = 0.0
     wit = (None,) * 3
     if stepwise:
         cpu = lt.lstm_fwd_residuals_plain(*on_cpu(fa), compute_dtype=bf)
         wit = cpu
-    for what, a, b, c, d, w in zip(("K1 gifo", "K1 c", "K1 r"), fk, fp, f32,
-                                   fd, wit):
-        worst = bf16_compare(what, a, b, c, d, worst, witness=w)
+    for what, a, b, c, d, w, m in zip(("K1 gifo", "K1 c", "K1 r"), fk, fp,
+                                      f32, fd, wit, ftc):
+        worst = bf16_compare(what, a, b, c, d, worst, witness=w, tc=m)
+    del ftc
     if stepwise:
         del cpu, wit
         steps = (k1_plain_steps(fa, fk[1], fk[2], bf),
@@ -1500,16 +1546,23 @@ def lstm_train_bf16_case(name, S, T, I, C, R, keep, need_dx, seed,
     b32 = lt.lstm_bwd_plain(*ba, *f32, mask, ik, g_r, gcT, need_dx)
     bd = lt.lstm_bwd_plain(*f64((*ba, *fp, mask, ik, g_r, gcT)), need_dx,
                            compute_dtype=bf)
-    for f, a, b, c, d in zip(type(params)._fields, bk[0], bp[0], b32[0],
-                             bd[0]):
-        worst = bf16_compare(f"K2 d{f}", a, b, c, d, worst)
-    worst = bf16_compare("K2 dc0", bk[2], bp[2], b32[2], bd[2], worst)
-    worst = bf16_compare("K2 dr0", bk[3], bp[3], b32[3], bd[3], worst)
+    btc = lt.lstm_bwd_split_plain(
+        *ba, *fp, mask, ik, g_r, gcT, need_dx,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        compute_dtype=bf, tc=True)
+    for f, a, b, c, d, m in zip(type(params)._fields, bk[0], bp[0], b32[0],
+                                bd[0], btc[0]):
+        worst = bf16_compare(f"K2 d{f}", a, b, c, d, worst, tc=m)
+    worst = bf16_compare("K2 dc0", bk[2], bp[2], b32[2], bd[2], worst,
+                         tc=btc[2])
+    worst = bf16_compare("K2 dr0", bk[3], bp[3], b32[3], bd[3], worst,
+                         tc=btc[3])
     if need_dx:
-        worst = bf16_compare("K2 dx", bk[1], bp[1], b32[1], bd[1], worst)
+        worst = bf16_compare("K2 dx", bk[1], bp[1], b32[1], bd[1], worst,
+                             tc=btc[1])
     elif bk[1] is not None:
         fail("K2 bf16 computed dx although need_input_grad is false")
-    del f32, b32, bd
+    del f32, b32, bd, btc
     if not timed:
         return worst, None
     rec = {}
@@ -1663,6 +1716,83 @@ def xent_bf16_case(name, N, R, K, Km, seed, mask_p=0.8, timed=False):
     return worst, rec
 
 
+def phase_tc_sums() -> None:
+    """Phase 3e: the tensor core's bf16 sums against their model
+    (ops/tc_sum.py). find_params settles each instruction's block,
+    align_bits and rounding on the card from crafted vectors (Fasi et
+    al.), which must be the constants the mirrors use; then tc_dot must
+    equal probe_mma (a zero and a chained accumulator) and probe_wgmma
+    (chains of 1, 4 and 64) bit for bit on TC_DOTS random dot products
+    each, half with weights in +-0.04 and half in +-0.3 against
+    activations as phase 3d makes them. Fails on any bit that differs,
+    after printing the count and the largest ulp gap."""
+    import torch
+    from kaldi_lstm_tpu_torch.ops import tc_sum as ts
+    t0 = time.perf_counter()
+    found = ts.find_params(device="cuda")
+    consts = {"mma": ts.MMA_M16N8K16_BF16, "wgmma": ts.WGMMA_M64NNK16_BF16}
+    for name, f in found.items():
+        params = {k: f[k] for k in ("block", "align_bits", "rounding")}
+        log(f"  {name} (bf16 -> f32): block {f['block']}, align_bits "
+            f"{f['align_bits']}, rounding {f['rounding']}; the model with "
+            f"them: {f['conventions']} of the conventions' vectors and "
+            f"{f['random'][0]} random entries differ")
+        for q, ans in f["seen"].items():
+            log(f"    {q}: {ans}")
+        if params != consts[name]:
+            fail(f"{name}: the card's parameters {params} are not the "
+                 f"model's constants {consts[name]}")
+        if f["conventions"] or f["random"][0]:
+            fail(f"{name}: the model with the found parameters differs "
+                 f"from the card")
+    gen = torch.Generator().manual_seed(2021)
+    for what, shape, depth, with_c in (
+            ("mma.sync m16n8k16, zero accumulator", ts.MMA_SHAPE, 1, False),
+            ("mma.sync m16n8k16, chained accumulator", ts.MMA_SHAPE, 1,
+             True),
+            ("wgmma m64n128k16, chain of 1", ts.WGMMA_SHAPE, 1, False),
+            ("wgmma m64n128k16, chain of 4", ts.WGMMA_SHAPE, 4, False),
+            ("wgmma m64n128k16, chain of 64", ts.WGMMA_SHAPE, 64, False)):
+        mma = shape == ts.MMA_SHAPE
+        probe = ts.probe_mma if mma else ts.probe_wgmma
+        params = consts["mma" if mma else "wgmma"]
+        count = TC_DOTS // 2 // (shape[0] * shape[1])
+        bad, gap = 0, 0
+        for w in (0.04, 0.3):
+            b, g = ts.check(probe, shape, params, depth, count, w, with_c,
+                            gen, "cuda")
+            bad, gap = bad + b, max(gap, g)
+        log(f"  {what}: {2 * count * shape[0] * shape[1]} dot products of "
+            f"depth {16 * depth}, {bad} differ from the model "
+            f"(largest gap {gap} ulps)")
+        if bad:
+            fail(f"{what}: the model differs from the card in {bad} dot "
+                 f"products, by up to {gap} ulps")
+    # what the cut toward zero costs a product as the kernels chain it:
+    # x [256, 1024] (phase 3d's activations) against W [1024, 512]
+    # (+-0.04), against the exact sum: every 16-deep slice from zero
+    # (K5, K7), 64-deep stages (K1), the whole contraction in one chain
+    # (K1's wgmma xw, K3, K4), and cuBLAS in f32 (the plain versions)
+    wts, acts, _ = ts.operands(ts.MMA_SHAPE, 64, 32, 0.04, gen, "cuda",
+                               False)
+    x = acts.reshape(-1, 1024)[:256].float()
+    wt = wts.reshape(-1, 1024)[:512].float().T
+    exact = x.double() @ wt.double()
+    scale = float(exact.pow(2).mean().sqrt())
+    for what, got in (("16-deep slices from zero, f32 adds",
+                       ts.tc_matmul(x, wt, 1)),
+                      ("64-deep stages (4 chained), f32 adds",
+                       ts.tc_matmul(x, wt, 4)),
+                      ("one chain over K=1024", ts.tc_matmul(x, wt, None)),
+                      ("cuBLAS f32", x @ wt)):
+        err = got.double() - exact
+        log(f"  [{what}] RMS error / RMS value "
+            f"{float(err.pow(2).mean().sqrt()) / scale:.3e}, mean error "
+            f"away from zero / RMS value "
+            f"{float((err * exact.sign()).mean()) / scale:.3e}")
+    log(f"  phase 3e: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_bf16_kernels():
     """K1-K5's bf16 variants vs their bf16 plain versions on the card.
     Returns {kernel: record} at the bf16 main path's shapes (the flagship
@@ -1775,11 +1905,25 @@ def phase_bf16_kernels():
         if (li.BF16_LAUNCHES, li.LAUNCHES, li.PLAIN_CALLS) != (1, 0, 0):
             fail(f"K5 bf16 {name}: {li.BF16_LAUNCHES} bf16, {li.LAUNCHES} "
                  f"f32 launches, {li.PLAIN_CALLS} plain calls")
-        for what, a, b, c, d in (("r", out_k, out_p, out_32, out_64),
-                                 ("final c", fin_k.c, fin_p.c, fin_32.c,
-                                  fin_64.c)):
+        # the tc-exact mirror walks the plan CTA by CTA and step by step
+        # (minutes at S=256, T=20): the cases of at most 512
+        # stream-steps here, the CV shape in tests/test_torch_bf16_tc.py's
+        # gpu tests
+        tc = (None, None)
+        if dims[0] * dims[1] <= 512:
+            with torch.inference_mode():
+                r_tc, c_tc = li.lstm_infer_tc_plain(
+                    params, x.transpose(0, 1).contiguous(), state.c,
+                    state.r, 50.0, sms=plan["sms"], tc=True)
+            tc = (r_tc.transpose(0, 1), c_tc)
+        else:
+            log(f"    K5 bf16 {name}: no tc-exact mirror at S={dims[0]}, "
+                f"T={dims[1]}")
+        for what, a, b, c, d, m in (
+                ("r", out_k, out_p, out_32, out_64, tc[0]),
+                ("final c", fin_k.c, fin_p.c, fin_32.c, fin_64.c, tc[1])):
             worst["K5"] = bf16_compare(f"K5 {what}", a, b, c, d,
-                                       worst["K5"])
+                                       worst["K5"], tc=m)
         if not timed:
             continue
         with torch.inference_mode():
@@ -1858,7 +2002,15 @@ def phase_stack_bf16():
              "active", (3, 2, 37, 200, 130), (1, 2), 1.0,
              {"x_scale": 20.0, "param_scale": 0.2}),
             ("S=200 T=10, K7 bf16 staging 13 tiles of 16 streams a step",
-             (200, 10, 40, 800, 512), (5, 2), 50.0, {})]):
+             (200, 10, 40, 800, 512), (5, 2), 50.0, {}),
+            # ROADMAP C.4's regime: weights wide enough to saturate the
+            # gates, the clip engaged, so the bf16-vs-f32 distance is small
+            ("C.4 regime S=8 T=4 I=40, weights +-0.3, clip 0.4",
+             (8, 4, 40, 800, 512), (2,), 0.4, {"param_scale": 0.3}),
+            ("C.4 regime S=8 T=4 I=1024 (xw1 on wgmma), weights +-0.04, "
+             "clip 0.4", (8, 4, 1024, 800, 512), (2,), 0.4, {}),
+            ("C.4 regime S=8 T=4 I=1024, weights +-0.3, clip 0.4",
+             (8, 4, 1024, 800, 512), (2,), 0.4, {"param_scale": 0.3})]):
         args = stack_case(*dims, seed=170 + i, **extra)
         T = dims[1]
         k7_plan = ls.infer2_plan(dims[0], *dims[2:], bf16=True)
@@ -1878,10 +2030,20 @@ def phase_stack_bf16():
                 want32 = ls.lstm_stack_fwd2_plain(*args, clip)
                 want64 = ls.lstm_stack_fwd2_plain(*f64(args), clip,
                                                   compute_dtype=bf)
+                want_tc = ls.lstm_stack_fwd2_tc_plain(*args, clip, tc=True)
             ref = ls.lstm_stack_infer2_plain(*args, clip, compute_dtype=bf)
             ref32 = ls.lstm_stack_infer2_plain(*args, clip)
             ref64 = ls.lstm_stack_infer2_plain(*f64(args), clip,
                                                compute_dtype=bf)
+            # K7's tc-exact mirror walks its plan CTA by CTA and step by
+            # step: the small cases only
+            ref_tc = None
+            if dims[0] <= 8 and T <= 20:
+                ref_tc = ls.lstm_stack_infer2_tc_plain(
+                    *args, clip, sms=k7_plan["sms"], tc=True)
+            else:
+                log(f"    K7 bf16 {name}: no tc-exact mirror at S="
+                    f"{dims[0]}, T={T}")
             for tb in tbs:
                 if k6:
                     got = stack_counted(
@@ -1891,11 +2053,12 @@ def phase_stack_bf16():
                         "lstmp_stack_fwd2_bf16", ls.wavefront_launches(T, tb))
                     if got[0].dtype != bf or got[3].dtype != bf:
                         fail("K6 bf16 did not write gifo in bf16")
-                    for what, a, b, c, d in zip(
+                    for what, a, b, c, d, m in zip(
                             ("gifo1", "c1", "r1", "gifo2", "c2", "r2"), got,
-                            want, want32, want64):
+                            want, want32, want64, want_tc):
                         worst["K6"] = bf16_compare(f"K6 tb{tb} {what}", a,
-                                                   b, c, d, worst["K6"])
+                                                   b, c, d, worst["K6"],
+                                                   tc=m)
                 r2, f1, f2 = stack_counted(
                     f"K7 bf16 {name} tb{tb}",
                     lambda: ls.lstm_stack_infer2_cuda(
@@ -1908,7 +2071,8 @@ def phase_stack_bf16():
                                       ("c2T", f2.c, lambda o: o[2].c)):
                     worst["K7"] = bf16_compare(
                         f"K7 tb{tb} {what}", a, pick(ref), pick(ref32),
-                        pick(ref64), worst["K7"])
+                        pick(ref64), worst["K7"],
+                        tc=None if ref_tc is None else pick(ref_tc))
         log("    launch counts met for every call above "
             "(wavefront_launches; no other kernel, no plain call)")
     return stack_timings(bf, worst)
@@ -6327,6 +6491,9 @@ def main() -> int:
     log("phase 3c: K6/K7 (wavefront two-layer stack) vs their plain "
         "versions, and the wavefront bench")
     stack_recs = phase_stack_kernels()
+
+    log("phase 3e: the tensor core's bf16 sums against their model")
+    phase_tc_sums()
 
     log("phase 3d: the bf16 variants of K1-K7 vs their bf16 plain versions")
     bf16_recs = phase_bf16_kernels()

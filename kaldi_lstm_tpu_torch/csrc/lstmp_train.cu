@@ -121,8 +121,12 @@
 // operand is rounded once rather than at each of its loads (Wr_perm once
 // a call, not once per row tile each step; r_{t-1} once a step, not once
 // per column tile). Each stage's products start from a zero fragment and
-// are added in f32 (tc_gemm.cuh's truncation note); the wgmma xw keeps
-// its whole sum in the wgmma accumulators, as K3/K4 bf16 do. At the
+// are added in f32 (tc_gemm.cuh's note on the tensor core's sums); the
+// wgmma xw keeps its whole sum in the wgmma accumulators, as K3/K4 bf16
+// do, and so takes the tensor core's cut against the running sum's
+// exponent at every 16 of depth (phase 3e on an H100 80GB HBM3 at 700.00
+// W: wgmma m64n128k16 sums as mma.sync does, block 16, 25 bits, toward
+// zero). ops/tc_sum.py's tc_matmul models both routes. At the
 // flagship shape its products' bound is 0.023 ms (22.3 GFLOP at 989
 // TFLOP/s); a step is a serial chain of two launches whose copies,
 // epilogues and launch latency, not their products, take its time

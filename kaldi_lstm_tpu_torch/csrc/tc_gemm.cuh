@@ -25,10 +25,15 @@
 // a_lo b_hi + a_hi b_lo + a_hi b_hi in float32. hi and lo keep 11 + 11
 // significant bits and only the a_lo b_lo term (~2^-22 relative) is
 // dropped, so the result is float32-accurate where one TF32 pass keeps
-// about three decimal digits. The tensor core adds into its accumulator
-// with truncation (round toward zero), and over a 512-deep chain of mma
+// about three decimal digits. The tensor core does not add as IEEE f32
+// does. Its bf16 m16n8k16 sums (the bf16 tiles below), measured by
+// chip_smoke.py's phase 3e on an NVIDIA H100 80GB HBM3 at a 700.00 W
+// power limit and modelled bit for bit by ops/tc_sum.py: the 16 products
+// and the accumulator form one block, aligned to its largest exponent,
+// each cut toward zero to 25 bits below it, and the sum rounded toward
+// zero. Its TF32 sums were not probed; over a 512-deep chain of TF32 mma
 // steps the logits drifted past the float32 tolerance the kernels are
-// held to; so each stage's products (32 deep) go into a fragment that
+// held to. So each stage's products (32 deep) go into a fragment that
 // starts at zero, and that is added to the float32 accumulator with an
 // ordinary round-to-nearest add.
 //
@@ -405,7 +410,9 @@ struct Gemm {
 // operand stored along the output dimension), one mma.sync m16n8k16 bf16
 // per 16 of depth. Each stage's products (BK deep: 32 by default, 64 in
 // the bf16 K1) go into a fragment that starts at zero and is added to the
-// f32 accumulator, for the truncation reason in the header. STAGES is the
+// f32 accumulator, for the reason in the header: a chained accumulator
+// cuts each new product 25 bits under its own exponent, so the cut grows
+// as the sum does. STAGES is the
 // ring's depth: a product with a long contraction and few tiles keeps
 // more stages in flight.
 

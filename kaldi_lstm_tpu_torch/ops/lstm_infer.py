@@ -66,6 +66,7 @@ from kaldi_lstm_tpu_torch.ops.lstm_cell import (
     lstm_scan,
     rounded,
 )
+from kaldi_lstm_tpu_torch.ops.tc_sum import cell_math, tc_runs
 
 LAUNCHES = 0
 BF16_LAUNCHES = 0
@@ -257,22 +258,26 @@ def mma_ksplit(units: int) -> int:
     return ks
 
 
-def _mma_tile(a: torch.Tensor, w: torch.Tensor, ks: int | None = None
-              ) -> torch.Tensor:
+def _mma_tile(a: torch.Tensor, w: torch.Tensor, ks: int | None = None,
+              tc: bool = False) -> torch.Tensor:
     """One staged tile's product as the bf16 kernel sums it: a [sn, K]
     (rounded, K a multiple of 16) against w [M, K] (M a multiple of 16):
     each 16-deep slice's product on its own, added in slice order from
     zero by each of ``ks`` warps (default ``mma_ksplit`` of this tile's
     output tiles) over the slices j = ks (mod ksplit), then the warps'
-    sums in warp order. Returns [sn, M]."""
+    sums in warp order. A slice's product is an IEEE f32 sum, or with
+    ``tc`` the tensor core's own (one mma.sync from a zero accumulator,
+    ``tc_sum.tc_runs``). Returns [sn, M]."""
     sn, K = a.shape
     if ks is None:
         ks = mma_ksplit((w.shape[0] // 16) * -(-sn // 8))
+    parts = tc_runs(a, w.T, 1) if tc else None      # [sn, M, K / 16]
     out = a.new_zeros((sn, w.shape[0]))
     for kidx in range(ks):
         acc = a.new_zeros((sn, w.shape[0]))
         for j in range(kidx, K // 16, ks):
-            acc = acc + a[:, 16 * j:16 * j + 16] @ w[:, 16 * j:16 * j + 16].T
+            acc = acc + (parts[..., j] if tc else
+                         a[:, 16 * j:16 * j + 16] @ w[:, 16 * j:16 * j + 16].T)
         out = out + acc
     return out
 
@@ -285,7 +290,7 @@ def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
 def lstm_infer_tc_plain(params: LstmParams, x_tm: torch.Tensor,
                         c0: torch.Tensor, r0: torch.Tensor,
                         cell_clip: float = 50.0, sms: int = H100_SMS,
-                        optin: int = H100_OPTIN
+                        optin: int = H100_OPTIN, tc: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bf16 kernel's decomposition in torch (``k5_bf16_plan``): the
     weights and x rounded once; per step each gate CTA's rows [4 c + g]
@@ -294,7 +299,10 @@ def lstm_infer_tc_plain(params: LstmParams, x_tm: torch.Tensor,
     writing c and the
     rounded m; then each (column group, stream group) CTA's columns of
     r_t from the staged m, tiles of ``ns_q`` streams, r_t rounded for
-    the next step. x [T, S, I]; returns (r [T, S, R], final c)."""
+    the next step. With ``tc`` it is the kernel's arithmetic: each slice
+    summed as the tensor core sums it (``_mma_tile``) and the cell math
+    fused as nvcc compiles it (``tc_sum.cell_math``). x [T, S, I];
+    returns (r [T, S, R], final c)."""
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     pl = k5_bf16_plan(S, I, C, R, sms, optin)
@@ -323,16 +331,11 @@ def lstm_infer_tc_plain(params: LstmParams, x_tm: torch.Tensor,
             end = min(S, (sg + 1) * pl["gnsg"])
             for s0 in range(sg * pl["gnsg"], end, pl["ns_g"]):
                 s = slice(s0, min(end, s0 + pl["ns_g"]))
-                pre = _mma_tile(a[s], w)[:, :len(rows)]
+                pre = _mma_tile(a[s], w, tc=tc)[:, :len(rows)]
                 pre = pre.view(-1, len(j), 4) + bias[rows].view(len(j), 4)
-                cp = c[s, j]
-                g = torch.tanh(pre[..., 0])
-                i = torch.sigmoid(pre[..., 1] + cp * peep[0, j])
-                f = torch.sigmoid(pre[..., 2] + cp * peep[1, j])
-                cn = g * i + cp * f
-                if cell_clip > 0:
-                    cn = torch.clamp(cn, -cell_clip, cell_clip)
-                o = torch.sigmoid(pre[..., 3] + cn * peep[2, j])
+                _, _, _, cn, o = cell_math(
+                    *pre.unbind(-1), c[s, j], peep[0, j], peep[1, j],
+                    peep[2, j], cell_clip, tc)
                 c[s, j] = cn
                 mb[s, j] = rounded(torch.tanh(cn) * o, bf)
         for b in range(pl["qgroups"] * pl["sgroups"]):
@@ -343,7 +346,7 @@ def lstm_infer_tc_plain(params: LstmParams, x_tm: torch.Tensor,
             end = min(S, (sg + 1) * pl["nsg"])
             for s0 in range(sg * pl["nsg"], end, pl["ns_q"]):
                 s = slice(s0, min(end, s0 + pl["ns_q"]))
-                r_out[t, s, q] = _mma_tile(mb[s], w)[:, :q.stop - q0]
+                r_out[t, s, q] = _mma_tile(mb[s], w, tc=tc)[:, :q.stop - q0]
         rb = rounded(_pad(r_out[t], pl["rp"]), bf)
     return r_out, c
 

@@ -99,6 +99,7 @@ from kaldi_lstm_tpu_torch.ops.lstm_train import (
     lstm_fwd_residuals_plain,
     lstm_fwd_tc_plain,
 )
+from kaldi_lstm_tpu_torch.ops.tc_sum import cell_math
 
 FWD2_LAUNCHES = 0
 INFER2_LAUNCHES = 0
@@ -427,13 +428,13 @@ def lstm_stack_infer2_plain(p1: LstmParams, p2: LstmParams,
 def lstm_stack_fwd2_tc_plain(p1: LstmParams, p2: LstmParams,
                              x_tm: torch.Tensor, s1: LstmState,
                              s2: LstmState, cell_clip: float = 50.0,
-                             phases: str = "both"
+                             phases: str = "both", tc: bool = False
                              ) -> tuple[torch.Tensor, ...]:
     """K6 bf16's decomposition in torch: K1 bf16's (``lstm_train.
     lstm_fwd_tc_plain`` in bf16: the gate interleave at 32 cells, every
     operand rounded once) over layer 1, then over layer 2 with r1 as its
-    input (xw2 from r1's rounded copy). Outputs as
-    ``lstm_stack_fwd2_plain``'s."""
+    input (xw2 from r1's rounded copy); with ``tc`` K1 bf16's arithmetic
+    (``lstm_fwd_tc_plain``'s). Outputs as ``lstm_stack_fwd2_plain``'s."""
     T, S, _ = x_tm.shape
     C, R = p1.cell_dim, p1.recur_dim
     bf = torch.bfloat16
@@ -442,12 +443,12 @@ def lstm_stack_fwd2_tc_plain(p1: LstmParams, p2: LstmParams,
               x_tm.new_zeros((T, S, C)), x_tm.new_zeros((T, S, R)))
     else:
         l1 = lstm_fwd_tc_plain(p1, x_tm, s1.c, s1.r, cell_clip=cell_clip,
-                               compute_dtype=bf)
+                               compute_dtype=bf, tc=tc)
     if phases == "l1":
         l2 = tuple(torch.zeros_like(t) for t in l1)
     else:
         l2 = lstm_fwd_tc_plain(p2, l1[2], s2.c, s2.r, cell_clip=cell_clip,
-                               compute_dtype=bf)
+                               compute_dtype=bf, tc=tc)
     return (*l1, *l2)
 
 
@@ -466,7 +467,8 @@ def _k7_rows(p: LstmParams, xo: int, kk: int) -> torch.Tensor:
 def lstm_stack_infer2_tc_plain(p1: LstmParams, p2: LstmParams,
                                x_tm: torch.Tensor, s1: LstmState,
                                s2: LstmState, cell_clip: float = 50.0,
-                               sms: int = H100_SMS, optin: int = H100_OPTIN
+                               sms: int = H100_SMS, optin: int = H100_OPTIN,
+                               tc: bool = False
                                ) -> tuple[torch.Tensor, LstmState,
                                           LstmState]:
     """K7 bf16's decomposition in torch (``k7_bf16_plan``): the weights,
@@ -477,7 +479,9 @@ def lstm_stack_infer2_tc_plain(p1: LstmParams, p2: LstmParams,
     ``mma_ksplit`` of their m16 tiles together (``_mma_tile``), the cell
     math writing c and the rounded m of each layer; then each projection
     CTA's columns of its layer from the staged m, tiles of ``ns_q``
-    streams: r1_k and r2_{k-1}, each rounded for the next step. Returns
+    streams: r1_k and r2_{k-1}, each rounded for the next step. With
+    ``tc`` it is the kernel's arithmetic: each slice summed as the tensor
+    core sums it and the cell math fused as nvcc compiles it. Returns
     ``lstm_stack_infer2_plain``'s results."""
     T, S, I = x_tm.shape
     C, R = p1.cell_dim, p1.recur_dim
@@ -515,18 +519,13 @@ def lstm_stack_infer2_tc_plain(p1: LstmParams, p2: LstmParams,
                                 * -(-(s.stop - s0) // 8))
                 for l, w in zip(live, ws):
                     at = a[s, koff[l]:koff[l] + w.shape[1]]
-                    pre = _mma_tile(at, w, ks)[:, :len(rows)]
+                    pre = _mma_tile(at, w, ks, tc)[:, :len(rows)]
                     pre = pre.view(-1, len(j), 4) \
                         + ps[l].bias[rows].view(len(j), 4)
-                    cp = c[l][s, j]
-                    g = torch.tanh(pre[..., 0])
-                    i = torch.sigmoid(pre[..., 1] + cp * ps[l].peephole_i_c[j])
-                    f = torch.sigmoid(pre[..., 2] + cp * ps[l].peephole_f_c[j])
-                    cn = g * i + cp * f
-                    if cell_clip > 0:
-                        cn = torch.clamp(cn, -cell_clip, cell_clip)
-                    o = torch.sigmoid(pre[..., 3]
-                                      + cn * ps[l].peephole_o_c[j])
+                    _, _, _, cn, o = cell_math(
+                        *pre.unbind(-1), c[l][s, j], ps[l].peephole_i_c[j],
+                        ps[l].peephole_f_c[j], ps[l].peephole_o_c[j],
+                        cell_clip, tc)
                     c[l][s, j] = cn
                     mb[l][s, j] = rounded(torch.tanh(cn) * o, bf)
         per = pl["qgroups"] * pl["sgroups"]
@@ -542,7 +541,7 @@ def lstm_stack_infer2_tc_plain(p1: LstmParams, p2: LstmParams,
             end = min(S, (sg + 1) * pl["nsg"])
             for s0 in range(sg * pl["nsg"], end, pl["ns_q"]):
                 s = slice(s0, min(end, s0 + pl["ns_q"]))
-                out[s, q] = _mma_tile(mb[l][s], w)[:, :q.stop - q0]
+                out[s, q] = _mma_tile(mb[l][s], w, tc=tc)[:, :q.stop - q0]
         if 0 in live:
             rb[0] = rounded(_pad(r1, rp), bf)
         if 1 in live:

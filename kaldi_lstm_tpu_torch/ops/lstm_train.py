@@ -78,6 +78,7 @@ zeroes them all.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -91,6 +92,12 @@ from kaldi_lstm_tpu_torch.ops.lstm_infer import (
     _check,
     check_compute_dtype,
     check_lstm_operands,
+)
+from kaldi_lstm_tpu_torch.ops.tc_sum import (
+    cell_grad_math,
+    cell_math,
+    fma_f32,
+    tc_matmul,
 )
 
 FWD_LAUNCHES = 0
@@ -323,12 +330,14 @@ def _split_matmul(a: torch.Tensor, b: torch.Tensor, splits: int
     return out
 
 
-def _stage_matmul(a: torch.Tensor, b: torch.Tensor, splits: int = 1
-                  ) -> torch.Tensor:
+def _stage_matmul(a: torch.Tensor, b: torch.Tensor, splits: int = 1,
+                  tc: bool = False) -> torch.Tensor:
     """a [M, K] @ b [K, N] as the bf16 tiles sum it (operands already
     rounded): within each of `splits` consecutive ranges of whole stages,
     each 32-deep stage's product summed on its own and added in stage
-    order from zero; then the ranges' partial products in range order."""
+    order from zero; then the ranges' partial products in range order. A
+    stage's product is an IEEE f32 sum, or with ``tc`` the tensor core's
+    own (its two mma.sync chained, ``tc_sum.tc_matmul``)."""
     K = a.shape[1]
     ksteps = -(-K // _STAGE)
     kc = -(-ksteps // splits) * _STAGE
@@ -336,8 +345,42 @@ def _stage_matmul(a: torch.Tensor, b: torch.Tensor, splits: int = 1
     for k0 in range(0, K, kc):
         part = a.new_zeros((a.shape[0], b.shape[1]))
         for s0 in range(k0, min(K, k0 + kc), _STAGE):
-            part = part + a[:, s0:s0 + _STAGE] @ b[s0:s0 + _STAGE]
+            sa, sb = a[:, s0:s0 + _STAGE], b[s0:s0 + _STAGE]
+            part = part + (tc_matmul(sa, sb, _STAGE // 16) if tc
+                           else sa @ sb)
         out = out + part
+    return out
+
+
+def _col_sums(v: torch.Tensor, w: torch.Tensor | None = None,
+              ranges: int = 1) -> torch.Tensor:
+    """The column sums of v [N, K] (of v * w with ``w``) as K2's
+    col_reduce_kernel makes them: N split into ``ranges`` row ranges;
+    in each, 8 running f32 sums over the rows n = r (mod 8), a product
+    fused into its add (fmaf(v, w, acc)); then the 8 in order, then the
+    ranges in order."""
+    N, K = v.shape
+    rows = -(-N // ranges)
+    per = -(-rows // 8)
+
+    def lay(t):     # [ranges, per, 8, K], each range zero-padded
+        t = torch.nn.functional.pad(t, (0, 0, 0, ranges * rows - N))
+        return torch.nn.functional.pad(t.view(ranges, rows, K),
+                                       (0, 0, 0, 8 * per - rows)).view(
+            ranges, per, 8, K)
+
+    vv = lay(v)
+    ww = None if w is None else lay(w)
+    acc = v.new_zeros((ranges, 8, K))
+    for j in range(per):
+        acc = acc + vv[:, j] if ww is None else \
+            fma_f32(vv[:, j], ww[:, j], acc)
+    part = v.new_zeros((ranges, K))
+    for r in range(8):
+        part = part + acc[:, r]
+    out = v.new_zeros(K)
+    for y in range(ranges):
+        out = out + part[y]
     return out
 
 
@@ -356,21 +399,29 @@ def _peep(params: LstmParams) -> torch.Tensor:
 
 def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
               r0: torch.Tensor, keep_mask_tm: torch.Tensor | None,
-              inv_keep: float, cell_clip: float, recurrent, compute_dtype
+              inv_keep: float, cell_clip: float, recurrent, compute_dtype,
+              xw_mm=torch.matmul, proj_mm=torch.matmul, fused: bool = False
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's function with ``recurrent(r)`` [S, 4C] giving r_{t-1} Wr^T
-    (its operands rounded to ``compute_dtype``): the hoisted xw = x Wx^T,
-    times the keep-mask * inv_keep, + bias; per step pre = xw_t +
-    recurrent(r_{t-1}), the cell (the o peephole reads the clipped c_t)
-    and r_t = (tanh(c_t) o) Wrm^T. With a ``compute_dtype`` the products'
-    operands are rounded to it and gifo is stored in it."""
+    (its operands rounded to ``compute_dtype``): the hoisted xw = x Wx^T
+    (``xw_mm``), times the keep-mask * inv_keep, + bias (one fused
+    multiply-add with ``fused``, as K1 bf16's xw epilogue); per step pre =
+    xw_t + recurrent(r_{t-1}), the cell (the o peephole reads the clipped
+    c_t; ``tc_sum.cell_math`` with ``fused``) and r_t = (tanh(c_t) o)
+    Wrm^T (``proj_mm``). With a ``compute_dtype`` the products' operands
+    are rounded to it and gifo is stored in it."""
     T, S, I = x_tm.shape
     C = params.cell_dim
-    xw = (rounded(x_tm.reshape(T * S, I), compute_dtype)
-          @ rounded(params.w_gifo_x, compute_dtype).T).reshape(T, S, 4 * C)
-    if keep_mask_tm is not None:
-        xw = xw * (keep_mask_tm.to(xw.dtype) * inv_keep)
-    xw = xw + params.bias
+    xw = xw_mm(rounded(x_tm.reshape(T * S, I), compute_dtype),
+               rounded(params.w_gifo_x, compute_dtype).T
+               ).reshape(T, S, 4 * C)
+    if keep_mask_tm is not None and fused:
+        xw = fma_f32(xw, keep_mask_tm.to(xw.dtype) * inv_keep,
+                     params.bias.expand_as(xw))
+    else:
+        if keep_mask_tm is not None:
+            xw = xw * (keep_mask_tm.to(xw.dtype) * inv_keep)
+        xw = xw + params.bias
     wrm_t = rounded(params.w_r_m, compute_dtype).T
     gifo = xw.new_empty((T, S, 4 * C), dtype=compute_dtype or xw.dtype)
     c_seq = xw.new_empty((T, S, C))
@@ -378,14 +429,11 @@ def _fwd_scan(params: LstmParams, x_tm: torch.Tensor, c0: torch.Tensor,
     c, r = c0, r0
     for t in range(T):
         pre = xw[t] + recurrent(rounded(r, compute_dtype))
-        g = torch.tanh(pre[:, :C])
-        i = torch.sigmoid(pre[:, C:2 * C] + c * params.peephole_i_c)
-        f = torch.sigmoid(pre[:, 2 * C:3 * C] + c * params.peephole_f_c)
-        c = g * i + c * f
-        if cell_clip > 0:
-            c = torch.clamp(c, -cell_clip, cell_clip)
-        o = torch.sigmoid(pre[:, 3 * C:] + c * params.peephole_o_c)
-        r = rounded(torch.tanh(c) * o, compute_dtype) @ wrm_t
+        g, i, f, c, o = cell_math(
+            pre[:, :C], pre[:, C:2 * C], pre[:, 2 * C:3 * C], pre[:, 3 * C:],
+            c, params.peephole_i_c, params.peephole_f_c,
+            params.peephole_o_c, cell_clip, fused)
+        r = proj_mm(rounded(torch.tanh(c) * o, compute_dtype), wrm_t)
         gifo[t] = torch.cat([g, i, f, o], dim=-1)
         c_seq[t] = c
         r_seq[t] = r
@@ -411,14 +459,21 @@ def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
                       c0: torch.Tensor, r0: torch.Tensor,
                       keep_mask_tm: torch.Tensor | None = None,
                       inv_keep: float = 1.0, cell_clip: float = 50.0,
-                      compute_dtype=None
+                      compute_dtype=None, tc: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's decomposition in torch, the arguments and results of
     ``lstm_fwd_residuals_plain``: the hoisted xw with the mask and the
     bias, then per step the recurrent product against the
     gate-interleaved copy of Wr (zero rows for the padding cells; 16
     cells a tile in f32, ``K1_BF16_GATE_CELLS`` in bf16), taken back to
-    the g|i|f|o order and added to xw_t, the cell, and the projection."""
+    the g|i|f|o order and added to xw_t, the cell, and the projection.
+    With ``tc`` (bf16 only) it is the bf16 kernel's arithmetic: every
+    product summed as its tensor cores sum it (``tc_sum.tc_matmul``: the
+    gates and the projection in ``K1_BF16_STAGE``-deep stages of chained
+    mma.sync added in f32, the xw likewise on ``fwd_plan``'s "mma" route
+    and in one wgmma chain over the whole contraction on its "wg"
+    route), and the cell math fused as nvcc compiles it."""
+    T, S, I = x_tm.shape
     C = params.cell_dim
     cells = _GATE_CELLS if compute_dtype is None else K1_BF16_GATE_CELLS
     rows = gate_interleave(C, cells).to(x_tm.device)
@@ -426,9 +481,23 @@ def lstm_fwd_tc_plain(params: LstmParams, x_tm: torch.Tensor,
     wr_perm = torch.where((rows >= 0)[:, None],
                           params.w_gifo_r[rows.clamp_min(0)], 0.0)
     wr_perm_t = rounded(wr_perm, compute_dtype).T
+    if not tc:
+        return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
+                         cell_clip, lambda r: (r @ wr_perm_t)[:, cols],
+                         compute_dtype)
+    if compute_dtype is None:
+        raise ValueError("lstm_fwd_tc_plain: tc models the bf16 kernel's "
+                         "sums; give compute_dtype=torch.bfloat16")
+    chain = K1_BF16_STAGE // 16
+    wg = fwd_plan(T, S, I, C, params.recur_dim, bf16=True)["xw_route"] \
+        == "wg"
     return _fwd_scan(params, x_tm, c0, r0, keep_mask_tm, inv_keep,
-                     cell_clip, lambda r: (r @ wr_perm_t)[:, cols],
-                     compute_dtype)
+                     cell_clip,
+                     lambda r: tc_matmul(r, wr_perm_t, chain)[:, cols],
+                     compute_dtype,
+                     xw_mm=lambda x, w: tc_matmul(x, w, None if wg
+                                                  else chain),
+                     proj_mm=lambda m, w: tc_matmul(m, w, chain), fused=True)
 
 
 def lstm_bwd_plain(params: LstmParams, x_tm: torch.Tensor,
@@ -505,7 +574,8 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
                          r_seq: torch.Tensor,
                          keep_mask_tm: torch.Tensor | None, inv_keep: float,
                          g_r: torch.Tensor, gcT: torch.Tensor, need_dx: bool,
-                         sms: int = H100_SMS, compute_dtype=None
+                         sms: int = H100_SMS, compute_dtype=None,
+                         tc: bool = False
                          ) -> tuple[LstmParams, torch.Tensor | None,
                                     torch.Tensor, torch.Tensor]:
     """K2's decomposition in torch, the arguments and results of
@@ -516,13 +586,23 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
     contiguous), each split as the kernel splits it. ``compute_dtype``
     as for ``lstm_bwd_plain``; in bf16 it mirrors the bf16 design: dm
     and dr unsplit, every product summed stage by stage
-    (``_stage_matmul``) from operands rounded once."""
+    (``_stage_matmul``) from operands rounded once; with ``tc`` the bf16
+    kernel's arithmetic: each stage summed as the tensor cores sum it and
+    the gate gradients fused as nvcc compiles them
+    (``tc_sum.cell_grad_math``)."""
     T, S, I = x_tm.shape
     C, R = params.cell_dim, params.recur_dim
     N = T * S
     bf16 = compute_dtype is not None
     sp = bwd_plan(T, S, I, C, R, sms, bf16=bf16)
-    mm = _stage_matmul if bf16 else _split_matmul
+    if tc and not bf16:
+        raise ValueError("lstm_bwd_split_plain: tc models the bf16 "
+                         "kernel's sums; give compute_dtype=torch.bfloat16")
+
+    def mm(a, b, splits=1):
+        return _stage_matmul(a, b, splits, tc) if bf16 else \
+            _split_matmul(a, b, splits)
+
     pi, pf, po = (params.peephole_i_c, params.peephole_f_c,
                   params.peephole_o_c)
 
@@ -542,32 +622,34 @@ def lstm_bwd_split_plain(params: LstmParams, x_tm: torch.Tensor,
         cp = c_seq[t - 1] if t > 0 else c0
         h = torch.tanh(c_seq[t])
         dr_total = g_r[t] + dr
-        dm = _stage_matmul(rd(dr_total), wrm) if bf16 else \
-            rd(dr_total) @ wrm
-        d_o = dm * h * o * (1.0 - o)
-        dc_total = dc + dm * o * (1.0 - h * h) + d_o * po
-        df = dc_total * cp * f * (1.0 - f)
-        di = dc_total * g * i * (1.0 - i)
-        dg = dc_total * i * (1.0 - g * g)
+        dm = mm(rd(dr_total), wrm) if bf16 else rd(dr_total) @ wrm
+        dg, di, df, d_o, dc = cell_grad_math(dm, g, i, f, o, h, cp, dc, pi,
+                                             pf, po, tc)
         dgifo[t] = torch.cat([dg, di, df, d_o], dim=-1)
         drt[t] = dr_total
         ho[t] = h * o
         if dxw is not None:
             dxw[t] = dgifo[t] * (keep_mask_tm[t].to(dxw.dtype) * inv_keep)
-        dc = dc_total * f + di * pi + df * pf
         dr = mm(rd(dgifo[t]), wr, sp["dr"])
 
     dg2 = dgifo.reshape(N, 4 * C)
     dxw2 = dg2 if dxw is None else dxw.reshape(N, 4 * C)
     r_prev = torch.cat([r0[None], r_seq[:-1]]).reshape(N, R)
     c_prev = torch.cat([c0[None], c_seq[:-1]]).reshape(N, C)
+    c_all = c_seq.reshape(N, C)
+    if tc:
+        col = functools.partial(_col_sums, ranges=sp["cols"])
+        sums = (col(dg2), col(dg2[:, C:2 * C], c_prev),
+                col(dg2[:, 2 * C:3 * C], c_prev), col(dg2[:, 3 * C:], c_all))
+    else:
+        sums = (dg2.sum(0), (dg2[:, C:2 * C] * c_prev).sum(0),
+                (dg2[:, 2 * C:3 * C] * c_prev).sum(0),
+                (dg2[:, 3 * C:] * c_all).sum(0))
     dparams = LstmParams(
         w_gifo_x=mm(rd(dxw2).T, rd(x_tm.reshape(N, I)), sp["wx"]),
         w_gifo_r=mm(rd(dg2).T, rd(r_prev), sp["wr"]),
-        bias=dg2.sum(0),
-        peephole_i_c=(dg2[:, C:2 * C] * c_prev).sum(0),
-        peephole_f_c=(dg2[:, 2 * C:3 * C] * c_prev).sum(0),
-        peephole_o_c=(dg2[:, 3 * C:] * c_seq.reshape(N, C)).sum(0),
+        bias=sums[0], peephole_i_c=sums[1], peephole_f_c=sums[2],
+        peephole_o_c=sums[3],
         w_r_m=mm(rd(drt.reshape(N, R)).T, rd(ho.reshape(N, C)), sp["wrm"]),
     )
     dx = mm(rd(dxw2), wx, sp["dx"]).reshape(T, S, I) if need_dx else None

@@ -30,6 +30,14 @@ script prints, as err / distance beside noise / distance:
   output;
 * K5 free-running (its r and final c) against its plain version on the
   card;
+* for K1, K2 and K5, the kernel's tc-exact mirror (``lstm_fwd_tc_plain``,
+  ``lstm_bwd_split_plain``, ``lstm_infer_tc_plain`` with ``tc``: its
+  tiles, its tensor cores' sums by ``ops/tc_sum.py``'s model and its
+  fused cell math, run on the card) against the plain version, the
+  kernel against that mirror (a miss where it parts by more than
+  TC_SHARE of the distance), and the kernel by the rule with the
+  mirror's distance as one more noise witness (K1: the larger of the
+  f64 sum's, the CPU order's and the mirror's);
 
 and counts the seeds where each misses the rule. ``--stack`` runs two
 stacked layers (layer 2's input width R) and prints, for K6 in bf16 (its
@@ -42,7 +50,10 @@ six residuals) and K7 in bf16 (r2 and the final c1, r1, c2):
   tiles, sum order by tile and rounding points, summed in torch) run on
   the CPU against the plain version on the card;
 * the kernel by the rule with the CPU order's distance as a second noise
-  witness.
+  witness;
+* the tc-exact mirror (``tc=True``, run on the card, whose tanh and exp
+  are the kernels'), against the plain version, the kernel against it
+  (gate TC_SHARE), and the kernel by the rule with the three witnesses.
 
 ``--other DIR`` runs the same in a child process that imports DIR's
 package (another checkout, for example the parent commit unpacked with
@@ -52,6 +63,7 @@ package (another checkout, for example the parent commit unpacked with
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -74,6 +86,31 @@ def _misses(err: float, noise: float) -> bool:
     return not err <= max(0.1, 2.0 * noise)
 
 
+# chip_smoke.py's gate on a kernel against its tc-exact mirror
+TC_SHARE = 0.02
+TC_ROW = "against its tc-exact mirror"
+
+
+def _tc_rows(rows: dict, name: str, kernel, mirror, plain, f32, f64,
+             witness: str | None = None) -> None:
+    """Rows of a kernel's tc-exact mirror: the mirror against the plain
+    version (beside the f64 sum's noise, as the kernel's row), the kernel
+    against the mirror (err / distance; a miss above TC_SHARE), and the
+    kernel by the rule with the mirror's distance as one more noise
+    witness beside the f64 sum's (and beside the row ``witness``'s
+    distance, the CPU order's)."""
+    dist = [_rms(b.double() - c.double()) for b, c in zip(plain, f32)]
+    rows[f"{name} tc-exact mirror"] = [
+        _ratios(m, b, c, d) for m, b, c, d in zip(mirror, plain, f32, f64)]
+    rows[f"{name} kernel {TC_ROW}"] = [
+        (_rms(k.double() - m.double()) / d, 0.0)
+        for k, m, d in zip(kernel, mirror, dist)]
+    other = rows[witness] if witness else [(0.0, 0.0)] * len(dist)
+    rows[f"{name} kernel, with the tc-exact witness"] = [
+        (e, max(n, t, w)) for (e, n), (t, _), (w, _) in zip(
+            rows[f"{name} kernel"], rows[f"{name} tc-exact mirror"], other)]
+
+
 def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
           clip: float = 50.0, states: float = 0.5) -> None:
     import numpy as np
@@ -88,6 +125,7 @@ def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     C, R, bf = 800, 512, torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def f64(tree):
         return type(tree)(*(v.double() for v in tree))
@@ -112,6 +150,7 @@ def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
         x_tm = x.transpose(0, 1).contiguous()
         fa = (p, x_tm, st.c, st.r, None, 1.0, clip)
         fk = lt.lstm_fwd_residuals_cuda(*fa, compute_dtype=bf)
+        ftc = lt.lstm_fwd_tc_plain(*fa, compute_dtype=bf, tc=True)
         fp = lt.lstm_fwd_residuals_plain(*fa, compute_dtype=bf)
         f32 = lt.lstm_fwd_residuals_plain(*fa)
         fd = lt.lstm_fwd_residuals_plain(f64(p), x_tm.double(),
@@ -135,6 +174,7 @@ def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
         rows["K1 kernel, CPU-order noise"] = [
             (e, max(n, w)) for (e, n), (w, _) in
             zip(rows["K1 kernel"], rows["K1 plain on the CPU"])]
+        _tc_rows(rows, "K1", fk, ftc, fp, f32, fd, "K1 plain on the CPU")
         # K5 in bf16 (mma.sync on zeroed accumulators, the slices summed
         # by f32 adds) on the same layer: r and the final c
         ik = li.lstm_infer(p, x_tm, st, clip, time_major=True,
@@ -145,6 +185,10 @@ def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
             (f64(p), x_tm.double(), f64(st), bf)))
         rows["K5 kernel"] = [_ratios(*(o[0] for o in (ik, ip, i32, i64))),
                              _ratios(*(o[1].c for o in (ik, ip, i32, i64)))]
+        itc = li.lstm_infer_tc_plain(p, x_tm, st.c, st.r, clip, sms=sms,
+                                     tc=True)
+        _tc_rows(rows, "K5", (ik[0], ik[1].c), itc, (ip[0], ip[1].c),
+                 (i32[0], i32[1].c), (i64[0], i64[1].c))
         rng = np.random.RandomState(seed + 100)
         g_r = torch.tensor(rng.randn(T, S, R).astype(np.float32),
                            device="cuda")
@@ -162,6 +206,11 @@ def sweep(S: int, T: int, I: int, seeds: range, scale: float = 0.04,
         rows["K2 kernel"] = [_ratios(a, b, c, d) for a, b, c, d in zip(
             (*bk[0], bk[2], bk[3]), (*bp[0], bp[2], bp[3]),
             (*b32[0], b32[2], b32[3]), (*bd[0], bd[2], bd[3]))]
+        btc = lt.lstm_bwd_split_plain(*ba, *fp, None, 1.0, g_r, gcT, False,
+                                      sms=sms, compute_dtype=bf, tc=True)
+        _tc_rows(rows, "K2", (*bk[0], bk[2], bk[3]),
+                 (*btc[0], btc[2], btc[3]), (*bp[0], bp[2], bp[3]),
+                 (*b32[0], b32[2], b32[3]), (*bd[0], bd[2], bd[3]))
         _report(seed, rows, counts)
     _total(seeds, counts)
 
@@ -171,7 +220,8 @@ def _report(seed: int, rows: dict, counts: dict) -> None:
     distance), MISS where an output misses the rule."""
     parts = []
     for what, rs in rows.items():
-        miss = any(_misses(*r) for r in rs)
+        miss = any(r[0] > TC_SHARE if what.endswith(TC_ROW) else
+                   _misses(*r) for r in rs)
         counts[what] = counts.get(what, 0) + miss
         err, noise = max(rs, key=lambda r: r[0] - max(0.1, 2 * r[1]))
         parts.append(f"{what} {err:.4f} ({noise:.4f})"
@@ -227,7 +277,8 @@ def sweep_stack(S: int, T: int, I: int, seeds: range, scale: float,
                 ("K6", ls.lstm_stack_fwd2_cuda, ls.lstm_stack_fwd2_plain,
                  ls.lstm_stack_fwd2_tc_plain, tuple),
                 ("K7", ls.lstm_stack_infer2_cuda, ls.lstm_stack_infer2_plain,
-                 lambda *b: ls.lstm_stack_infer2_tc_plain(*b, sms=sms), k7)):
+                 functools.partial(ls.lstm_stack_infer2_tc_plain, sms=sms),
+                 k7)):
             fk = pick(kern(*a, clip, compute_dtype=bf))
             fp = pick(plain(*a, clip, compute_dtype=bf))
             f32 = pick(plain(*a, clip))
@@ -244,6 +295,8 @@ def sweep_stack(S: int, T: int, I: int, seeds: range, scale: float,
                 (e, max(n, w)) for (e, n), (w, _) in
                 zip(rows[f"{name} kernel"],
                     rows[f"{name} plain on the CPU"])]
+            _tc_rows(rows, name, fk, pick(mirror(*a, clip, tc=True)), fp,
+                     f32, fd, f"{name} plain on the CPU")
         _report(seed, rows, counts)
     _total(seeds, counts)
 

@@ -196,18 +196,27 @@ def _reads_stdin(rspec: str) -> bool:
 
 def _start_profiler(device):
     """A torch.profiler run over the training epoch (the CPU side,
-    and the card's kernels and copies on CUDA)."""
+    and the card's kernels and copies on CUDA). The card is idle when it
+    starts (the set-up's copies done), so the trace holds the epoch's
+    work and nothing before it."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
     profiler = profile(activities=acts)
     profiler.start()
     return profiler
 
 
-def _stop_profiler(profiler, directory: str) -> str:
-    """Stop the profiler and write its Chrome trace into `directory`."""
+def _stop_profiler(profiler, directory: str, device) -> str:
+    """Stop the profiler and write its Chrome trace into `directory`,
+    after the card has finished the epoch's kernels (the profiler
+    collects only the records of kernels that have completed)."""
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     profiler.stop()
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{TOOL}.{os.getpid()}.pt.trace.json")
@@ -355,7 +364,7 @@ def main(argv=None, _stats_out=None) -> int:
                     plan=plan, sync_every=args.sync_every)
 
     if profiler is not None:
-        path = _stop_profiler(profiler, args.profile_dir)
+        path = _stop_profiler(profiler, args.profile_dir, device)
         LOG(f"profiler trace written to {path}")
 
     if not crossvalidate:

@@ -42,7 +42,8 @@ from kaldi_lstm_tpu.ops.lstm_cell import LstmParams as JLstmParams
 from kaldi_lstm_tpu.ops.lstm_pallas import lstm_scan_pallas
 from kaldi_lstm_tpu_torch.ops import lstm_infer as li
 from kaldi_lstm_tpu_torch.ops import lstm_train as lt
-from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState
+from kaldi_lstm_tpu_torch.ops import tc_sum as ts
+from kaldi_lstm_tpu_torch.ops.lstm_cell import LstmParams, LstmState, lstm_scan
 
 from test_torch_bf16 import (
     BF16,
@@ -643,3 +644,152 @@ def test_k1_bf16_tools_need_a_card(monkeypatch, tool):
     mod = importlib.import_module(f"kaldi_lstm_tpu_torch.tools.{tool}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert mod.main([]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor core's sums (ops/tc_sum.py) and the tc-exact mirrors, on the
+# card
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's TC_SHARE: a bf16 kernel lies within this share of the
+# bf16-vs-f32 distance of its tc-exact mirror (its tiles, its tensor
+# cores' sums by the model, its cell math as nvcc fuses it)
+TC_SHARE = 0.02
+PROBE_CASES = {
+    # name: (shape, chain depth, with an accumulator)
+    "mma_zero": (ts.MMA_SHAPE, 1, False),
+    "mma_chained": (ts.MMA_SHAPE, 1, True),
+    "wgmma_1": (ts.WGMMA_SHAPE, 1, False),
+    "wgmma_4": (ts.WGMMA_SHAPE, 4, False),
+    "wgmma_64": (ts.WGMMA_SHAPE, 64, False),
+}
+
+
+@pytest.mark.gpu
+def test_cuda_find_params_gives_the_models_constants():
+    """find_params on the card settles each instruction's block,
+    align_bits and rounding from crafted vectors; they are the constants
+    the mirrors use, and the model with them matches the conventions'
+    vectors and 2^16 random dot products."""
+    _card()
+    found = ts.find_params(device="cuda", random_dots=1 << 16)
+    for name, const in (("mma", ts.MMA_M16N8K16_BF16),
+                        ("wgmma", ts.WGMMA_M64NNK16_BF16)):
+        got = found[name]
+        assert {k: got[k] for k in const} == const, name
+        assert got["conventions"] == 0 and got["random"] == (0, 0), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [0.04, 0.3])
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_cuda_model_is_the_tensor_core_bit_for_bit(case, w):
+    """tc_dot against probe_mma and probe_wgmma on 2^17 random dot
+    products (weights in +-w against activations), every bit equal."""
+    _card()
+    shape, depth, with_c = PROBE_CASES[case]
+    mma = shape == ts.MMA_SHAPE
+    count = (1 << 17) // (shape[0] * shape[1])
+    got = ts.check(ts.probe_mma if mma else ts.probe_wgmma, shape,
+                   ts.MMA_M16N8K16_BF16 if mma else ts.WGMMA_M64NNK16_BF16,
+                   depth, count, w, with_c,
+                   torch.Generator().manual_seed(depth), "cuda")
+    assert got == (0, 0)
+
+
+def _tc_case(case: str):
+    """(params, x_tm, c0, r0, clip) on the card: layer 1 of
+    tests/test_torch_lstm_stack.py's make(seed=97) at S=8, T=4, C=800,
+    R=512 with its weights scaled to +-w (ROADMAP C.4's data), or the
+    flagship training shape with the deep configuration's +-0.04."""
+    from test_torch_lstm_stack import make
+    if case == "flagship":
+        p, x, c0, r0, _, _ = lstm_inputs(256, 20, 40, 800, 512, None, 12)
+        tp = LstmParams(**{k: t(v * (0.04 / 0.3)).cuda()
+                           for k, v in p.items()})
+        return (tp, t(x).transpose(0, 1).contiguous().cuda(), t(c0).cuda(),
+                t(r0).cuda(), 50.0)
+    I, w = {"c4_i40_w0.3": (40, 0.3), "c4_i1024_w0.04": (1024, 0.04),
+            "c4_i1024_w0.3": (1024, 0.3)}[case]
+    _, (p1, _, x, s1, _) = make(seed=97, s=8, t=4, i=I, c=800, r=512,
+                                device="cuda")
+    p1 = LstmParams(*(v * (w / 0.3) for v in p1))
+    return p1, x, s1.c, s1.r, 0.4
+
+
+def _near_mirror(name, got, mirror, plain, f32):
+    """RMS of the kernel against its tc-exact mirror within TC_SHARE of
+    the bf16-vs-f32 distance; None where it holds, else the miss."""
+    got, mirror, plain, f32 = (u.double() for u in (got, mirror, plain,
+                                                    f32))
+    dist = float((plain - f32).pow(2).mean().sqrt())
+    err = float((got - mirror).pow(2).mean().sqrt())
+    assert bool(got.isfinite().all()) and dist > 0, name
+    print(f"{name}: kernel against its tc-exact mirror / distance "
+          f"{err / dist:.4f}")
+    return None if err <= TC_SHARE * dist else \
+        f"{name}: {err / dist:.4f} of the distance from its tc-exact mirror"
+
+
+TC_CASES = ["c4_i40_w0.3", "c4_i1024_w0.04", "c4_i1024_w0.3", "flagship"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_k1_k2_bf16_match_their_tc_mirrors(case):
+    """K1 bf16 and K2 bf16 (on the bf16 plain forward's residuals, as
+    chip_smoke.py's phase 3d feeds it, with dx) against their tc-exact
+    mirrors, lstm_fwd_tc_plain and lstm_bwd_split_plain with tc, run on
+    the card: every output within TC_SHARE of the distance."""
+    _card()
+    p, x_tm, c0, r0, clip = _tc_case(case)
+    T, S, _ = x_tm.shape
+    fa = (p, x_tm, c0, r0, None, 1.0, clip)
+    fk = lt.lstm_fwd_residuals_cuda(*fa, compute_dtype=BF16)
+    fp = lt.lstm_fwd_residuals_plain(*fa, compute_dtype=BF16)
+    f32 = lt.lstm_fwd_residuals_plain(*fa)
+    ftc = lt.lstm_fwd_tc_plain(*fa, compute_dtype=BF16, tc=True)
+    misses = [_near_mirror(f"K1 {n}", *u) for n, u in zip(
+        ("gifo", "c", "r"), zip(fk, ftc, fp, f32))]
+    g = torch.Generator().manual_seed(13)
+    g_r = torch.randn(T, S, p.recur_dim, generator=g).cuda()
+    gcT = torch.randn(S, p.cell_dim, generator=g).cuda()
+    ba = (p, x_tm, c0, r0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bk = lt.lstm_bwd_cuda(*ba, *fp, None, 1.0, g_r, gcT, True,
+                          compute_dtype=BF16)
+    bp = lt.lstm_bwd_plain(*ba, *fp, None, 1.0, g_r, gcT, True,
+                           compute_dtype=BF16)
+    b32 = lt.lstm_bwd_plain(*ba, *f32, None, 1.0, g_r, gcT, True)
+    btc = lt.lstm_bwd_split_plain(*ba, *fp, None, 1.0, g_r, gcT, True,
+                                  sms=sms, compute_dtype=BF16, tc=True)
+    names = [f"d{f}" for f in LstmParams._fields] + ["dx", "dc0", "dr0"]
+    misses += [_near_mirror(f"K2 {n}", *u) for n, u in zip(
+        names, zip((*bk[0], *bk[1:]), (*btc[0], *btc[1:]),
+                   (*bp[0], *bp[1:]), (*b32[0], *b32[1:])))]
+    misses = [m for m in misses if m is not None]
+    assert not misses, "\n".join(misses)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_k5_bf16_matches_its_tc_mirror(case):
+    """K5 bf16 against lstm_infer_tc_plain with tc on the card's SM
+    count, run on the card: r and the final c within TC_SHARE of the
+    distance."""
+    _card()
+    p, x_tm, c0, r0, clip = _tc_case(case)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with torch.no_grad():
+        r, fin = li.lstm_infer_cuda(p, x_tm, LstmState(c0, r0), clip,
+                                    compute_dtype=BF16)
+        rp, finp = lstm_scan(p, x_tm, LstmState(c0, r0), clip,
+                             compute_dtype=BF16, time_major=True)
+        r32, fin32 = lstm_scan(p, x_tm, LstmState(c0, r0), clip,
+                               time_major=True)
+        rtc, ctc = li.lstm_infer_tc_plain(p, x_tm, c0, r0, clip, sms=sms,
+                                          tc=True)
+    misses = [_near_mirror("K5 r", r, rtc, rp, r32),
+              _near_mirror("K5 c_T", fin.c, ctc, finp.c, fin32.c)]
+    misses = [m for m in misses if m is not None]
+    assert not misses, "\n".join(misses)

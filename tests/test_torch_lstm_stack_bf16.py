@@ -14,6 +14,7 @@ same inputs. The JAX dtype is a module global, restored to None in a
 CUDA kernels to their bf16 plain versions on the card.
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -379,20 +380,29 @@ def test_cuda_bf16_kernels_match_plain_and_mirrors(cuda_device, dims, tb):
     assert not misses, "\n".join(misses)
 
 
+# chip_smoke.py's TC_SHARE: a bf16 kernel lies within this share of the
+# bf16-vs-f32 distance of its tc-exact mirror (its tiles, its tensor
+# cores' sums by ops/tc_sum.py's model, which phase 3e holds to the card
+# bit for bit, and its cell math as nvcc fuses it)
+TC_SHARE = 0.02
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("I,w", [(40, 0.3), (1024, 0.04), (1024, 0.3)])
 def test_cuda_bf16_kernels_by_the_cpu_order_witness(cuda_device, I, w):
     """K6 bf16 and K7 bf16 at the deep widths (S=8, T=4, tb=2) with the
     weights uniform in +-w (make()'s 0.3, the deep configuration's 0.04)
     and a wide input (I=1024: K6's xw1 on the wgmma route, K7's layer-2
-    gate slice in device memory), by chip_smoke.py's bf16 rule with a
-    second noise witness, as its phase 3d holds K1 bf16 on one stream:
-    error <= max(0.1 x distance, 2 x noise), the noise the larger of the
-    f64 sum's and the CPU's f32 order's distance from the plain version
-    on the card. There the f64 sum's noise alone is below what another
-    valid f32 order moves: by it alone K6's gifo1 (K1 bf16's code) read
-    0.113 of the distance at +-0.3, I=40 (PERF.md, section 7). Every
-    output's ratios are printed; launch counts exact."""
+    gate slice in device memory), by chip_smoke.py's bf16 rule with two
+    more noise witnesses, as its phase 3d holds every bf16 kernel: error
+    <= max(0.1 x distance, 2 x noise), the noise the largest of the f64
+    sum's, the CPU's f32 order's and the tc-exact mirror's distance from
+    the plain version on the card; and each kernel within TC_SHARE of
+    the distance from its tc-exact mirror (ROADMAP C.4: at +-0.3, I=40
+    the kernels sit 0.11-0.19 of the distance off the plain version, the
+    f64 sum and the CPU order at most 0.0103, and the tc-exact mirror,
+    the sums the card's tensor cores make, where the kernels are).
+    Every output's ratios are printed; launch counts exact."""
     S, T, C, R, tb = 8, 4, 800, 512, 2
     _, port = make(seed=97, s=S, t=T, i=I, c=C, r=R, device=cuda_device)
     with torch.no_grad():
@@ -400,6 +410,7 @@ def test_cuda_bf16_kernels_by_the_cpu_order_witness(cuda_device, I, w):
             v.mul_(w / 0.3)
     cpu = tuple(type(t)(*(v.cpu() for v in t)) if isinstance(t, tuple)
                 else t.cpu() for t in port)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     ls.reset_counts()
     k6 = ls.lstm_stack_fwd2(*port, CLIP, tb=tb, compute_dtype=BF16)
     r2, f1, f2 = ls.lstm_stack_infer2(*port, CLIP, tb=tb, compute_dtype=BF16)
@@ -412,28 +423,35 @@ def test_cuda_bf16_kernels_by_the_cpu_order_witness(cuda_device, I, w):
 
     assert torch.equal(f2.r, r2[T - 1])
     misses = []
-    for what, got, plain, pick, names in (
-            ("K6", k6, ls.lstm_stack_fwd2_plain, tuple, NAMES),
-            ("K7", (r2, f1.c, f1.r, f2.c), ls.lstm_stack_infer2_plain, parts,
-             ("r2", "c1T", "r1T", "c2T"))):
+    for what, got, plain, mirror, pick, names in (
+            ("K6", k6, ls.lstm_stack_fwd2_plain, ls.lstm_stack_fwd2_tc_plain,
+             tuple, NAMES),
+            ("K7", (r2, f1.c, f1.r, f2.c), ls.lstm_stack_infer2_plain,
+             functools.partial(ls.lstm_stack_infer2_tc_plain, sms=sms),
+             parts, ("r2", "c1T", "r1T", "c2T"))):
         ref = pick(plain(*port, CLIP, compute_dtype=BF16))
         ref32 = pick(plain(*port, CLIP))
         ref64 = pick(plain(*_f64(port), CLIP, compute_dtype=BF16))
         other = pick(plain(*cpu, CLIP, compute_dtype=BF16))
-        for name, a, b, c, d, o in zip(names, got, ref, ref32, ref64,
-                                       other):
-            a, b, c, d, o = (np.asarray(t.double().cpu())
-                             for t in (a, b, c, d, o))
+        tc = pick(mirror(*port, CLIP, tc=True))
+        for name, a, b, c, d, o, m in zip(names, got, ref, ref32, ref64,
+                                          other, tc):
+            a, b, c, d, o, m = (np.asarray(t.double().cpu())
+                                for t in (a, b, c, d, o, m))
             err, dist = rms(a - b), rms(b - c)
-            noise, wit = rms(d - b), rms(o - b)
+            noise, wit, tcw = rms(d - b), rms(o - b), rms(m - b)
             assert np.isfinite(a).all() and dist > 1e-6 * rms(b), name
             line = (f"{what} {name} I={I} w={w}: error / distance "
                     f"{err / dist:.4f}, f64 noise / distance "
                     f"{noise / dist:.4f}, CPU-order witness / distance "
-                    f"{wit / dist:.4f}")
+                    f"{wit / dist:.4f}, tc-exact witness / distance "
+                    f"{tcw / dist:.4f}, kernel against its tc-exact mirror "
+                    f"/ distance {rms(a - m) / dist:.4f}")
             print(line)
-            if not err <= max(SHARE * dist, 2.0 * max(noise, wit)):
+            if not err <= max(SHARE * dist, 2.0 * max(noise, wit, tcw)):
                 misses.append(line)
+            if not rms(a - m) <= TC_SHARE * dist:
+                misses.append(line + " (off its tc-exact mirror)")
     # the two kernels' r2 against each other (both on mma.sync), beside
     # their distance from the plain version
     ref = ls.lstm_stack_infer2_plain(*port, CLIP, compute_dtype=BF16)[0]
@@ -442,6 +460,49 @@ def test_cuda_bf16_kernels_by_the_cpu_order_witness(cuda_device, I, w):
     print(f"K7 r2 against K6 r2 I={I} w={w}: / distance "
           f"{rms(np.asarray((r2 - k6[5]).double().cpu())) / dist:.4f}")
     assert not misses, "\n".join(misses)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dims", [("K6", (512, 20, 40, 800, 512)),
+                                         ("K7", (8, 20, 40, 800, 512))])
+def test_cuda_stack_bf16_kernels_match_their_tc_mirrors_at_full_width(
+        cuda_device, kernel, dims):
+    """At the deep configuration's widths and weight scale (+-0.04, cell
+    clip 50): K6 bf16 at S=512, T=20 and K7 bf16 at S=8, T=20 (its
+    mirror walks the plan CTA by CTA) within TC_SHARE of the distance of
+    their tc-exact mirrors."""
+    S, T, I, C, R = dims
+    _, port = make(seed=98, s=S, t=T, i=I, c=C, r=R, device=cuda_device)
+    with torch.no_grad():
+        for v in (*port[0], *port[1]):
+            v.mul_(0.04 / 0.3)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+
+    def parts(o):     # phase 3d's K7 outputs (r2T is r2's last row)
+        return o if kernel == "K6" else (o[0], o[1].c, o[1].r, o[2].c)
+
+    if kernel == "K6":
+        got = ls.lstm_stack_fwd2(*port, 50.0, tb=5, compute_dtype=BF16)
+        mirror = ls.lstm_stack_fwd2_tc_plain(*port, 50.0, tc=True)
+        plain = ls.lstm_stack_fwd2_plain
+    else:
+        got = ls.lstm_stack_infer2(*port, 50.0, tb=5, compute_dtype=BF16)
+        mirror = ls.lstm_stack_infer2_tc_plain(*port, 50.0, sms=sms,
+                                               tc=True)
+        plain = ls.lstm_stack_infer2_plain
+    torch.cuda.synchronize()
+    got, mirror = parts(got), parts(mirror)
+    ref = parts(plain(*port, 50.0, compute_dtype=BF16))
+    ref32 = parts(plain(*port, 50.0))
+    misses = []
+    for a, m, b, c in zip(got, mirror, ref, ref32):
+        a, m, b, c = (np.asarray(t.double().cpu()) for t in (a, m, b, c))
+        ratio = rms(a - m) / rms(b - c)
+        print(f"{kernel} at {dims}: kernel against its tc-exact mirror / "
+              f"distance {ratio:.4f}")
+        if not ratio <= TC_SHARE:
+            misses.append(f"{ratio:.4f}")
+    assert not misses, misses
 
 
 @pytest.mark.gpu
