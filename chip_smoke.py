@@ -2160,7 +2160,7 @@ def stack_counted(what, fn, key, predicted):
     counts.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    got = {k: v for k, v in counts.snapshot_counts().items() if v}
+    got = {k: v for k, v in counts.launch_counts().items() if v}
     if got != {key: predicted}:
         fail(f"{what}: counts {got}, predicted {{{key!r}: {predicted}}}")
     return out
@@ -2363,9 +2363,9 @@ def phase_stack_kernels():
     torch.cuda.synchronize()
     rc = bw.main(["512", str(G), str(reps), "ab"])
     torch.cuda.synchronize()
-    launches = {k: v for k, v in counts.snapshot_counts().items()
+    launches = {k: v for k, v in counts.launch_counts().items()
                 if k in predicted}
-    others = {k: v for k, v in counts.snapshot_counts().items()
+    others = {k: v for k, v in counts.launch_counts().items()
               if v and k not in predicted}
     if rc != 0:
         fail(f"bench_wavefront exited {rc}")
@@ -2719,7 +2719,7 @@ def phase_grouped(work: str, p5: dict) -> None:
     import contextlib
     import io
     import torch
-    import kaldi_lstm_tpu_torch.train.trainer as trainer
+    from kaldi_lstm_tpu_torch.utils.timer import PROFILE
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
     feats, post, common = p5["feats"], p5["post"], p5["common"]
     steps = len(p5["batches"])
@@ -2741,11 +2741,12 @@ def phase_grouped(work: str, p5: dict) -> None:
              prof_dir] + common)
         return rc
 
-    trainer.GRAPH_REPLAYS = 0
     counted(f"train_lstm_streams --step-group {GROUP} --profile-dir "
             f"({steps} steps)", p5["predicted"], train)
-    if trainer.GRAPH_REPLAYS != full - 1:
-        fail(f"grouped training replayed {trainer.GRAPH_REPLAYS} graphs, "
+    # counted() zeroes the counters, step.replays with them
+    replays = PROFILE.counters["step.replays"]
+    if replays != full - 1:
+        fail(f"grouped training replayed {replays} graphs, "
              f"not {full - 1}")
     traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
     if len(traces) != 1 or not traces[0].endswith(".pt.trace.json"):
@@ -2782,11 +2783,11 @@ def phase_grouped(work: str, p5: dict) -> None:
              f"--step-group={GROUP}"] + common)
         return rc
 
-    trainer.GRAPH_REPLAYS = 0
     counted(f"train_lstm_streams --cross-validate=true --step-group {GROUP}",
             {"lstmp_infer": steps, "xent_affine_fwd": 2 * steps}, cv_run)
-    if trainer.GRAPH_REPLAYS != full - 1:
-        fail(f"the grouped CV pass replayed {trainer.GRAPH_REPLAYS} graphs, "
+    replays = PROFILE.counters["step.replays"]
+    if replays != full - 1:
+        fail(f"the grouped CV pass replayed {replays} graphs, "
              f"not {full - 1}")
     log(f"  grouped CV AvgLoss {res['cv'].avg_loss()!r} vs phase 5 "
         f"{p5['cv'].avg_loss()!r}")
@@ -2830,7 +2831,7 @@ def phase_bf16_path(work: str, p5: dict) -> dict:
     and 16 (the recipes' default), each with the counts zeroed just
     before and read just after; returns the group-1 run's counts."""
     import torch
-    import kaldi_lstm_tpu_torch.train.trainer as trainer
+    from kaldi_lstm_tpu_torch.utils.timer import PROFILE
     from kaldi_lstm_tpu_torch.ops.lstm_train import (
         bwd_launches,
         fwd_launches,
@@ -2874,13 +2875,12 @@ def phase_bf16_path(work: str, p5: dict) -> dict:
                  "true", f"--step-group={group}"] + common)
             return rc
 
-        trainer.GRAPH_REPLAYS = 0
         got, wall = counted(f"train_lstm_streams --bf16 true --step-group "
                             f"{group}: the epoch, then its CV pass",
                             predicted, run)
         f32 = {k: got[k] for k in f32_keys}
         log(f"    f32 launches of K1-K5: {f32}; graph replays "
-            f"{trainer.GRAPH_REPLAYS}")
+            f"{got['step.replays']}")
         if any(f32.values()):
             fail(f"the bf16 run at group {group} launched f32 kernels")
         traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
@@ -4176,7 +4176,9 @@ def phase_align(work: str, p7: dict) -> dict:
     only_k5 = {"lstmp_infer": n_batches}
 
     def k5_only(what, got):
-        others = {k: v for k, v in got.items() if k not in only_k5 and v}
+        from kaldi_lstm_tpu_torch.ops.counts import launch_counts
+        others = {k: got[k] for k in launch_counts()
+                  if k not in only_k5 and got[k]}
         if others:
             fail(f"{what} launched other kernels or plain versions: {others}")
 
@@ -5095,9 +5097,12 @@ def counted_only(what: str, predicted: dict, main, argv
     def call():
         rc, out["log"] = run_logged(main, argv)
         return rc
+    from kaldi_lstm_tpu_torch.ops.counts import launch_counts
     got, wall = counted(what, predicted, call)
-    others = {k: v for k, v in got.items()
-              if v and k not in predicted and not k.startswith("plain.")}
+    # the launch counters only: the program's own (epoch.*, score.*, ...)
+    # count work, not kernels
+    others = {k: got[k] for k in launch_counts() if got[k]
+              and k not in predicted and not k.startswith("plain.")}
     if others:
         fail(f"{what} launched kernels outside the prediction: {others}")
     return got, wall, out["log"]
@@ -6087,7 +6092,7 @@ def mesh_rank(mode: str, rank: int, port: int, work: str) -> int:
     the times."""
     import torch
     import torch.distributed as dist
-    from kaldi_lstm_tpu_torch.ops.counts import reset_counts, snapshot_counts
+    from kaldi_lstm_tpu_torch.ops.counts import launch_counts, reset_counts
     from kaldi_lstm_tpu_torch.parallel import mesh as mesh_mod
     from kaldi_lstm_tpu_torch.parallel import sharded_trainer
     from kaldi_lstm_tpu_torch.tools import train_lstm_streams
@@ -6150,7 +6155,7 @@ def mesh_rank(mode: str, rank: int, port: int, work: str) -> int:
     rc, tr = train_lstm_streams.run_main(base[:3] + [model_out] + base[3:]
                                          + multi)
     torch.cuda.synchronize()
-    train_counts = snapshot_counts()
+    train_counts = launch_counts()
     if rc != 0:
         return rc
     train_calls, train_coll = list(calls), coll["calls"]
@@ -6159,7 +6164,7 @@ def mesh_rank(mode: str, rank: int, port: int, work: str) -> int:
         [base[0], base[1], model_out] + base[3:] + multi
         + ["--cross-validate=true"])
     torch.cuda.synchronize()
-    cv_counts = snapshot_counts()
+    cv_counts = launch_counts()
     if rc != 0:
         return rc
     flat = np.concatenate([t.detach().cpu().numpy().ravel()

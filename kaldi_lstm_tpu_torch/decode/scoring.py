@@ -7,6 +7,16 @@ log-prior subtraction, `batch_utts` utterances per dispatch with lengths
 padded to `length_bucket` multiples (padding repeats the last frame, so
 the padded frames change no output row of a causal net with a clamped
 time shift). tools/nnet_forward.py writes the matrices.
+
+The scorer feeds `utils.timer.PROFILE` on its caller's thread: the spans
+`score.stage` (padding and pinning a batch), `score.dispatch` (its
+upload, forward and the queued copy back), `score.fetch_wait` (waiting
+for that copy) and `score.emit` (each utterance's rows, closed before
+the rows are yielded), all but the wait with the batch's number as
+their argument in a profiler trace; and the counters `score.batches`,
+`score.frames` (unpadded), `score.frame_slots` (B x T_b a batch) and
+`score.pinned_bytes` (pinned host bytes requested, input and result;
+the caching host allocator may serve them from freed blocks).
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 from kaldi_lstm_tpu_torch.io.kaldi_io import KaldiInput, read_vector
 from kaldi_lstm_tpu_torch.models import Nnet
 from kaldi_lstm_tpu_torch.utils import WARN
+from kaldi_lstm_tpu_torch.utils.timer import PROFILE
 from kaldi_lstm_tpu_torch.utils.tree import params_device
 
 
@@ -96,9 +107,11 @@ def fetch_block(y, top_p: int, num_pdfs: int,
                 floor_margin: float) -> np.ndarray:
     """Bring a scoring result to the host as a dense [B, T, K] float32
     block, rebuilt from the pruned (vals, idx) pair when `top_p` > 0. On
-    CUDA `y` is a PendingFetch: wait for its copy only."""
+    CUDA `y` is a PendingFetch: wait for its copy only, in the span
+    `score.fetch_wait`."""
     if isinstance(y, PendingFetch):
-        y.done.synchronize()
+        with PROFILE.section("score.fetch_wait"):
+            y.done.synchronize()
         y = y.host if top_p > 0 else y.host[0]
     if top_p <= 0:
         return y.cpu().float().numpy()
@@ -158,6 +171,9 @@ class AmScorer:
         self._lp_dev = None if log_prior is None else \
             torch.tensor(log_prior, dtype=torch.float32, device=self.device)
         self._copy_stream = None
+        # batches dispatched and emitted so far, in the same order: the
+        # argument of a batch's spans
+        self.dispatched = self.emitted = 0
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor):
@@ -201,30 +217,46 @@ class AmScorer:
     def _dispatch(self, group):
         """Stage a group and queue its device computation (async); on
         CUDA also queue the copy of its result to the host."""
-        T = -(-max(f.shape[0] for _, f in group) // self.bucket) \
-            * self.bucket
-        D = group[0][1].shape[1]
-        # always [B, ...]: extra rows are zeros, never written out
-        x = np.zeros((self.B, T, D), np.float32)
-        for i, (_, f) in enumerate(group):
-            x[i, :f.shape[0]] = f
-            if f.shape[0]:
-                x[i, f.shape[0]:] = f[-1]  # repeat last frame as padding
-        xt = torch.from_numpy(x)
-        if self.device.type == "cuda":
-            # pinned staging makes the copy asynchronous, so queuing
-            # batch k+1 does not wait for batch k to finish
-            xt = xt.pin_memory()
+        n = self.dispatched
+        self.dispatched += 1
+        cuda = self.device.type == "cuda"
+        with PROFILE.section("score.stage", n):
+            T = -(-max(f.shape[0] for _, f in group) // self.bucket) \
+                * self.bucket
+            D = group[0][1].shape[1]
+            # always [B, ...]: extra rows are zeros, never written out
+            x = np.zeros((self.B, T, D), np.float32)
+            for i, (_, f) in enumerate(group):
+                x[i, :f.shape[0]] = f
+                if f.shape[0]:
+                    x[i, f.shape[0]:] = f[-1]  # repeat last frame as padding
+            xt = torch.from_numpy(x)
+            if cuda:
+                # pinned staging makes the copy asynchronous, so queuing
+                # batch k+1 does not wait for batch k to finish
+                xt = xt.pin_memory()
+        PROFILE.add("score.batches")
+        PROFILE.add("score.frames", sum(f.shape[0] for _, f in group))
+        PROFILE.add("score.frame_slots", self.B * T)
+        with PROFILE.section("score.dispatch", n):
+            if not cuda:
+                return self._forward(xt.to(self.device))
             begin = torch.cuda.Event(enable_timing=True)
             begin.record(torch.cuda.current_stream(self.device))
             xt = xt.to(self.device, non_blocking=True)
-            return self._copy_async(self._forward(xt), begin)
-        return self._forward(xt.to(self.device))
+            y = self._copy_async(self._forward(xt), begin)
+        PROFILE.add("score.pinned_bytes",
+                    x.nbytes + sum(h.nbytes for h in y.host))
+        return y
 
     def _emit(self, group, y_dev) -> Iterator[tuple[str, np.ndarray]]:
+        n = self.emitted
+        self.emitted += 1
         out = self._fetch(y_dev)
         for i, (key, f) in enumerate(group):
-            yield key, self._postprocess(out[i, :f.shape[0]])
+            with PROFILE.section("score.emit", n):
+                rows = self._postprocess(out[i, :f.shape[0]])
+            yield key, rows
 
     def score_stream(self, reader: Iterable
                      ) -> Iterator[tuple[str, np.ndarray]]:

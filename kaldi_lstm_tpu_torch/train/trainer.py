@@ -25,7 +25,10 @@ on a prefetch thread, the stacking and pinning of the next group on a
 second one, non-blocking uploads on the compute stream, statistics kept
 on the device and fetched once per `STATS_FLUSH` blocks (with the
 non-finite check at each fetch), progress logs, periodic model dumps,
-the `--verbose` moment dumps (`make_monitor_fn`) and the epoch profile.
+the `--verbose` moment dumps (`make_monitor_fn`) and the epoch profile:
+the spans and counters it and the grouped step feed to the process-wide
+registry (`utils.timer.PROFILE`), returned per epoch in
+`EpochResult.profile`.
 With a `plan` it runs the sharded steps of ``parallel/`` on this rank's
 part of a ('data', 'model') mesh.
 """
@@ -45,7 +48,7 @@ from kaldi_lstm_tpu_torch.models.components import (
     moment_statistics,
 )
 from kaldi_lstm_tpu_torch.models.nnet import Nnet
-from kaldi_lstm_tpu_torch.ops.counts import add_counts, snapshot_counts
+from kaldi_lstm_tpu_torch.ops.counts import add_counts, launch_counts
 from kaldi_lstm_tpu_torch.ops.xent_affine import fused_affine_xent
 from kaldi_lstm_tpu_torch.train.loss import (
     LossAux,
@@ -64,6 +67,7 @@ from kaldi_lstm_tpu_torch.train.streams import (
     StreamScheduler,
 )
 from kaldi_lstm_tpu_torch.utils import LOG, VLOG
+from kaldi_lstm_tpu_torch.utils.timer import PROFILE
 from kaldi_lstm_tpu_torch.utils.tree import (
     params_device,
     tree_leaves,
@@ -324,11 +328,6 @@ def flush_aux(pending: list, stats: LossStats, log_fn=None) -> np.ndarray:
     return block
 
 
-# replays of grouped-step graphs in this process (a caller can show that
-# a grouped epoch replayed and did not run eagerly)
-GRAPH_REPLAYS = 0
-
-
 class _GroupedStep:
     """B consecutive steps per call, over batch tensors with a leading
     [B] axis: (params, opt_state, states, transf_params, feats, tgt_ids,
@@ -349,7 +348,12 @@ class _GroupedStep:
     replay draws fresh masks, the ones the plain steps would draw.
 
     `capture_ms` and `pool_bytes` say what the capture cost: its wall
-    time and the device memory the graph's private pool took."""
+    time and the device memory the graph's private pool took. On the
+    card each call is timed in `utils.timer.PROFILE`'s spans
+    `step.upload`, `step.warm_up`, `step.capture` and `step.replay`, and
+    its counter `step.replays` counts the replays (a caller can show that
+    a grouped epoch replayed and did not run eagerly); no span is opened
+    inside the captured body."""
 
     def __init__(self, nnet: Nnet, opts: TrainOptions,
                  transf: Optional[Nnet], crossvalidate: bool, device,
@@ -380,7 +384,6 @@ class _GroupedStep:
     def __call__(self, params, opt_state, states, transf_params, feats,
                  tgt_ids, tgt_weights, mask, reset_flags, learn_rate,
                  rng=None):
-        global GRAPH_REPLAYS
         batches = (feats, tgt_ids, tgt_weights, mask, reset_flags)
         if any(t.shape[0] != self.B for t in batches):
             raise ValueError(f"grouped step: every batch tensor needs a "
@@ -391,22 +394,24 @@ class _GroupedStep:
                                batches, learn_rate, rng)
         if self.calls == 1:
             self._allocate(batches, states)
-        for buf, t in zip(self._inputs, batches):
-            if buf.shape != t.shape or buf.dtype != t.dtype:
-                raise ValueError(
-                    f"grouped step: batch {tuple(t.shape)} {t.dtype} "
-                    f"differs from the captured {tuple(buf.shape)} "
-                    f"{buf.dtype}")
-            buf.copy_(t, non_blocking=True)
-        self._lr.copy_(learn_rate)
-        if states is not self._states:
-            for dst, src in zip(tree_leaves(self._states),
-                                tree_leaves(states)):
-                dst.copy_(src)
+        with PROFILE.section("step.upload"):
+            for buf, t in zip(self._inputs, batches):
+                if buf.shape != t.shape or buf.dtype != t.dtype:
+                    raise ValueError(
+                        f"grouped step: batch {tuple(t.shape)} {t.dtype} "
+                        f"differs from the captured {tuple(buf.shape)} "
+                        f"{buf.dtype}")
+                buf.copy_(t, non_blocking=True)
+            self._lr.copy_(learn_rate)
+            if states is not self._states:
+                for dst, src in zip(tree_leaves(self._states),
+                                    tree_leaves(states)):
+                    dst.copy_(src)
         bound = tree_leaves((params, opt_state, transf_params))
         if self.calls == 1:
             self._bound = bound
-            self._warm_up(params, opt_state, transf_params, rng)
+            with PROFILE.section("step.warm_up"):
+                self._warm_up(params, opt_state, transf_params, rng)
         else:
             if (len(bound) != len(self._bound)
                     or any(a is not b for a, b in zip(bound, self._bound))):
@@ -414,10 +419,12 @@ class _GroupedStep:
                                  "momentum and transform tensors of its "
                                  "first call; pass those same tensors")
             if self.graph is None:
-                self._capture(params, opt_state, transf_params, rng)
-            self.graph.replay()
+                with PROFILE.section("step.capture"):
+                    self._capture(params, opt_state, transf_params, rng)
+            with PROFILE.section("step.replay"):
+                self.graph.replay()
             add_counts(self._delta)
-            GRAPH_REPLAYS += 1
+            PROFILE.add("step.replays")
         return params, opt_state, self._states, self._aux.clone()
 
     def _allocate(self, batches, states) -> None:
@@ -454,7 +461,7 @@ class _GroupedStep:
         # a captured graph bumps the launch counters once, at capture;
         # take that back and add the capture's delta at every replay, so
         # the counts stay per launch
-        before = snapshot_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         if rng is not None:
@@ -466,7 +473,7 @@ class _GroupedStep:
         torch.cuda.synchronize(self.device)
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        after = snapshot_counts()
+        after = launch_counts()
         self._delta = {k: after[k] - before[k] for k in after}
         add_counts({k: -d for k, d in self._delta.items()})
         self.graph = graph
@@ -604,9 +611,12 @@ class EpochResult(NamedTuple):
     num_done: int
     total_frames: float
     elapsed: float
+    # the epoch's change in utils.timer.PROFILE: span seconds and counters
+    profile: Optional[dict] = None
 
 
 STATS_FLUSH = 32  # aux blocks of device stats fetched per host transfer
+REPORT_EVERY = 1000  # utterances between speed reports (:263-267)
 
 
 def _flush_stats(pending: list, stats: LossStats, scheduler,
@@ -631,7 +641,11 @@ def _batch_arrays(b: StreamBatch) -> tuple:
 def _host_tensors(arrays, pin: bool) -> tuple[torch.Tensor, ...]:
     """Host tensors over numpy arrays, in pinned memory for a card."""
     ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-    return tuple(t.pin_memory() for t in ts) if pin else ts
+    return _pinned(ts) if pin else ts
+
+
+def _pinned(ts: tuple) -> tuple[torch.Tensor, ...]:
+    return tuple(t.pin_memory() for t in ts)
 
 
 def _to_device(host: tuple, device) -> tuple[torch.Tensor, ...]:
@@ -655,8 +669,24 @@ def place_batch(b: StreamBatch, device) -> tuple[torch.Tensor, ...]:
 def _stage_group(group: list, pin: bool) -> tuple[torch.Tensor, ...]:
     """The group's batches stacked along a leading [B] axis, on the host
     (pinned for a card); the grouped step copies them in."""
-    return _host_tensors([np.stack(a) for a in zip(
-        *(_batch_arrays(b) for b in group))], pin)
+    with PROFILE.section("stage.stack"):
+        host = _host_tensors([np.stack(a) for a in zip(
+            *(_batch_arrays(b) for b in group))], False)
+    if not pin:
+        return host
+    with PROFILE.section("stage.pin"):
+        return _pinned(host)
+
+
+def _stage_batches(group: list, pin: bool) -> list:
+    """Each batch of the group as its own host tensors (pinned for a
+    card), for the per-batch step."""
+    with PROFILE.section("stage.stack"):
+        hosts = [_host_tensors(_batch_arrays(b), False) for b in group]
+    if not pin:
+        return hosts
+    with PROFILE.section("stage.pin"):
+        return [_pinned(h) for h in hosts]
 
 
 def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
@@ -742,6 +772,7 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     rng = torch.Generator(device=device).manual_seed(seed) \
         if use_dropout else None
 
+    before = PROFILE.snapshot()
     t_start = time.perf_counter()
     total_frames = 0.0
     consumed_done = 0   # utterances in trained batches (the scheduler
@@ -751,11 +782,21 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
     first_batch = True
     num_steps = 0
     pending: list = []  # [n, 4] device blocks of per-step stats
-    # per-stage wall: `stage` stacks and pins groups (on the staging
-    # thread, overlapped), `wait` is this thread starving on it,
-    # `dispatch` the step calls with their uploads, `stats` the blocking
-    # stats fetches; logged at the end under -v 2
-    prof = {"stage": 0.0, "wait": 0.0, "dispatch": 0.0, "stats": 0.0}
+
+    def drain(trigger: str) -> None:
+        """Fetch the pending stats (a wait for every queued kernel on a
+        card) and, at the end, synchronize: the span `epoch.sync` and
+        one count of `epoch.sync.<trigger>`, where there was anything to
+        fetch or wait for."""
+        nonlocal total_frames
+        if not pending and trigger != "end":
+            return
+        with PROFILE.section("epoch.sync"):
+            total_frames = _flush_stats(pending, stats, scheduler,
+                                        total_frames)
+            if trigger == "end" and cuda:
+                torch.cuda.synchronize(device)
+        PROFILE.add("epoch.sync." + trigger)
 
     def batched_source():
         """Lists of up to `step_group` StreamBatches; the scheduler runs
@@ -775,16 +816,13 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
 
     def staged_source():
         """(group, kind, host tensors): kind 'g' is one grouped step,
-        's' per-batch steps."""
+        's' per-batch steps. Stacking and pinning are the spans
+        `stage.stack` and `stage.pin`."""
         for group in batched_source():
-            t0 = time.perf_counter()
             if use_group and len(group) == step_group:
-                item = (group, "g", _stage_group(group, cuda))
+                yield group, "g", _stage_group(group, cuda)
             else:
-                item = (group, "s", [_host_tensors(_batch_arrays(b), cuda)
-                                     for b in group])
-            prof["stage"] += time.perf_counter() - t0
-            yield item
+                yield group, "s", _stage_batches(group, cuda)
 
     # second pipeline stage: stacking and pinning run on their own
     # thread; the uploads stay on this thread's compute stream
@@ -792,44 +830,47 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
                   else PrefetchIterator(staged_source(), depth=2))
 
     while True:
-        t0 = time.perf_counter()
-        item = next(src_it, None)
-        prof["wait"] += time.perf_counter() - t0
+        with PROFILE.section("epoch.wait"):
+            item = next(src_it, None)
         if item is None:
             break
-        group, kind, staged = item
         if first_batch and monitor_verbose >= 1:
             _monitor_first_batch(nnet, params, transf, transf_params,
-                                 group[0], opts, crossvalidate)
+                                 item[0][0], opts, crossvalidate)
         first_batch = False
-        prev_monitor_frames = monitor_frames
-        monitor_frames += sum(int(g.mask.sum()) for g in group)
-        consumed_done += sum(g.num_new_utts for g in group)
-        t0 = time.perf_counter()
-        if kind == "g":
-            if plan is not None:  # the loop of sharded steps reads them
-                staged = _to_device(staged, device)
-            params, opt_state, states, aux = gstep(
-                params, opt_state, states, transf_params, *staged, lr,
-                rng=rng)
-            pending.append(aux)
-        else:
-            for host in staged:
-                if step is None and plan is not None:
-                    step = make_sharded_train_step(
-                        nnet, opts, plan, transf, crossvalidate,
-                        states_example=global_states)
-                elif step is None:  # a grouped epoch's tail
-                    step = make_train_step(nnet, opts, transf,
-                                           crossvalidate, device=device)
-                params, opt_state, states, aux = step(
-                    params, opt_state, states, transf_params,
-                    *_to_device(host, device), lr, rng=rng)
-                # stats stay on the device and come back in blocks: a
-                # per-step copy would stall the host every step
-                pending.append(pack_aux(aux))
-        num_steps += len(group)
-        prof["dispatch"] += time.perf_counter() - t0
+        # the group's bookkeeping, its step calls and their uploads; the
+        # unpacking frees the last group's pinned buffers (the caching
+        # host allocator records an event for each), which takes
+        # milliseconds while the staging thread pins the next group
+        with PROFILE.section("epoch.dispatch"):
+            group, kind, staged = item
+            prev_monitor_frames = monitor_frames
+            monitor_frames += sum(int(g.mask.sum()) for g in group)
+            consumed_done += sum(g.num_new_utts for g in group)
+            if kind == "g":
+                if plan is not None:  # the loop of sharded steps reads them
+                    staged = _to_device(staged, device)
+                params, opt_state, states, aux = gstep(
+                    params, opt_state, states, transf_params, *staged, lr,
+                    rng=rng)
+                pending.append(aux)
+            else:
+                for host in staged:
+                    if step is None and plan is not None:
+                        step = make_sharded_train_step(
+                            nnet, opts, plan, transf, crossvalidate,
+                            states_example=global_states)
+                    elif step is None:  # a grouped epoch's tail
+                        step = make_train_step(nnet, opts, transf,
+                                               crossvalidate, device=device)
+                    params, opt_state, states, aux = step(
+                        params, opt_state, states, transf_params,
+                        *_to_device(host, device), lr, rng=rng)
+                    # stats stay on the device and come back in blocks: a
+                    # per-step copy would stall the host every step
+                    pending.append(pack_aux(aux))
+            num_steps += len(group)
+            PROFILE.add("epoch.steps", len(group))
 
         if (monitor_verbose >= 2
                 and prev_monitor_frames // 25000
@@ -842,17 +883,11 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
                                  total_frames=monitor_frames, level=2)
 
         if len(pending) >= STATS_FLUSH:
-            t0 = time.perf_counter()
-            total_frames = _flush_stats(pending, stats, scheduler,
-                                        total_frames)
-            prof["stats"] += time.perf_counter() - t0
-        # speed report every 1000 utterances (:263-267)
-        if consumed_done - last_report_done >= 1000:
-            t0 = time.perf_counter()
-            total_frames = _flush_stats(pending, stats, scheduler,
-                                        total_frames)
-            prof["stats"] += time.perf_counter() - t0
-            last_report_done = consumed_done - consumed_done % 1000
+            drain("block")
+        # speed report every REPORT_EVERY utterances (:263-267)
+        if consumed_done - last_report_done >= REPORT_EVERY:
+            drain("report")
+            last_report_done = consumed_done - consumed_done % REPORT_EVERY
             t = time.perf_counter() - t_start
             VLOG(1, f"After {consumed_done} utterances: time elapsed = "
                     f"{t / 60:.2f} min; processed {total_frames / t:.0f} "
@@ -865,24 +900,28 @@ def run_epoch(nnet: Nnet, params, scheduler: StreamScheduler,
             last_dump_done = dump_progress - dump_progress % dump_interval
             if not crossvalidate:
                 dump_fn(params, consumed_done)
-    t0 = time.perf_counter()
-    total_frames = _flush_stats(pending, stats, scheduler, total_frames)
-    prof["stats"] += time.perf_counter() - t0
-    if cuda:
-        torch.cuda.synchronize(device)
+    drain("end")
     elapsed = time.perf_counter() - t_start
+    profile = PROFILE.since(before)
     if monitor_verbose >= 2:
-        other = elapsed - prof["wait"] - prof["dispatch"] - prof["stats"]
+        # `wait` is this thread starving on the staging thread,
+        # `dispatch` the step calls with their uploads, `stats` the
+        # blocking stats fetches; stacking and pinning overlap them
+        wait, dispatch, sync = (profile.get(k, 0.0) for k in (
+            "epoch.wait", "epoch.dispatch", "epoch.sync"))
+        stage = profile.get("stage.stack", 0.0) + profile.get("stage.pin",
+                                                              0.0)
+        other = elapsed - wait - dispatch - sync
         graph = ""
         # the grouped sharded step is a loop, not a captured graph
         if getattr(gstep, "graph", None) is not None:
             graph = (f"; graph capture {gstep.capture_ms:.1f} ms, pool "
                      f"{gstep.pool_bytes / 2**20:.1f} MB")
-        LOG(f"epoch profile ({num_steps} steps, {elapsed:.2f}s wall): "
-            f"wait_data {prof['wait']:.2f}s, dispatch "
-            f"{prof['dispatch']:.2f}s, stats_fetch {prof['stats']:.2f}s, "
-            f"other_host {other:.2f}s (stage+pin {prof['stage']:.2f}s, "
-            f"overlapped){graph}")
+        LOG(f"epoch profile ({profile['epoch.steps']} steps, {elapsed:.2f}s "
+            f"wall): wait_data {wait:.2f}s, dispatch {dispatch:.2f}s, "
+            f"stats_fetch {sync:.2f}s, other_host {other:.2f}s (stage+pin "
+            f"{stage:.2f}s, overlapped){graph}")
     return EpochResult(params=params, opt_state=opt_state, stats=stats,
                        num_done=scheduler.num_done,
-                       total_frames=total_frames, elapsed=elapsed)
+                       total_frames=total_frames, elapsed=elapsed,
+                       profile=profile)

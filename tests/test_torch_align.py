@@ -489,13 +489,13 @@ def cuda_device():
 def test_nnet_align_on_the_card_equals_two_stage(cuda_device, am_corpus):
     """Fused on the card (K5, one launch per batch of 3) against
     nnet_forward on the card -> align_mapped, byte for byte."""
-    from kaldi_lstm_tpu_torch.ops.counts import reset_counts, snapshot_counts
+    from kaldi_lstm_tpu_torch.ops.counts import launch_counts, reset_counts
     from kaldi_lstm_tpu_torch.tools.nnet_align import main
     d = am_corpus
     two = _two_stage(d, "cuda", "cuda")
     reset_counts()
     assert main(_fused_argv(d, f"ark:{d}/fused_cuda.ark")) == 0
-    got = snapshot_counts()
+    got = launch_counts()
     assert got["lstmp_infer"] == -(-11 // 3)
     assert all(v == 0 for k, v in got.items() if k != "lstmp_infer")
     assert _read(f"{d}/fused_cuda.ark") == two

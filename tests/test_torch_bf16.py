@@ -514,7 +514,7 @@ def test_cli_bf16_matches_jax_cli(tmp_path, pallas_lstm, case):
                              + ["--bf16", "true", "--device", "cpu"])
     assert rc == 0
     assert counts.plain_calls() > 0 and not any(
-        v for k, v in counts.snapshot_counts().items()
+        v for k, v in counts.launch_counts().items()
         if not k.startswith("plain."))
     assert_stats_bf16_close(t16, j16, j32)
     assert_models_bf16_close(out["t"], out["j16"], out["j32"], model)
@@ -777,7 +777,7 @@ def test_grouped_bf16_step_matches_eager_bf16_steps(cuda_device, tmp_path,
         nnet.set_matmul_dtype(BF16)
         opt, states = init_momentum(params), nnet.init_states(S, "cuda")
         lr = torch.tensor(0.02, device="cuda")
-        before = counts.snapshot_counts()
+        before = counts.launch_counts()
         rows = []
         if grouped:
             g = make_grouped_train_step(nnet, opts, None, cv, device="cuda",
@@ -799,7 +799,7 @@ def test_grouped_bf16_step_matches_eager_bf16_steps(cuda_device, tmp_path,
                                                          states))],
                         torch.cat(rows),
                         {k: v - before[k]
-                         for k, v in counts.snapshot_counts().items()})
+                         for k, v in counts.launch_counts().items()})
     (pe, ae, ce), (pg, ag, cg) = out[False], out[True]
     for a, b in zip(pe, pg):
         assert torch.equal(a, b)

@@ -57,7 +57,7 @@ from kaldi_lstm_tpu_torch.io import kaldi_io as kio
 from kaldi_lstm_tpu_torch.models import Nnet
 from kaldi_lstm_tpu_torch.ops import lstm_infer as li
 from kaldi_lstm_tpu_torch.ops import lstm_train as lt
-from kaldi_lstm_tpu_torch.ops.counts import snapshot_counts
+from kaldi_lstm_tpu_torch.ops.counts import launch_counts
 from kaldi_lstm_tpu_torch.tools import nnet_debug_dump as t_dump
 from kaldi_lstm_tpu_torch.tools import train_lstm_streams as t_cli
 from kaldi_lstm_tpu_torch.train.loss import masked_xent_loss
@@ -515,7 +515,7 @@ def test_cuda_graph_replay_matches_eager_steps(tmp_path, case):
         lr = torch.tensor(0.02, device="cuda")
         rng = (torch.Generator(device="cuda").manual_seed(777)
                if case == "dropout" else None)
-        before = snapshot_counts()
+        before = launch_counts()
         rows = []
         if grouped:
             g = make_grouped_train_step(nnet, opts, None, cv,
@@ -539,7 +539,7 @@ def test_cuda_graph_replay_matches_eager_steps(tmp_path, case):
                                                          states))],
                         torch.cat(rows),
                         {k: v - before[k]
-                         for k, v in snapshot_counts().items()})
+                         for k, v in launch_counts().items()})
     (pe, ae, ce), (pg, ag, cg) = out[False], out[True]
     for a, b in zip(pe, pg):
         assert torch.equal(a, b)
